@@ -1,7 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), plain C entry point.
+// Flash-attention forward in float32 on the CUDA cores (sm_90a), plain C
+// entry point `flash_attn_fwd_f32`.
 //
 // Replaces the Pallas TPU kernel unast_tpu/ops/attention.py::_flash_fwd
-// (body _attn_kernel, driven through _kernel_with_prefetch). Computes
+// (body _attn_kernel, driven through _kernel_with_prefetch) for float32
+// inputs; bfloat16 inputs go to the tensor-core kernel of
+// flash_attn_fwd_wgmma.cu. Computes
 //   o = softmax(q k^T / sqrt(D) + mask) v
 // over q [B, Tq, H, D], k and v [B, Tk, H, D] and writes o [B, Tq, H, D].
 // Key j of batch row b is kept when j < kv_lens[b] and, if causal, when
@@ -25,21 +28,19 @@
 //     (min of kv_len, Tk and, if causal, the tile's last row + 1). Keys past
 //     that point carry weight exp(-1e9 - m) = 0 exactly, so the result is
 //     unchanged; the ragged Tq/Tk edges (815, 300) are masked here;
-//   - float32 and bfloat16 inputs, templated on D in {16, 32, 64, 128}.
+//   - float32 inputs, templated on D in {16, 32, 64, 128}.
 //
 // Precondition: every kv_len >= 1 (both Synthesizer paths guarantee it).
 // For a row with no visible key the TPU kernel's output depends on its
 // block padding; this kernel writes zeros there. Neither is a contract.
 //
-// What bounds it on an H100 SXM: at the ASR encoder shape B8 H4 T815 D64 in
-// bf16 the work is 4*B*H*T^2*D = 5.4 GFLOP per call, 5.5 us at 989 TFLOP/s
-// on the tensor cores, against 13.4 MB of q/k/v/o, 4 us at 3.35 TB/s: the
-// call is compute-bound with a bound of about 5.5 us. This kernel does its
-// products on the CUDA cores in float32 (67 TFLOP/s peak), so it cannot
-// come near that bound; warpgroup MMA (wgmma) fed by TMA comes in a later
-// change.
+// What bounds it on an H100 SXM: at B8 H4 T815 D64 in float32 the work is
+// 4*B*H*T^2*D = 5.4 GFLOP per call, 81 us at the CUDA cores' 67 TFLOP/s,
+// against 26.8 MB of q/k/v/o, 8 us at 3.35 TB/s: compute-bound. The
+// tensor cores would take float32 only as TF32, which keeps about three
+// decimal digits, too few for the float32 tolerance of 2e-5, so the
+// products stay on the CUDA cores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,18 +54,11 @@ constexpr int kThreads = kBlockQ * kLanes;      // 256
 constexpr float kMaskValue = -1e9f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)
   long long b, t, h;
@@ -216,31 +210,22 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
-// b, t and h dims of each [B, T, H, D] tensor (the D stride must be 1).
-// kv_lens: int32 [B] on the device, or null for "all Tk keys valid".
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, const void* kv_lens, int dtype, int B,
-                              int H, int Tq, int Tk, int D, long long q_sb,
-                              long long q_st, long long q_sh, long long k_sb,
-                              long long k_st, long long k_sh, long long v_sb,
-                              long long v_st, long long v_sh, long long o_sb,
-                              long long o_st, long long o_sh, int causal,
-                              float sm_scale, void* stream) {
+// Strides are in elements, for the b, t and h dims of each [B, T, H, D]
+// float32 tensor (the D stride must be 1). kv_lens: int32 [B] on the
+// device, or null for "all Tk keys valid". Returns cudaGetLastError()
+// after the launch (0 = launched).
+extern "C" int flash_attn_fwd_f32(
+    const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+    int B, int H, int Tq, int Tk, int D, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long o_sb,
+    long long o_st, long long o_sh, int causal, float sm_scale,
+    void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs,
-                            os, causal, sm_scale, s);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, kv_lens, B, H, Tq, Tk, qs,
-                                    ks, vs, os, causal, sm_scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_d<float>(D, q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks,
+                                vs, os, causal, sm_scale,
+                                static_cast<cudaStream_t>(stream));
 }

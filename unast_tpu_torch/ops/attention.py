@@ -1,12 +1,14 @@
-"""Flash attention of the port: the hand-written Hopper kernel
-(csrc/flash_attn_fwd.cu) behind `flash_attention`, and its plain PyTorch
-version `flash_attention_plain`.
+"""Flash attention of the port: two hand-written Hopper kernels behind
+`flash_attention`, and their plain PyTorch version `flash_attention_plain`.
 
 Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel). Used by
-the transformer encoders when ModelConfig.attn_impl == 'flash'. The kernel
-reads the [B, T, H, D] tensors in place through their strides, so the
-[B*H, T, D] transposes of the JAX wrapper are gone, and it loads kv_lens
-per batch row itself. The backward pass comes with the training slice.
+the transformer encoders when ModelConfig.attn_impl == 'flash'. bfloat16
+inputs go to csrc/flash_attn_fwd_wgmma.cu (tensor cores, wgmma fed by
+TMA), float32 inputs to csrc/flash_attn_fwd.cu (CUDA cores, which keep
+float32 exact where TF32 tensor cores would not). Both read the
+[B, T, H, D] tensors in place through their strides, so the [B*H, T, D]
+transposes of the JAX wrapper are gone, and load kv_lens per batch row
+themselves. The backward pass comes with the training slice.
 """
 
 import ctypes
@@ -17,7 +19,10 @@ import torch
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> the kernel library (and C entry point) that takes it
+_LIBRARY = {torch.float32: "flash_attn_fwd_f32",
+            torch.bfloat16: "flash_attn_fwd_wgmma"}
+_TMA_REFUSED = -1   # flash_attn_fwd_wgmma: the TMA unit refused a layout
 
 
 def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
@@ -45,18 +50,30 @@ def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel(name: str):
     from .build import load
-    fn = load("flash_attn_fwd").flash_attn_fwd
+    fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
+def _strides(x):
+    """Element strides of the b, t and h dims of a [B, T, H, D] tensor. A
+    dim of size 1 is only ever read at index 0, so its stride is free; it
+    gets the stride a dense layout would give it, which the TMA unit
+    takes whatever the tensor says."""
+    b, t, h, d = x.shape
+    sh = x.stride(2) if h > 1 else d
+    st = x.stride(1) if t > 1 else sh * h
+    sb = x.stride(0) if b > 1 else st * t
+    return sb, st, sh
+
+
 def _check(q, k, v, kv_lens):
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _LIBRARY:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
@@ -78,6 +95,16 @@ def _check(q, k, v, kv_lens):
             raise ValueError(f"{name}'s last dim must be contiguous")
     if kv_lens is not None and kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be [{b}], got {tuple(kv_lens.shape)}")
+    if q.dtype == torch.bfloat16:  # the wgmma kernel reads through TMA
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name}'s base address is not 16-byte "
+                                 "aligned, which TMA needs")
+            for dim, st in zip("bth", _strides(x)):
+                if (2 * st) % 16 or not 0 < 2 * st < 2 ** 40:
+                    raise ValueError(
+                        f"{name}'s {dim} stride is {2 * st} bytes; TMA "
+                        "needs a positive multiple of 16 below 2**40")
 
 
 def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
@@ -87,8 +114,10 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
     contiguous, D in 16/32/64/128); kv_lens: [B] valid key counts (None =
     all Tk valid). Returns [B, Tq, H, D] in q's dtype.
 
-    On a CUDA tensor it launches the kernel, adding one to
-    `flash_attention.launches`, or raises. On a CPU tensor it runs
+    On a CUDA tensor it launches the kernel for q's dtype, adding one to
+    `flash_attention.launches` and to `launches_bf16` or `launches_f32`,
+    or raises (a bfloat16 tensor whose base or b/t/h stride is not a
+    multiple of 16 bytes raises ValueError). On a CPU tensor it runs
     `flash_attention_plain`, the only case in which the plain version is
     taken. Precondition: every kv_len >= 1; a row with no visible key has
     no defined output."""
@@ -104,19 +133,26 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(
+    name = _LIBRARY[q.dtype]
+    err = _kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lens is None else lens.data_ptr(), _DTYPE_CODE[q.dtype],
-        b, h, tq, tk, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
+        None if lens is None else lens.data_ptr(), b, h, tq, tk, d,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o),
         int(causal), 1.0 / math.sqrt(d), stream)
+    if err == _TMA_REFUSED:
+        raise ValueError(f"{name}: the TMA unit refused the layout of q, k "
+                         f"or v (strides {q.stride()}, {k.stride()}, "
+                         f"{v.stride()})")
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: error {err}")
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.launches_bf16 += 1
+    else:
+        flash_attention.launches_f32 += 1
     return o
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0        # every launch
+flash_attention.launches_bf16 = 0   # of flash_attn_fwd_wgmma
+flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc into shared libraries with a plain
 C interface, loaded with ctypes.
 
-Each source under `unast_tpu_torch/csrc/` builds into
-`build/kernels/<name>-<hash>.so` at the repository root, keyed by a hash
-of the source and the flags, at first use. `build_all` starts one nvcc per
-missing library, all at once. Nothing here runs at import time.
+Each kernel source under `unast_tpu_torch/csrc/` builds into
+`build/kernels/<name>-<hash>.so` at the repository root, at first use. The
+hash covers every file of `csrc/` (the sources and the headers they
+include) and the flags, so an edit to a header rebuilds the libraries.
+`build_all` starts one nvcc per missing library, all at once. Nothing here
+runs at import time.
 """
 
 import ctypes
@@ -19,8 +21,9 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# kernel library name -> its source in csrc/
-SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu"}
+# kernel library name -> its source in csrc/ (also its C entry point's name)
+SOURCES = {"flash_attn_fwd_f32": "flash_attn_fwd.cu",
+           "flash_attn_fwd_wgmma": "flash_attn_fwd_wgmma.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -40,10 +43,14 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """Where the library of kernel `name` lives for the current source."""
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of kernel `name` lives for the current contents
+    of `csrc`: keyed by its source's name, the name and bytes of every
+    file under `csrc`, and the flags."""
+    h = hashlib.sha256(SOURCES[name].encode())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(csrc)).encode() + b"\0")
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
