@@ -10,8 +10,11 @@ The kernels themselves run only on a CUDA card; their tests are marked
 `gpu` and skip on a host without one. The layouts the bf16 kernel reads
 through TMA (strided views of a fused QKV or KV projection) are pinned on
 the CPU through the plain version, and the wrapper's refusal of layouts
-TMA cannot take through its check.
+TMA cannot take through its check. The float32 kernel's split-TF32
+arithmetic is emulated in numpy and held against the JAX kernel.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -24,6 +27,17 @@ from unast_tpu.ops import flash_attention as jax_flash
 
 from unast_tpu_torch.ops import attention
 from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+
+@pytest.fixture
+def float32_products():
+    """Float32 products in the plain version on the card (no TF32), for
+    the test only."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def _inputs(seed, b, tq, tk, h, d):
@@ -56,14 +70,21 @@ CASES = [  # (causal, tq, tk, d)
 ]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_flash_f32(causal, tq, tk, d):
+    """The JAX kernel (interpret mode) on _inputs(0, 2, tq, tk, 2, d); kept,
+    since each call runs the interpreter anew."""
+    q, k, v, kv_lens = _inputs(0, 2, tq, tk, 2, d)
+    return np.asarray(jax_flash(q, k, v, jnp.asarray(kv_lens), causal=causal))
+
+
 @pytest.mark.parametrize("causal,tq,tk,d", CASES)
 def test_plain_matches_jax_f32(causal, tq, tk, d):
     q, k, v, kv_lens = _inputs(0, 2, tq, tk, 2, d)
     out = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
                                 torch.from_numpy(kv_lens), causal=causal)
     out = out.numpy()
-    ref_kernel = np.asarray(jax_flash(q, k, v, jnp.asarray(kv_lens),
-                                      causal=causal))
+    ref_kernel = _jax_flash_f32(causal, tq, tk, d)
     np.testing.assert_allclose(out, ref_kernel, atol=2e-5, rtol=2e-5)
     ref_core = np.asarray(_attention_core(q, k, v, kv_lens, causal))
     np.testing.assert_allclose(out, ref_core, atol=2e-5, rtol=2e-5)
@@ -83,6 +104,53 @@ def test_plain_matches_jax_bf16(causal):
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=2e-2)
 
 
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero; the low 13 bits zero."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, parts):
+    """a @ b on the TF32 tensor cores: parts 1 is one TF32 product; parts 3
+    splits each operand, x = hi + lo, and sums lo*hi + hi*lo + hi*hi in
+    float32, small terms first, as csrc/flash_attn_fwd_f32.cu does."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if parts == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _emulated_f32_kernel(q, k, v, kv_lens, parts):
+    """The float32 kernel's arithmetic in numpy: unscaled TF32 scores,
+    -1e9 * sqrt(D) on masked keys, p = 2^(s c - m c) with
+    c = log2(e) / sqrt(D), P V in TF32, o = acc / l."""
+    d = q.shape[-1]
+    c = np.float32(np.log2(np.e) / np.sqrt(d))
+    qh, kh, vh = (np.swapaxes(x, 1, 2) for x in (q, k, v))   # [B, H, T, D]
+    s = _tf32_matmul(qh, np.swapaxes(kh, -1, -2), parts)
+    keep = np.arange(k.shape[1])[None, :] < kv_lens[:, None]
+    s = np.where(keep[:, None, None, :], s, np.float32(-1e9 * np.sqrt(d)))
+    m = s.max(-1, keepdims=True)
+    p = np.exp2(s * c - m * c).astype(np.float32)
+    o = _tf32_matmul(p, vh, parts) / p.sum(-1, keepdims=True)
+    return np.swapaxes(o, 1, 2)
+
+
+def test_split_tf32_arithmetic_matches_jax_f32():
+    """Three TF32 products of split operands hold the float32 kernel's
+    2e-5 against the JAX kernel; one TF32 product does not, which is why
+    the float32 kernel splits."""
+    causal, tq, tk, d = CASES[0]
+    q, k, v, kv_lens = _inputs(0, 2, tq, tk, 2, d)
+    ref = _jax_flash_f32(causal, tq, tk, d)
+    np.testing.assert_allclose(_emulated_f32_kernel(q, k, v, kv_lens, 3), ref,
+                               atol=2e-5, rtol=2e-5)
+    one = _emulated_f32_kernel(q, k, v, kv_lens, 1)
+    assert not np.allclose(one, ref, atol=2e-5, rtol=2e-5)
+
+
 def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     q, k, v, kv_lens = (torch.from_numpy(a) for a in _inputs(2, 2, 20, 20, 2, 32))
     before = flash_attention.launches
@@ -92,6 +160,7 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
 
 
 @pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal,tq,tk,d", CASES + [(False, 300, 300, 64),
@@ -99,8 +168,6 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
 def test_kernel_matches_plain_on_gpu(dtype, tol, causal, tq, tk, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     q, k, v, kv_lens = (torch.from_numpy(a).cuda()
                         for a in _inputs(3, 2, tq, tk, 4, d))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -168,7 +235,11 @@ def test_check_refuses_bf16_layouts_tma_cannot_take(kind):
         attention._check(bad, good, good, None)
     with pytest.raises(ValueError, match="TMA"):
         attention._check(good, good, bad, None)
-    # the float32 kernel reads through plain loads and takes the layout
+    # the float32 route reads the caller's tensors with plain loads (its
+    # pre-pass and the kernel's Q loads) and takes any layout: here a base
+    # 4 bytes in and a T stride of 132 bytes
+    odd = torch.zeros((2, 8, 2 * 16 + 1))[..., 1:].unflatten(-1, (2, 16))
+    attention._check(odd, odd, odd, None)
     attention._check(bad.float(), good.float(), good.float(), None)
 
 
@@ -212,6 +283,86 @@ def test_wgmma_kernel_on_fused_views_matches_plain_on_gpu(layout, causal, tq,
         before[0] + 1, before[1] + 1)
     ref = flash_attention_plain(q, k, v, kv_lens, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens", GPU_VIEW_CASES)
+def test_wgmma_kernel_within_one_bf16_rounding_on_gpu(layout, causal, tq, tk,
+                                                      h, d, lens):
+    """P keeps float32 precision in P.V (split into two bf16 parts), as in
+    the TPU kernel, so the kernel and the plain version differ by at most
+    one bf16 rounding of the output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    (q, k, v), kv_lens = _view_inputs(layout, 6, 2, tq, tk, h, d)
+    if lens is not None:
+        kv_lens = np.array(lens, np.int32)
+    q, k, v = (x.cuda().to(torch.bfloat16) for x in (q, k, v))
+    kv_lens = torch.from_numpy(kv_lens).cuda()
+    out = flash_attention(q, k, v, kv_lens, causal=causal).float()
+    ref = flash_attention_plain(q, k, v, kv_lens, causal=causal).float()
+    bound = 2.0 ** -7 * ref.abs() + 1e-5
+    assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+@pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens", GPU_VIEW_CASES + [
+    ("qkv", False, 24, 24, 2, 16, [20, 11]),    # the TINY serve's encoders
+    ("qkv", False, 8, 8, 2, 16, [7, 3])])
+def test_f32_kernel_on_fused_views_matches_plain_on_gpu(layout, causal, tq,
+                                                        tk, h, d, lens):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    (q, k, v), kv_lens = _view_inputs(layout, 7, 2, tq, tk, h, d)
+    if lens is not None:
+        kv_lens = np.array(lens, np.int32)
+    q, k, v = (x.cuda() for x in (q, k, v))
+    kv_lens = torch.from_numpy(kv_lens).cuda()
+    before = (flash_attention.launches, flash_attention.launches_f32)
+    out = flash_attention(q, k, v, kv_lens, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_attention_plain(q, k, v, kv_lens, causal=causal)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+def test_f32_kernel_takes_any_strides_on_gpu():
+    """The float32 route reads the caller's tensors with plain loads: views
+    of one fused projection whose base is 4 bytes in and whose T stride is
+    388 bytes, which TMA would refuse."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(2, 40, 3 * 32 + 1)).astype(np.float32))
+    q, k, v = (t.unflatten(-1, (2, 16))
+               for t in torch.split(x.cuda()[..., 1:], 32, dim=-1))
+    kv_lens = torch.tensor([40, 7], dtype=torch.int32, device="cuda")
+    out = flash_attention(q, k, v, kv_lens, causal=True)
+    ref = flash_attention_plain(q, k, v, kv_lens, causal=True)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+@pytest.mark.parametrize("tq,tk,h,d", [(300, 300, 4, 64), (100, 257, 2, 128),
+                                       (40, 70, 2, 16)])
+def test_f32_kernel_key_order_with_one_hot_v_on_gpu(tq, tk, h, d):
+    """v of key j is e_(j mod D): each output column sums the weights of its
+    own keys, so a key order on which P and V^T disagree moves weight
+    between columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, _, kv_lens = (torch.from_numpy(a).cuda()
+                        for a in _inputs(8, 2, tq, tk, h, d))
+    v = torch.nn.functional.one_hot(torch.arange(tk, device="cuda") % d, d)
+    v = v.float()[None, :, None, :].expand(2, tk, h, d)
+    out = flash_attention(q, k, v, kv_lens)
+    ref = flash_attention_plain(q, k, v, kv_lens)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu

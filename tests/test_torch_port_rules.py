@@ -1,6 +1,7 @@
 """Rules of the port that hold for every module of unast_tpu_torch and for
-chip_smoke.py: no import of JAX or of the JAX package, no silent fallback
-to the CPU, and no fallback from the kernel to its plain version."""
+its scripts chip_smoke.py and flash_ab.py: no import of JAX or of the JAX
+package, no silent fallback to the CPU, and no fallback from the kernel to
+its plain version."""
 
 import ast
 import inspect
@@ -14,7 +15,8 @@ from unast_tpu_torch.infer.serve import Synthesizer
 from unast_tpu_torch.ops import attention
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "unast_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "unast_tpu_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py", ROOT / "flash_ab.py"])
 FORBIDDEN = ("jax", "jaxlib", "unast_tpu")
 
 

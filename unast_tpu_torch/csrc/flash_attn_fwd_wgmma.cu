@@ -4,22 +4,26 @@
 //
 // Replaces the Pallas TPU kernel unast_tpu/ops/attention.py::_flash_fwd
 // (body _attn_kernel, driven through _kernel_with_prefetch) for bfloat16
-// inputs; float32 inputs go to the CUDA-core kernel of flash_attn_fwd.cu.
+// inputs; float32 inputs go to the split-TF32 kernel of flash_attn_fwd_f32.cu.
 // Computes
 //   o = softmax(q k^T / sqrt(D) + mask) v
 // over q [B, Tq, H, D], k and v [B, Tk, H, D] and writes o [B, Tq, H, D].
 // Key j of batch row b is kept when j < kv_lens[b] and, if causal, when
 // j <= i (query i). Masked scores are -1e9 (set on the unscaled product
 // as -1e9 * sqrt(D)). The softmax state (m, l) and the accumulator are
-// float32; o = acc / max(l, 1e-30), cast to bfloat16. P is rounded to
-// bfloat16 before P.V, as the JAX attention_core does for bfloat16, so
-// the output differs from the plain version (which keeps P in float32) by
-// about one bfloat16 rounding.
+// float32; o = acc / max(l, 1e-30), cast to bfloat16. P keeps float32
+// precision in P.V, as in the TPU kernel (which casts V to float32 and
+// takes p.v in float32): P is split into a bf16 high part and a bf16
+// low part, p_hi = bf16(p) and p_lo = bf16(p - p_hi), and both go through
+// the tensor cores against V, which is exact in bf16. The product then
+// carries 16 bits of P, so the output stays within one bf16 rounding of
+// the plain version.
 //
 // What bounds it on an H100 SXM: at the ASR encoder shape B8 H4 T815 D64
 // the work is 4*B*H*T^2*D = 5.4 GFLOP (fewer with ragged kv_lens), 5.5 us
 // at the 989 TFLOP/s bf16 tensor-core peak, against 13.4 MB of q/k/v/o,
-// 4 us at 3.35 TB/s: compute-bound. Design:
+// 4 us at 3.35 TB/s: compute-bound (the split P makes the tensor cores do
+// 1.5 times that work: S once, P.V twice). Design:
 //   - one block per (128 query rows, b*h): two consumer warpgroups of 64
 //     rows each and one producer warp (288 threads). At B8 T815 H4 that is
 //     7 x 32 = 224 blocks, and two blocks fit on an SM at D <= 64, so the
@@ -37,9 +41,10 @@
 //     of S, then p = 2^(S c - m c) with c = log2(e) / sqrt(D), one FFMA and
 //     one ex2 per score; masked keys give p = 0 exactly, since
 //     2^(-1e9 log2 e - m c) underflows;
-//   - O += P V: wgmma m64nDk16 with P from registers (the S accumulator's
-//     fragment is the A operand's, so P is packed to bf16 pairs in place)
-//     and V from shared memory as the MN-major B operand (trans-b);
+//   - O += P V: two wgmma m64nDk16 a k-step, p_lo V then p_hi V, with P
+//     from registers (the S accumulator's fragment is the A operand's, so
+//     P is packed to bf16 pairs in place) and V from shared memory as the
+//     MN-major B operand (trans-b);
 //   - the tensor maps are built per call on the host over the 4-D
 //     (D, H, T, B) strided view, so the fused-QKV views are read in place;
 //     the real T is their bound, so TMA zero-fills the ragged edge. The
@@ -48,7 +53,7 @@
 //     the same swizzle;
 //   - the key loop stops at the last key any row of the block can see
 //     (min of kv_len, Tk and, if causal, the block's last row + 1), as in
-//     the CUDA-core kernel; O is stored from registers, rows past Tq not.
+//     the float32 kernel; O is stored from registers, rows past Tq not.
 //
 // Precondition: every kv_len >= 1 (both Synthesizer paths guarantee it).
 // A row with no visible key gets zeros; that is not a contract.
@@ -107,16 +112,15 @@ struct Params {
   float mask_raw;    // -1e9 * sqrt(D): a masked score before the scale
 };
 
-// 2^x on the special-function unit; results below 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// (x0, x1) rounded to a bf16 pair (x0 in the low half) and what the
+// rounding left over, rounded to a bf16 pair too: x = hi + lo to 16 bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 template <int D>
@@ -260,16 +264,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int e = 0; e < kO; ++e) o_acc[e] *= alpha[(e / 2) % 2];
 
-    // P as bf16 A fragments: k-step t covers keys 16t..16t+15, which are
-    // the accumulator's column blocks 2t and 2t + 1.
-    uint32_t pa[kBlockN / 16][4];
+    // P as bf16 A fragments, high and low parts: k-step t covers keys
+    // 16t..16t+15, which are the accumulator's column blocks 2t and 2t + 1.
+    uint32_t ph[kBlockN / 16][4], pl[kBlockN / 16][4];
 #pragma unroll
-    for (int t = 0; t < kBlockN / 16; ++t) {
-      pa[t][0] = pack_bf16(s_acc[8 * t + 0], s_acc[8 * t + 1]);
-      pa[t][1] = pack_bf16(s_acc[8 * t + 2], s_acc[8 * t + 3]);
-      pa[t][2] = pack_bf16(s_acc[8 * t + 4], s_acc[8 * t + 5]);
-      pa[t][3] = pack_bf16(s_acc[8 * t + 6], s_acc[8 * t + 7]);
-    }
+    for (int t = 0; t < kBlockN / 16; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16(s_acc[8 * t + 2 * r], s_acc[8 * t + 2 * r + 1], ph[t][r],
+                   pl[t][r]);
 
     // O += P V: V is [keys, D] with D contiguous, the MN-major B operand;
     // a k-step moves 16 key rows on, and a D-128 tile's second 64-column
@@ -280,7 +283,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int t = 0; t < kBlockN / 16; ++t) {
       const uint64_t dv = make_desc(s_v + 16 * t * P::kRowBytes, P::kKVBox,
                                     8 * P::kRowBytes, P::kLayout);
-      WgmmaRS<D>::run(o_acc, pa[t], dv, 1);
+      WgmmaRS<D>::run(o_acc, pl[t], dv, 1);
+      WgmmaRS<D>::run(o_acc, ph[t], dv, 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -308,33 +312,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                   o_acc[4 * j + 2 * r + 1] * inv);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
-// query, so the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)

@@ -2,13 +2,15 @@
 `flash_attention`, and their plain PyTorch version `flash_attention_plain`.
 
 Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel). Used by
-the transformer encoders when ModelConfig.attn_impl == 'flash'. bfloat16
-inputs go to csrc/flash_attn_fwd_wgmma.cu (tensor cores, wgmma fed by
-TMA), float32 inputs to csrc/flash_attn_fwd.cu (CUDA cores, which keep
-float32 exact where TF32 tensor cores would not). Both read the
-[B, T, H, D] tensors in place through their strides, so the [B*H, T, D]
-transposes of the JAX wrapper are gone, and load kv_lens per batch row
-themselves. The backward pass comes with the training slice.
+the transformer encoders when ModelConfig.attn_impl == 'flash'. Both
+kernels run on the tensor cores with wgmma fed by TMA: bfloat16 inputs go
+to csrc/flash_attn_fwd_wgmma.cu, float32 inputs to csrc/flash_attn_fwd_f32.cu,
+which splits every operand into two TF32 parts and sums three TF32
+products to keep float32 accuracy (after a pre-pass that splits k and v
+into a workspace allocated here). Both read the [B, T, H, D] tensors in
+place through their strides, so the [B*H, T, D] transposes of the JAX
+wrapper are gone, and load kv_lens per batch row themselves. The backward
+pass comes with the training slice.
 """
 
 import ctypes
@@ -22,7 +24,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 # dtype -> the kernel library (and C entry point) that takes it
 _LIBRARY = {torch.float32: "flash_attn_fwd_f32",
             torch.bfloat16: "flash_attn_fwd_wgmma"}
-_TMA_REFUSED = -1   # flash_attn_fwd_wgmma: the TMA unit refused a layout
+_TMA_REFUSED = -1   # the TMA unit refused a layout
 
 
 def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
@@ -49,15 +51,56 @@ def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
     return o.to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    from .build import load
-    fn = getattr(load(name), name)
+def bind(lib_path, name: str):
+    """launch(q, k, v, kv_lens, causal) -> o through the C entry point
+    `name` of the kernel library at `lib_path`, on the current stream.
+    Where the library exports `<name>_workspace` (floats of scratch for
+    B, H, Tk, D), launch allocates that much and passes it after the
+    stream. kv_lens: int32 [B] on q's device, or None. launch checks no
+    input (flash_attention's _check does) and raises if the launch
+    failed."""
+    lib = ctypes.CDLL(str(lib_path))
+    fn = getattr(lib, name)
+    workspace = getattr(lib, name + "_workspace", None)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    return fn
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   + [ctypes.c_void_p] * (workspace is not None))
+    if workspace is not None:
+        workspace.restype = ctypes.c_longlong
+        workspace.argtypes = [ctypes.c_int] * 4
+
+    def launch(q, k, v, kv_lens, causal):
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if kv_lens is None else kv_lens.data_ptr(),
+                b, h, tq, tk, d,
+                *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+                int(causal), 1.0 / math.sqrt(d),
+                torch.cuda.current_stream(q.device).cuda_stream]
+        if workspace is not None:
+            ws = torch.empty(workspace(b, h, tk, d), dtype=torch.float32,
+                             device=q.device)
+            args.append(ws.data_ptr())
+        err = fn(*args)
+        if err == _TMA_REFUSED:
+            what = ("its workspace" if workspace is not None else
+                    f"q, k or v (strides {q.stride()}, {k.stride()}, {v.stride()})")
+            raise ValueError(f"{name}: the TMA unit refused the layout of {what}")
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: error {err}")
+        return o
+    return launch
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(name: str):
+    """launch() of this tree's library `name` (bind), built at first use."""
+    from .build import library
+    return bind(library(name), name)
 
 
 def _strides(x):
@@ -114,10 +157,11 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
     contiguous, D in 16/32/64/128); kv_lens: [B] valid key counts (None =
     all Tk valid). Returns [B, Tq, H, D] in q's dtype.
 
-    On a CUDA tensor it launches the kernel for q's dtype, adding one to
-    `flash_attention.launches` and to `launches_bf16` or `launches_f32`,
-    or raises (a bfloat16 tensor whose base or b/t/h stride is not a
-    multiple of 16 bytes raises ValueError). On a CPU tensor it runs
+    On a CUDA tensor it launches the kernel for q's dtype (for float32, a
+    pre-pass and the kernel), adding one to `flash_attention.launches` and
+    to `launches_bf16` or `launches_f32`, or raises (a bfloat16 tensor
+    whose base or b/t/h stride is not a multiple of 16 bytes raises
+    ValueError; float32 takes any strides). On a CPU tensor it runs
     `flash_attention_plain`, the only case in which the plain version is
     taken. Precondition: every kv_len >= 1; a row with no visible key has
     no defined output."""
@@ -126,25 +170,10 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, kv_lens)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    name = _LIBRARY[q.dtype]
-    err = _kernel(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lens is None else lens.data_ptr(), b, h, tq, tk, d,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-        int(causal), 1.0 / math.sqrt(d), stream)
-    if err == _TMA_REFUSED:
-        raise ValueError(f"{name}: the TMA unit refused the layout of q, k "
-                         f"or v (strides {q.stride()}, {k.stride()}, "
-                         f"{v.stride()})")
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: error {err}")
+    o = _kernel(_LIBRARY[q.dtype])(q, k, v, lens, causal)
     flash_attention.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention.launches_bf16 += 1
@@ -155,4 +184,4 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
 
 flash_attention.launches = 0        # every launch
 flash_attention.launches_bf16 = 0   # of flash_attn_fwd_wgmma
-flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32
+flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32 (pre-pass + kernel)
