@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of unast_tpu_torch, the PyTorch/CUDA port: the quickest
 proof that the port builds, that its kernels agree with their plain
-versions, and that it serves on an NVIDIA card.
+versions, and that it serves and trains on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -33,10 +33,34 @@ Phases (each that fails exits non-zero; nothing is caught):
      float32, which is the float32 kernel's path (D 16; counts set to 0 just
      before, read just after; the CPU path is held to the JAX package by
      tests/test_torch_*.py);
-  6. one `{"kernels": [...]}` line (both routes), a `{"serve": ...}` line,
-     and last `{"ok": true, "device": ...}`.
+  6. the flash-attention gradients (kernel forward, plain recompute
+     backward, through flash_attention's autograd.Function) against
+     autograd through the plain version, on fused-QKV and cross views: bf16
+     at the flagship train step's shapes (B 4, T 304 and 816, causal
+     self-attention, cross 304 x 816 and 816 x 304) within 2**-6 of each
+     gradient's largest element, float32 at TINY's within 1e-4 of it; each
+     with the backward's time;
+  7. the second main path: 3 steps of make_train_step on the same config
+     (ae 2, cm 1, sp 4 and d 1 micro-batches of 4, synthetic batches at the
+     config's 816 mel frames and 304 tokens with ragged lengths from numpy
+     seed 0), random weights from seed 0, counts set to 0 just before each
+     step and read just after: losses and every new param finite, bf16
+     forward launches and backward calls per step as the code implies,
+     float32 launches 0; then a fourth step under torch.profiler, read by
+     the port's record_function ranges (objectives, backward passes,
+     greedy decodes, LSTM discriminator, flash backward) for where its
+     time goes and the device's idle share;
+  8. one train step on the card against the same step on the CPU at TINY
+     width in float32 with flash on (the float32 kernel and the backward on
+     the card), train mode with every dropout and mask at 0, counts set to
+     0 just before and read just after;
+  9. one `{"kernels": [...]}` line (both routes, with their launches on the
+     serve and the train paths), a `{"backward": ...}`, a `{"train": ...}`
+     and a `{"serve": ...}` line, and last `{"ok": true, "device": ...}`.
 """
 
+import bisect
+import itertools
 import json
 import os
 import subprocess
@@ -147,6 +171,27 @@ FLASH_CASES = [
 ]
 
 
+# phase 6: the flash-attention backward at the train step's shapes; the
+# default kv_lens run from Tk down to about a third of it
+BWD_CASES = [
+    Case("train_self_t304", bf16, 4, 304, 304, 4, 64, True, 40, "qkv"),
+    Case("train_self_t816", bf16, 4, 816, 816, 4, 64, True, 41, "qkv"),
+    Case("train_encoder_t816", bf16, 4, 816, 816, 4, 64, False, 42, "qkv"),
+    Case("train_cross_304x816", bf16, 4, 304, 816, 4, 64, False, 43, "cross"),
+    Case("train_cross_816x304", bf16, 4, 816, 304, 4, 64, False, 44, "cross"),
+    Case("tiny_train_self_f32", f32, 2, 12, 12, 2, 16, True, 45, "qkv",
+         lens=[12, 5]),
+    Case("tiny_train_cross_f32", f32, 2, 12, 20, 2, 16, False, 46, "cross",
+         lens=[20, 9]),
+]
+TRAIN_STEPS = 3
+# the train step's record_function ranges (unast_tpu_torch/train/steps.py)
+TRAIN_PARTS = ("unast/train/ae", "unast/train/cm", "unast/train/sp",
+               "unast/train/gen_update", "unast/train/d", "unast/backward",
+               "unast/text_infer", "unast/speech_infer",
+               "unast/lstm_discriminator", "unast/flash_attention_bwd")
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of fn() over `iters` back-to-back calls (CUDA events),
     after three warm-up calls."""
@@ -188,32 +233,76 @@ def attention_bound(q, k, kv_lens, causal):
             "operations" if t_ops >= t_bytes else "bytes", cuda_core_ms)
 
 
-def device_ms(fn, symbols, iters: int, tries: int = 3):
-    """Mean device time (ms) per call of fn(), from torch.profiler over
-    `iters` calls after one warm-up call: {symbol: ms} of the kernels whose
-    name holds each of `symbols`, each launched once a call; with no
-    symbols, {"": ms} of every kernel the call launches. A profiled window
-    now and then records no device activity at all; such a window is
-    profiled again, up to `tries` in all, and then fails."""
+def trace(fn, labels=()):
+    """Run fn() once under torch.profiler (CPU and CUDA activity) and read
+    its raw events: {"wall_s": the profiled run's wall time, "kernels":
+    {name: [launches, device s]} of every device activity, "parts":
+    {label: {"count", "host_s", "device_s"}}} for each record_function
+    range named in `labels` (the port's 'unast/...' ranges): the ranges'
+    wall time on the host, and the device time of the activities that
+    start inside them. The device trails its host by little in the
+    host-bound loops profiled here, so an activity counts where it
+    starts. The device-side copies of the ranges are not activities."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels, device, ranges = {}, [], {label: [] for label in labels}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        start, dur = e.start_ns(), e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            if name.startswith("unast/") or e.is_user_annotation():
+                continue
+            n_s = kernels.setdefault(name, [0, 0.0])
+            n_s[0] += 1
+            n_s[1] += dur * 1e-9
+            device.append((start, dur))
+        elif name in ranges:
+            ranges[name].append((start, start + dur))
+    device.sort()
+    starts = [start for start, _ in device]
+    done = list(itertools.accumulate((dur for _, dur in device), initial=0))
+
+    def busy_ns(a, b):
+        return done[bisect.bisect_left(starts, b)] - done[bisect.bisect_left(starts, a)]
+    return {"wall_s": wall, "kernels": kernels, "parts": {
+        label: {"count": len(spans),
+                "host_s": sum(b - a for a, b in spans) * 1e-9,
+                "device_s": sum(busy_ns(a, b) for a, b in spans) * 1e-9}
+        for label, spans in ranges.items()}}
+
+
+def device_ms(fn, symbols, iters: int, tries: int = 3):
+    """Mean device time (ms) per call of fn(), from a trace of `iters`
+    calls after one warm-up call: {symbol: ms} of the kernels whose name
+    holds each of `symbols`, each launched once a call; with no symbols,
+    {"": ms} of every kernel the call launches. A profiled window now and
+    then records no device activity at all; such a window is profiled
+    again, up to `tries` in all, and then fails."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = trace(lambda: [fn() for _ in range(iters)])["kernels"]
         found = {}
         for symbol in symbols or ("",):
-            kernels = [e for e in events if symbol in e.key]
-            found[symbol] = (sum(e.count for e in kernels),
-                             sum(e.self_device_time_total for e in kernels))
+            hits = [v for name, v in kernels.items() if symbol in name]
+            found[symbol] = (sum(n for n, _ in hits), sum(s_ for _, s_ in hits))
         if all(n == iters if symbols else n >= iters for n, _ in found.values()):
-            return {sym: us * 1e-3 / iters for sym, (_, us) in found.items()}
+            return {sym: s_ * 1e3 / iters for sym, (_, s_) in found.items()}
     raise SystemExit(f"profiler saw launches {({s: n for s, (n, _) in found.items()})} "
                      f"in {tries} windows, expected {iters} of each")
+
+
+def device_summary(kernels, top: int = 8):
+    """Device busy seconds, launches and the `top` kernels by device time
+    ([name, ms, launches]) of a trace's kernels."""
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return (sum(s_ for _, s_ in kernels.values()), sum(n for n, _ in kernels.values()),
+            [[name[:80], s_ * 1e3, n] for name, (n, s_) in ranked])
 
 
 def attention_inputs(dtype, b, tq, tk, h, d, layout, seed):
@@ -244,12 +333,15 @@ def case_inputs(c: Case):
     if c.one_hot_v:
         eye = torch.nn.functional.one_hot(torch.arange(c.tk, device="cuda") % c.d, c.d)
         v = eye.to(c.dtype)[None, :, None, :].expand(c.b, c.tk, c.h, c.d)
+    return q, k, v, case_kv_lens(c)
+
+
+def case_kv_lens(c: Case):
+    """kv_lens of case c on the card: c.lens, or from Tk down to a third."""
     if c.lens is None:
-        kv_lens = torch.linspace(c.tk, max(1, c.tk // 3), c.b,
-                                 device="cuda").round().int()
-    else:
-        kv_lens = torch.tensor(c.lens, dtype=torch.int32, device="cuda")
-    return q, k, v, kv_lens
+        return torch.linspace(c.tk, max(1, c.tk // 3), c.b,
+                              device="cuda").round().int()
+    return torch.tensor(c.lens, dtype=torch.int32, device="cuda")
 
 
 def sdpa_call(q, k, v, kv_lens, causal):
@@ -306,6 +398,145 @@ def flash_case(c: Case):
     return case
 
 
+def fused_leaves(c: Case):
+    """The fused projection(s) case c's q, k and v are views of, on the
+    card: 'qkv' one [B, T, 3HD] tensor, 'cross' q [B, Tq, H, D] and one
+    [B, Tk, 2HD] k/v tensor; and the case's kv_lens."""
+    g = torch.Generator(device="cuda").manual_seed(c.seed)
+    hd = c.h * c.d
+    shapes = ([(c.b, c.tq, 3 * hd)] if c.layout == "qkv" else
+              [(c.b, c.tq, c.h, c.d), (c.b, c.tk, 2 * hd)])
+    leaves = [torch.randn(s, generator=g, device="cuda").to(c.dtype) for s in shapes]
+    return leaves, case_kv_lens(c)
+
+
+def qkv_views(c: Case, leaves):
+    def heads(x):
+        return [t.unflatten(-1, (c.h, c.d)) for t in torch.split(x, c.h * c.d, dim=-1)]
+    return heads(leaves[0]) if c.layout == "qkv" else [leaves[0]] + heads(leaves[1])
+
+
+def qkv_grads(c: Case, attn, leaves, kv_lens, w):
+    """(dq, dk, dv) of sum(attn(q, k, v) * w), taken as the gradient of the
+    fused leaves the views are cut from, then cut the same way."""
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    out = attn(*qkv_views(c, xs), kv_lens, causal=c.causal)
+    grads = torch.autograd.grad((out.float() * w).sum(), xs)
+    return qkv_views(c, grads)
+
+
+def backward_bound(q, kv_lens, causal):
+    """Least time (ms) the card could take for one flash backward on these
+    inputs, and what bounds it: five products (S, dV, dP, dQ, dK) over the
+    (query, key) pairs this data keeps, at the bf16 tensor-core rate, or
+    for float32 as three TF32 products each (split TF32, the forward's
+    convention), against the bytes of q, o, dO and dQ and of the kept k, v,
+    dK and dV rows, each moved once."""
+    b, tq, h, d = q.shape
+    lens = kv_lens.cpu().numpy().astype(np.int64)
+    rows = np.arange(tq)
+    pairs = sum(int(np.minimum(rows + 1, n).sum()) if causal else tq * int(n)
+                for n in lens)
+    flops = 5 * 2 * h * d * pairs
+    t_ops = (flops / H100_BF16_FLOPS if q.dtype == torch.bfloat16
+             else 3 * flops / H100_TF32_FLOPS)
+    nbytes = q.element_size() * (4 * q.numel() + 4 * h * d * int(lens.sum())) + 4 * b
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def backward_case(c: Case):
+    """Gradients through flash_attention (kernel forward, plain backward)
+    against autograd through flash_attention_plain on case c, and the time
+    of the backward (flash_attention_bwd_plain) alone: per call over
+    back-to-back calls (CUDA events) and its kernels' device time."""
+    from unast_tpu_torch.ops.attention import (flash_attention,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_plain)
+    leaves, kv_lens = fused_leaves(c)
+    w = torch.randn((c.b, c.tq, c.h, c.d), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(c.seed + 1))
+    got = qkv_grads(c, flash_attention, leaves, kv_lens, w)
+    want = qkv_grads(c, flash_attention_plain, leaves, kv_lens, w)
+    rel = 1e-4 if c.dtype == torch.float32 else 2.0 ** -6
+    errs = {}
+    ok = True
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        err = float((a.float() - r.float()).abs().max())
+        top = float(r.float().abs().max())
+        errs[name] = {"max_abs_err": err, "max_abs_ref": top}
+        ok = ok and err <= rel * top
+    q, k, v = qkv_views(c, leaves)
+    o = flash_attention(q, k, v, kv_lens, causal=c.causal)
+    do = w.to(c.dtype)
+    iters = 20 if c.tq * c.tk >= 816 * 304 else 50
+    bound_ms, bound_by = backward_bound(q, kv_lens, c.causal)
+
+    def bwd():
+        return flash_attention_bwd_plain(q, k, v, kv_lens, c.causal, o, do)
+    return {
+        "case": c.name, "dtype": str(c.dtype).replace("torch.", ""),
+        "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
+        "causal": c.causal, "kv_lens": kv_lens.tolist(), "grads": errs,
+        "bound_rel_to_max": rel, "ok": ok,
+        "bwd_ms": cuda_ms(bwd, iters), "bwd_device_ms": device_ms(bwd, (), iters)[""],
+        "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by,
+        "fwd_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_lens,
+                                                  causal=c.causal), iters),
+    }
+
+
+def train_batches(rng, args, cfg, b, text_len, mel_len, device):
+    """Synthetic stacked micro-batches {objective: (text [n, B, Tt], mel
+    [n, B, Tm, M], text_len, mel_len)}: lengths uniform in [Tt/4, Tt] and
+    [Tm/4, Tm] with row 0 full, tokens 3..45 with EOS at len - 1 and PAD
+    after, mel normal and zero past len."""
+    out = {}
+    for name in ("ae", "cm", "sp", "d"):
+        n = getattr(args, f"{name}_steps")
+        tl = rng.integers(text_len // 4, text_len + 1, size=(n, b))
+        ml = rng.integers(mel_len // 4, mel_len + 1, size=(n, b))
+        tl[:, 0], ml[:, 0] = text_len, mel_len
+        text = rng.integers(3, 46, size=(n, b, text_len))
+        pos = np.arange(text_len)
+        text = np.where(pos == tl[..., None] - 1, 2, text)
+        text = np.where(pos >= tl[..., None], 0, text)
+        mel = rng.normal(size=(n, b, mel_len, cfg.num_mels)).astype(np.float32)
+        mel *= (np.arange(mel_len) < ml[..., None])[..., None]
+        out[name] = tuple(torch.from_numpy(x).to(device) for x in (
+            text.astype(np.int64), mel, tl.astype(np.int64), ml.astype(np.int64)))
+    return out
+
+
+def compare_train_steps(old, a, b, lr):
+    """Largest differences between two results (new TrainState, metrics) of
+    one step from the same params `old`: metrics (relative), BN state,
+    Adam's first moments (relative to 1e-4 |b| + 1e-5 of the tree's
+    largest) and the normalised update (new - old) / lr where b's first
+    moment is above 1e-7."""
+    from unast_tpu_torch.train.optim import tree_paths as flat
+    (ta, ma), (tb, mb) = a, b
+    out = {"metrics_rel": max(abs(float(ma[k]) - float(mb[k])) / abs(float(mb[k]))
+                              for k in mb),
+           "state_abs": max(float((x.cpu() - flat(tb.net_state)[k].cpu()).abs().max())
+                            for k, x in flat(ta.net_state).items())}
+    mu = {}
+    for name, oa, ob in (("gen", ta.gen_opt, tb.gen_opt), ("disc", ta.disc_opt, tb.disc_opt)):
+        fa, fb = flat(oa.mu), flat(ob.mu)
+        top = max(float(x.abs().max()) for x in fb.values())
+        out[f"{name}_mu_scaled"] = max(float(((fa[k].cpu() - x.cpu()).abs()
+                                              / (1e-4 * x.cpu().abs() + 1e-5 * top)).max())
+                                       for k, x in fb.items())
+        prefix = "" if name == "gen" else "discriminator/"
+        mu.update({prefix + k: x.cpu() for k, x in fb.items()})
+    fo, fa, fb = flat(old), flat(ta.params), flat(tb.params)
+    out["update_abs"] = max(
+        float(torch.where(mu[k].abs() > 1e-7,
+                          (fa[k].cpu() - fb[k].cpu()) / lr, 0.0).abs().max())
+        for k in fo)
+    return out
+
+
 def hgmma_count(lib):
     """HGMMA (warpgroup MMA) instructions in a built library's SASS: in
     all, and those on TF32 operands."""
@@ -337,30 +568,18 @@ def profile_asr(syn, mels):
     and with torch.profiler, the device's busy time (the sum of its kernel
     times; one stream, so they do not overlap), the idle share of the
     unprofiled wall time, kernels per decode step, and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     t = time.perf_counter()
     syn.asr_ids(mels)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        syn.asr_ids(mels)
-        torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t
+    traced = trace(lambda: syn.asr_ids(mels))
     steps = sum(syn.last_decode_steps)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    busy, launches, top = device_summary(traced["kernels"])
     return {
-        "wall_s": wall, "wall_profiled_s": wall_profiled,
-        "device_busy_s": busy_us * 1e-6,
-        "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
-        "decode_steps": steps,
-        "kernel_launches": sum(e.count for e in kernels),
-        "kernels_per_step": sum(e.count for e in kernels) / max(1, steps),
-        "top_kernels": [[e.key[:80], e.self_device_time_total * 1e-3, e.count]
-                        for e in top],
+        "wall_s": wall, "wall_profiled_s": traced["wall_s"],
+        "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+        "decode_steps": steps, "kernel_launches": launches,
+        "kernels_per_step": launches / max(1, steps), "top_kernels": top,
     }
 
 
@@ -373,7 +592,13 @@ def main() -> int:
     from unast_tpu_torch.ops import attention, build
     from unast_tpu_torch.audio.params import AudioParams
     from unast_tpu_torch.infer.serve import Synthesizer
-    from unast_tpu_torch.models import TINY, ModelConfig, unast_init
+    from unast_tpu_torch.models import TINY, ModelConfig, networks, unast_init
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.train import init_train_state, make_train_step, train_state
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.optim import tree_paths
+    from unast_tpu_torch.train.steps import (ZERO_DROPOUTS, flash_calls_per_step,
+                                             zero_fixed_dropouts)
 
     # 1. the card
     smi = subprocess.run(
@@ -473,24 +698,127 @@ def main() -> int:
     assert tiny_launches_f32 > 0 and tiny_launches_bf16 == 0, (
         tiny_launches_f32, tiny_launches_bf16)
 
+    # 6. the flash-attention backward against autograd through the plain
+    # version, at the train step's shapes
+    bwd_cases = [backward_case(c) for c in BWD_CASES]
+    bad += [c for c in bwd_cases if not c["ok"]]
+
+    # 7. the second main path: train steps at flagship width. The JSON's
+    # fast_prng picks JAX's hardware RBG generator; it means nothing here.
+    args = train_args(CONFIG)
+    fwd_per_step, bwd_per_step = flash_calls_per_step(cfg, args)
+    ts = init_train_state(torch.Generator().manual_seed(0), cfg, args)
+    batches = train_batches(np.random.default_rng(0), args, cfg,
+                            args.train_batch_size, args.data_text_len,
+                            args.data_mel_len, "cuda")
+    step_fn = make_train_step(cfg, args)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fa = attention.flash_attention
+    decoders = (networks.text_tr_infer, networks.speech_tr_infer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+
+    def train_step():
+        """One step on ts; its record, with the counts set to 0 before."""
+        nonlocal ts
+        reset_launch_counts(fa)
+        before = [fa.backward_calls] + [d.steps for d in decoders]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ts, metrics = step_fn(ts, gen, batches)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        after = [fa.backward_calls] + [d.steps for d in decoders]
+        return {"s": seconds, "metrics": {k: float(v) for k, v in metrics.items()},
+                "decode_steps": {"text": after[1] - before[1],
+                                 "speech": after[2] - before[2]},
+                "flash_launches_bf16": fa.launches_bf16,
+                "flash_launches_f32": fa.launches_f32,
+                "backward_calls": after[0] - before[0]}
+    for i in range(TRAIN_STEPS):
+        steps.append({"step": i, **train_step()})
+    train_peak = torch.cuda.max_memory_allocated()
+    train_launches_bf16 = sum(s_["flash_launches_bf16"] for s_ in steps)
+    # one more step under the profiler: where a step's time goes
+    profiled = {}
+    traced = trace(lambda: profiled.update(train_step()), TRAIN_PARTS)
+    busy, n_kernels, top = device_summary(traced["kernels"])
+    later = steps[1:]
+    mean_later_s = sum(s_["s"] for s_ in later) / len(later)
+    flash_traced = sum(n for name, (n, _) in traced["kernels"].items()
+                       if ROUTE_KERNELS[bf16][0] in name)
+    breakdown = {
+        "step": TRAIN_STEPS, "wall_profiled_s": traced["wall_s"],
+        "decode_steps": profiled["decode_steps"],
+        "device_busy_s": busy, "device_idle_share": 1.0 - busy / mean_later_s,
+        "kernel_launches": n_kernels, "flash_kernels_traced": flash_traced,
+        "parts": traced["parts"], "top_kernels": top}
+    for s_ in steps + [profiled]:
+        assert all(np.isfinite(v) for v in s_["metrics"].values()), s_["metrics"]
+        assert s_["flash_launches_bf16"] == fwd_per_step, (s_, fwd_per_step)
+        assert s_["flash_launches_f32"] == 0, s_
+        assert s_["backward_calls"] == bwd_per_step, (s_, bwd_per_step)
+    # the trace holds the whole step: every flash launch, to the d phase's
+    assert flash_traced == fwd_per_step, (flash_traced, fwd_per_step)
+    nonfinite = [k for k, x in tree_paths(ts.params).items()
+                 if not bool(torch.isfinite(x).all())]
+    assert not nonfinite and ts.step == TRAIN_STEPS + 1, nonfinite
+
+    # 8. one TINY train step on the card against the CPU, float32, flash on,
+    # train mode with every dropout and mask at 0
+    tiny_t = TINY.replace(use_discriminator=True, attn_impl="flash", **ZERO_DROPOUTS)
+    targs = train_args(CONFIG, sp_steps=2)
+    tiny_fwd, tiny_bwd = flash_calls_per_step(tiny_t, targs)
+    tp0, ts0 = unast_init(torch.Generator().manual_seed(0), tiny_t)
+    tb = train_batches(np.random.default_rng(1), targs, tiny_t, 2, 12, 20, "cpu")
+    tiny_step = make_train_step(tiny_t, targs)
+    with zero_fixed_dropouts():
+        on_cpu_t = tiny_step(train_state(tp0, ts0, tiny_t, targs),
+                             torch.Generator().manual_seed(0), tb)
+        reset_launch_counts(fa)
+        before_bwd = fa.backward_calls
+        on_gpu_t = tiny_step(train_state(tree_to(tp0, "cuda"), tree_to(ts0, "cuda"),
+                                         tiny_t, targs),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             {k: tuple(x.cuda() for x in v) for k, v in tb.items()})
+        torch.cuda.synchronize()
+    tiny_train_launches_f32 = fa.launches_f32
+    tiny_train = {"launches_f32": fa.launches_f32, "launches_bf16": fa.launches_bf16,
+                  "backward_calls": fa.backward_calls - before_bwd,
+                  **compare_train_steps(tp0, on_gpu_t, on_cpu_t, targs.lr)}
+    # float32 throughout; tolerances as tests/test_torch_train.py holds the
+    # CPU path to the JAX step: metrics 1e-4 relative, BN state 1e-5,
+    # first moments within 1e-4 relative + 1e-5 of the largest (scaled <= 1),
+    # normalised updates 1e-3 where the moment is above 1e-7
+    tiny_train["ok"] = (tiny_train["metrics_rel"] <= 1e-4 and tiny_train["state_abs"] <= 1e-5
+                        and tiny_train["gen_mu_scaled"] <= 1 and tiny_train["disc_mu_scaled"] <= 1
+                        and tiny_train["update_abs"] <= 1e-3)
+    assert tiny_train["ok"], tiny_train
+    assert (tiny_train["launches_f32"], tiny_train["launches_bf16"],
+            tiny_train["backward_calls"]) == (tiny_fwd, 0, tiny_bwd), (tiny_train, tiny_fwd)
+
     for kernel_case in cases:
         kernel_case.pop("ok")
     routes = [
         ("flash_attn_fwd_wgmma", "bfloat16", "flash_attn_fwd_wgmma.cu",
          "asr_encoder_qkv", launches_bf16,
-         "flagship serve: 8 TTS + 8 ASR, bf16"),
+         "flagship serve: 8 TTS + 8 ASR, bf16", train_launches_bf16,
+         f"flagship train: {TRAIN_STEPS} steps, bf16 (phase 7)"),
         ("flash_attn_fwd_f32", "float32", "flash_attn_fwd_f32.cu",
          "tiny_asr_encoder_f32", tiny_launches_f32,
-         "TINY serve on the card, float32 (phase 5)"),
+         "TINY serve on the card, float32 (phase 5)", tiny_train_launches_f32,
+         "TINY train step on the card, float32 (phase 8)"),
     ]
     kernels = []
-    for name, dtype, source, main_name, n, path in routes:
+    for name, dtype, source, main_name, n, path, n_train, train_path in routes:
         main_case = next(c for c in cases if c["case"] == main_name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",
             "replaces": "unast_tpu/ops/attention.py:81",
             "dtype": dtype, "launches": n, "launches_counted_on": path,
+            "launches_train": n_train, "launches_train_counted_on": train_path,
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -499,8 +827,24 @@ def main() -> int:
             "main_case": main_name,
             "cases": [c for c in cases if c["dtype"] == dtype]})
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"backward": bwd_cases}))
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    print(json.dumps({"train": {
+        "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,
+        "compute_dtype": cfg.compute_dtype, "batch": args.train_batch_size,
+        "text_len": args.data_text_len, "mel_len": args.data_mel_len,
+        "micro_batches": {k: getattr(args, f"{k}_steps") for k in ("ae", "cm", "sp", "d")},
+        "first_step_s": steps[0]["s"],
+        "later_step_s": [s_["s"] for s_ in later],
+        "mean_later_step_s": mean_later_s,
+        "flash_fwd_per_step_expected": fwd_per_step,
+        "flash_bwd_per_step_expected": bwd_per_step,
+        "max_memory_allocated_bytes": train_peak,
+        "steps": steps,
+        "breakdown_step": breakdown,
+        "tiny_gpu_vs_cpu": tiny_train,
+    }}))
 
     n = len(SENTENCES)
     print(json.dumps({"serve": {

@@ -7,7 +7,10 @@ tests/test_ops.py); bfloat16 at 2e-2, about two bf16 ulps of outputs of
 order 1, since each side rounds its float32 result once.
 
 The kernels themselves run only on a CUDA card; their tests are marked
-`gpu` and skip on a host without one. The layouts the bf16 kernel reads
+`gpu` and skip on a host without one. Among them, the gradients through
+flash_attention's autograd.Function (kernel forward, plain backward)
+against autograd through the plain version; the backward's own parity
+with the JAX package is in tests/test_torch_train.py. The layouts the bf16 kernel reads
 through TMA (strided views of a fused QKV or KV projection) are pinned on
 the CPU through the plain version, and the wrapper's refusal of layouts
 TMA cannot take through its check. The float32 kernel's split-TF32
@@ -376,3 +379,61 @@ def test_wgmma_kernel_refuses_misaligned_views_on_gpu(kind):
     with pytest.raises(ValueError, match="TMA"):
         flash_attention(bad, good, good)
     assert flash_attention.launches == before
+
+
+GPU_GRAD_CASES = [  # (layout, causal, tq, tk, h, d, lens): the train step's
+    ("qkv", True, 304, 304, 4, 64, None),      # decoder self-attention
+    ("qkv", False, 816, 816, 4, 64, [816, 300]),   # encoder
+    ("cross", False, 304, 816, 4, 64, None),   # cm cross-attention
+    ("cross", False, 816, 304, 4, 64, [304, 100]),
+    ("qkv", True, 24, 24, 2, 16, [20, 11]),    # TINY
+]
+
+
+def _grads_through(attn, layout, x, lens, causal, h, d, w):
+    """Gradients of sum(attn(q, k, v) * w) with respect to the fused
+    projection(s) x the views q, k, v are cut from."""
+    xs = [t.detach().clone().requires_grad_(True) for t in x]
+    q, k, v = _views(layout, xs[0] if layout == "qkv" else tuple(xs), None, None,
+                     h, d)
+    out = attn(q, k, v, lens, causal=causal)
+    return torch.autograd.grad((out.float() * w).sum(), xs)
+
+
+def _check_kernel_gradients(device, dtype, layout, causal, tq, tk, h, d, lens):
+    rng = np.random.default_rng(10)
+    shapes = ([(2, tq, 3 * h * d)] if layout == "qkv" else
+              [(2, tq, h, d), (2, tk, 2 * h * d)])
+    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+         for s in shapes]
+    kv_lens = torch.tensor(lens or [tk, max(1, tk - 9)], dtype=torch.int32,
+                           device=device)
+    w = torch.from_numpy(rng.normal(size=(2, tq, h, d)).astype(np.float32)).to(device)
+    before = (flash_attention.launches, flash_attention.backward_calls)
+    got = _grads_through(flash_attention, layout, x, kv_lens, causal, h, d, w)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before[0] + 1
+    assert flash_attention.backward_calls == before[1] + 1
+    want = _grads_through(flash_attention_plain, layout, x, kv_lens, causal, h, d, w)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, r in zip(got, want):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= rel * float(r.float().abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens", GPU_GRAD_CASES)
+def test_gradients_through_kernel_match_plain_autograd_on_gpu(dtype, layout, causal,
+                                                              tq, tk, h, d, lens):
+    """flash_attention's autograd.Function (the kernel forward, the plain
+    recompute backward) against autograd through flash_attention_plain,
+    on the card. float32 within 1e-4 of the gradient's largest element;
+    bfloat16 within 2**-6 of it: the backward reads the forward output o
+    (delta = rowsum(dO o)), which the kernel gives within one bf16
+    rounding, 2**-8, of the plain o, and each gradient is rounded once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_kernel_gradients("cuda", dtype, layout, causal, tq, tk, h, d, lens)

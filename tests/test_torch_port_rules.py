@@ -1,7 +1,7 @@
 """Rules of the port that hold for every module of unast_tpu_torch and for
 its scripts chip_smoke.py and flash_ab.py: no import of JAX or of the JAX
-package, no silent fallback to the CPU, and no fallback from the kernel to
-its plain version."""
+package, no silent fallback to the CPU, no fallback from the kernel to its
+plain version, and NotImplementedError for the options of later slices."""
 
 import ast
 import inspect
@@ -10,9 +10,12 @@ from pathlib import Path
 import pytest
 import torch
 
+from unast_tpu_torch import nn
 from unast_tpu_torch.models import TINY, unast as U
 from unast_tpu_torch.infer.serve import Synthesizer
 from unast_tpu_torch.ops import attention
+from unast_tpu_torch.train import make_train_step
+from unast_tpu_torch.train.config import train_args
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "unast_tpu_torch").rglob("*.py"))
@@ -63,12 +66,25 @@ def test_unported_asr_options_raise(option):
         Synthesizer(params, state, TINY.replace(model_type="rnn"), device="cpu")
 
 
+def _calls(tree):
+    return [getattr(n.func, "id", None) or getattr(n.func, "attr", None)
+            for n in ast.walk(tree) if isinstance(n, ast.Call)]
+
+
 def test_flash_wrapper_never_falls_back_on_cuda():
-    """The plain version is reached only under the `cpu` branch, and no
-    `try` surrounds the launch."""
-    tree = ast.parse(inspect.getsource(attention.flash_attention))
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    fn = tree.body[0]
+    """flash_attention goes through its autograd.Function, whose forward is
+    `_forward`, the code that chooses kernel or plain: the plain version is
+    reached only under `_forward`'s `cpu` branch, and no `try` surrounds
+    the launch."""
+    trees = {fn: ast.parse(inspect.getsource(fn)) for fn in (
+        attention.flash_attention, attention._FlashAttention, attention._forward)}
+    for tree in trees.values():
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    assert "apply" in _calls(trees[attention.flash_attention])
+    assert "_forward" in _calls(trees[attention._FlashAttention])
+    for fn in (attention.flash_attention, attention._FlashAttention):
+        assert "flash_attention_plain" not in _calls(trees[fn])
+    fn = trees[attention._forward].body[0]
     plain_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
                    and getattr(n.func, "id", None) == "flash_attention_plain"]
     assert len(plain_calls) == 1
@@ -78,3 +94,28 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     q = torch.empty((1, 4, 1, 16), device="meta")
     with pytest.raises(ValueError):
         attention.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("cfg_kw,args_kw,match", [
+    ({"ctc_weight": 0.3}, {}, "ctc_weight"),
+    ({}, {"optim_type": "adafactor"}, "adafactor"),
+    ({}, {"ema_decay": 0.999}, "ema_decay"),
+    ({}, {"cm_text_decode": "spec"}, "cm_text_decode"),
+    ({}, {"cm_text_decode": "ctc"}, "cm_text_decode"),
+    ({"remat": True}, {}, "remat"),
+    ({"scan_layers": True}, {}, "scan_layers"),
+    ({"moe_experts": 4}, {}, "moe_experts"),
+])
+def test_unported_train_options_raise(cfg_kw, args_kw, match):
+    cfg = TINY.replace(use_discriminator=True, **cfg_kw)
+    with pytest.raises(NotImplementedError, match=match):
+        make_train_step(cfg, train_args(**args_kw))
+
+
+@pytest.mark.parametrize("text_decode", ["spec", "ctc"])
+def test_unported_cm_text_decode_raises(text_decode):
+    params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
+    mel = torch.zeros((1, 8, 80))
+    with pytest.raises(NotImplementedError, match="CTC head"):
+        U.cm_speech_in(params, state, nn.Ctx.eval(), TINY, mel,
+                       torch.tensor([8]), text_decode=text_decode)

@@ -2,8 +2,10 @@
 
 The JAX package `unast_tpu` stays the reference; this package imports
 nothing of it. Its layout follows the JAX package's, so each module's
-counterpart is easy to find. This slice serves greedy TTS and ASR
-(`infer.serve.Synthesizer`) on the transformer backbone; the encoders'
-attention runs through a hand-written flash-attention kernel
-(`ops.attention`, source in `csrc/`) when attn_impl='flash'.
+counterpart is easy to find. It serves greedy TTS and ASR
+(`infer.serve.Synthesizer`) and trains (`train.make_train_step`, the joint
+UNAST step with the LSTM discriminator) on the transformer backbone; with
+attn_impl='flash' the encoders' and the teacher-forced decoders' attention
+runs through hand-written flash-attention kernels (`ops.attention`, source
+in `csrc/`), whose gradient is a plain-torch recompute backward.
 """

@@ -9,9 +9,6 @@ JAX.
 import numpy as np
 import torch
 
-SERVED_MODELS = ("text_m", "speech_m")
-
-
 def _to_torch(tree):
     if isinstance(tree, dict):
         out = {k: _to_torch(v) for k, v in tree.items()}
@@ -52,8 +49,8 @@ def _unstack(stacked):
 def params_from_jax(params, net_state):
     """JAX (params, net_state) trees of unast_tpu/models/unast.py::unast_init,
     leaves as numpy arrays -> the port's (params, net_state) of float32 torch
-    tensors on the CPU, name for name. Carries `text_m` and `speech_m`;
-    the `discriminator` is skipped (it comes with the training slice). A
-    layer stack stacked over a leading axis is unstacked into a list."""
-    return ({k: _to_torch(params[k]) for k in SERVED_MODELS},
-            {k: _to_torch(net_state[k]) for k in SERVED_MODELS})
+    tensors on the CPU, name for name: `text_m`, `speech_m` and, where the
+    model has one, the LSTM `discriminator` (its cells, reduce_h / reduce_c
+    and fc2). A layer stack stacked over a leading axis is unstacked into a
+    list."""
+    return _to_torch(params), _to_torch(net_state)

@@ -20,6 +20,17 @@ def lens_to_mask(lens: torch.Tensor, max_len: int) -> torch.Tensor:
     return pos < lens[:, None]
 
 
+def noise_fn(ctx: nn.Ctx, x, mask_p: float = 0.3):
+    """unast_tpu/models/modules.py::noise_fn: the denoising AE's input
+    noise, zeroing each time step of x [B, T, D] with probability mask_p in
+    train mode (a no-op in eval mode or at mask_p = 0)."""
+    if not ctx.train or mask_p == 0.0:
+        return x
+    keep = torch.rand(x.shape[:2], generator=ctx.next_rng(),
+                      device=x.device) < 1.0 - mask_p
+    return x * keep[..., None].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Positional encoding: x*sqrt(d) + PE, dropout .1
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
-"""Post-LN transformer encoder and the KV-cached incremental decode step,
-mirroring `unast_tpu/models/transformer.py` on its unrolled path.
+"""Post-LN transformer encoder, teacher-forced decoder and the KV-cached
+incremental decode step, mirroring `unast_tpu/models/transformer.py` on its
+unrolled path.
 
 Batch-first [B, T, D] throughout; masks are additive float32 biases;
-softmax and layernorm run in float32 whatever the activation dtype. The
-teacher-forced `decoder`, `scan_layers`, `remat`, pipeline stages and MoE
-come with later slices.
+softmax and layernorm run in float32 whatever the activation dtype.
+`scan_layers`, `remat`, pipeline stages, `chunk_bias` and MoE come with
+later slices.
 """
 
 import math
@@ -51,40 +52,48 @@ def _fused_proj(ps, x: torch.Tensor) -> List[torch.Tensor]:
     return list(torch.split(y, y.shape[-1] // len(ps), dim=-1))
 
 
-def attention_core(q, k, v, bias, ctx: nn.Ctx, dropout_p: float):
+def attention_core(q, k, v, bias, ctx: nn.Ctx, dropout_p: float,
+                   weights_out=None):
     """unast_tpu/models/transformer.py::attention_core.
 
     q: [B, Tq, H, Dh], k/v: [B, Tk, H, Dh], bias: additive [B|1, 1|H, Tq, Tk]
     or None. Scores are float32 (q and k upcast before the product, as
     preferred_element_type=f32 does); the probabilities are cast to v's
-    dtype and the product accumulates in float32 before the cast back."""
+    dtype and the product accumulates in float32 before the cast back. If
+    `weights_out` is a list, the float32 pre-dropout probabilities
+    [B, H, Tq, Tk] are appended (the guided-attention loss reads them)."""
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(dh))
     if bias is not None:
         scores = scores + bias
     w = torch.softmax(scores, dim=-1)
+    if weights_out is not None:
+        weights_out.append(w)
     w = nn.dropout(ctx, w, dropout_p)
     out = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
 
 def mha(p, ctx: nn.Ctx, q_in, kv_in, bias, nhead: int, dropout_p: float,
-        impl: str = "xla", kv_lens=None, causal: bool = False):
+        impl: str = "xla", kv_lens=None, causal: bool = False,
+        weights_out=None):
     """unast_tpu/models/transformer.py::mha (non-cached attention).
     impl='flash' runs ops/attention.py::flash_attention with (kv_lens,
-    causal) in place of the additive bias; attention-weight dropout is
-    not applied on that path."""
+    causal) in place of the additive bias, unless `weights_out` asks for
+    the probabilities, which the kernel never forms (attention_core then);
+    attention-weight dropout is not applied on the flash path."""
     if q_in is kv_in:
         q, k, v = _fused_proj([p["q"], p["k"], p["v"]], q_in)
     else:
         q = nn.linear(p["q"], q_in)
         k, v = _fused_proj([p["k"], p["v"]], kv_in)
     q, k, v = (_split_heads(x, nhead) for x in (q, k, v))
-    if impl == "flash":
+    if impl == "flash" and weights_out is None:
         o = flash_attention(q, k, v, kv_lens, causal=causal)
     else:
-        o = attention_core(q, k, v, bias, ctx, dropout_p)
+        o = attention_core(q, k, v, bias, ctx, dropout_p,
+                           weights_out=weights_out)
     b, t, h, dh = o.shape
     return nn.linear(p["out"], o.reshape(b, t, h * dh))
 
@@ -165,7 +174,7 @@ def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
 
 
 # ---------------------------------------------------------------------------
-# Decoder params (the teacher-forced decoder comes with the training slice)
+# Decoder (parallel teacher-forced path)
 # ---------------------------------------------------------------------------
 
 
@@ -188,6 +197,46 @@ def decoder_init(gen: torch.Generator, d_model: int, nhead: int, ffn_dim: int,
     """unast_tpu/models/transformer.py::decoder_init."""
     return {"layers": [decoder_layer_init(gen, d_model, nhead, ffn_dim)
                        for _ in range(nlayers)]}
+
+
+def decoder_layer(p, ctx: nn.Ctx, x, memory, self_bias, cross_bias,
+                  nhead: int, dropout_p: float, impl: str = "xla",
+                  tgt_lens=None, mem_lens=None, cross_weights_out=None):
+    """unast_tpu/models/transformer.py::decoder_layer (post-LN, dense FFN):
+    causal self-attention, cross-attention over memory, FFN."""
+    a = mha(p["self"], ctx, x, x, self_bias, nhead, dropout_p,
+            impl=impl, kv_lens=tgt_lens, causal=True)
+    x = nn.layernorm(p["ln1"], x + nn.dropout(ctx, a, dropout_p))
+    a = mha(p["cross"], ctx, x, memory, cross_bias, nhead, dropout_p,
+            impl=impl, kv_lens=mem_lens, weights_out=cross_weights_out)
+    x = nn.layernorm(p["ln2"], x + nn.dropout(ctx, a, dropout_p))
+    f = _ffn(p, ctx, x, dropout_p)
+    return nn.layernorm(p["ln3"], x + nn.dropout(ctx, f, dropout_p))
+
+
+def decoder(p, ctx: nn.Ctx, x, memory, tgt_pad_mask, mem_pad_mask,
+            nhead: int, dropout_p: float, impl: str = "xla",
+            cross_weights_out=None):
+    """unast_tpu/models/transformer.py::decoder, the unrolled path:
+    teacher-forced parallel decode. x: [B, Tt, D], memory: [B, Ts, D],
+    pad masks bool True = PAD. impl='flash' passes the target and memory
+    valid lengths to the kernel (causal self-attention); if
+    `cross_weights_out` is a list, each layer's float32 cross-attention
+    probabilities [B, H, Tt, Ts] are appended (that attention then runs
+    through attention_core)."""
+    t = x.shape[1]
+    self_bias = causal_bias(t, x.device) + padding_bias(tgt_pad_mask)
+    cross_bias = padding_bias(mem_pad_mask)
+    tgt_lens = mem_lens = None
+    if impl == "flash":
+        tgt_lens = (~tgt_pad_mask).sum(dim=1, dtype=torch.int32)
+        mem_lens = (~mem_pad_mask).sum(dim=1, dtype=torch.int32)
+    for lp in p["layers"]:
+        x = decoder_layer(lp, ctx, x, memory, self_bias, cross_bias, nhead,
+                          dropout_p, impl=impl, tgt_lens=tgt_lens,
+                          mem_lens=mem_lens,
+                          cross_weights_out=cross_weights_out)
+    return x
 
 
 # ---------------------------------------------------------------------------

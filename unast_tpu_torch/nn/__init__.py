@@ -16,6 +16,9 @@ from .core import (
     layernorm_init,
     layernorm,
     dropout,
+    lstm_cell_init,
+    lstm_gates_in,
+    lstm_cell,
     cast_weights,
     tree_to,
 )
@@ -24,5 +27,6 @@ __all__ = [
     "Ctx", "calculate_gain", "xavier_uniform", "torch_linear_uniform",
     "linear_init", "linear", "conv1d_init", "conv1d", "embedding_init",
     "embedding", "batchnorm_init", "batchnorm", "layernorm_init",
-    "layernorm", "dropout", "cast_weights", "tree_to",
+    "layernorm", "dropout", "lstm_cell_init", "lstm_gates_in", "lstm_cell",
+    "cast_weights", "tree_to",
 ]

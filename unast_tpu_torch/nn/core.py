@@ -1,5 +1,6 @@
 """Functional NN primitives of the port: linear / conv1d / embedding / norms /
-dropout and their initializers, as plain functions over dicts of tensors.
+dropout / the LSTM cell and their initializers, as plain functions over
+dicts of tensors.
 
 Mirrors `unast_tpu/nn/core.py`. Layouts are the JAX package's so the
 param trees map name for name (bridge.py): linear `w` is [in, out], conv
@@ -18,11 +19,21 @@ import torch.nn.functional as F
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-forward context (unast_tpu/nn/core.py::Ctx). `generator` feeds
-    every stochastic op in train mode; eval mode needs none."""
+    """Per-forward context (unast_tpu/nn/core.py::Ctx). `generator` is the
+    one stream of draws of a train-mode forward: every stochastic op takes
+    its draws from it (next_rng), on the device of the activations, so it
+    advances op by op as JAX's fold-in counter does. Its bits differ from
+    JAX's. Eval mode needs none."""
 
     generator: Optional[torch.Generator] = None
     train: bool = False
+
+    def next_rng(self) -> torch.Generator:
+        """unast_tpu/nn/core.py::Ctx.next_rng: the generator a stochastic
+        op draws from."""
+        if self.generator is None:
+            raise ValueError("Ctx.generator is None but a stochastic op needs randomness")
+        return self.generator
 
     @staticmethod
     def eval() -> "Ctx":
@@ -160,16 +171,19 @@ BN_EPS = 1e-5
 
 def batchnorm(p, s, x: torch.Tensor, train: bool):
     """unast_tpu/nn/core.py::batchnorm over the channel axis of [B, T, C] or
-    [B, C] (torch BatchNorm1d semantics). Returns (y, new_state)."""
+    [B, C] (torch BatchNorm1d semantics). train: normalise by the batch's
+    statistics (biased variance, gradients flow through them) and move the
+    running state toward them (unbiased variance), detached as JAX's state
+    output is. Returns (y, new_state)."""
     dims = tuple(range(x.ndim - 1))
     if train:
         xf = x.float()
         mean = xf.mean(dim=dims)
         var = xf.var(dim=dims, unbiased=False)
         n = x.numel() // x.shape[-1]
-        unbiased = var * (n / max(1, n - 1))
+        unbiased = var.detach() * (n / max(1, n - 1))
         new_s = {
-            "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean,
+            "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean.detach(),
             "var": (1 - BN_MOMENTUM) * s["var"] + BN_MOMENTUM * unbiased,
         }
     else:
@@ -190,14 +204,50 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def dropout(ctx: Ctx, x: torch.Tensor, p: float) -> torch.Tensor:
-    """unast_tpu/nn/core.py::dropout (inverted, torch semantics). The mask
-    is drawn from ctx.generator, so its bits differ from JAX's."""
+    """unast_tpu/nn/core.py::dropout (inverted, torch semantics): in train
+    mode each element is kept with probability 1 - p and scaled by
+    1 / (1 - p); a no-op in eval mode or at p = 0. The mask is drawn from
+    ctx.next_rng(), so its bits differ from JAX's."""
     if not ctx.train or p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=ctx.generator,
+    mask = torch.rand(x.shape, generator=ctx.next_rng(),
                       device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LSTM cell (torch gate order [i f g o]; U(-1/sqrt(H), 1/sqrt(H)) init)
+# ---------------------------------------------------------------------------
+
+
+def lstm_cell_init(gen: torch.Generator, d_in: int, hidden: int):
+    """unast_tpu/nn/core.py::lstm_cell_init: input and hidden weights
+    [in, 4H] and two biases [4H], gates in the order [i f g o]."""
+    a = 1.0 / math.sqrt(hidden)
+    return {
+        "wi": _uniform(gen, (d_in, 4 * hidden), a),
+        "wh": _uniform(gen, (hidden, 4 * hidden), a),
+        "bi": _uniform(gen, (4 * hidden,), a),
+        "bh": _uniform(gen, (4 * hidden,), a),
+    }
+
+
+def lstm_gates_in(p, x: torch.Tensor) -> torch.Tensor:
+    """The input half of lstm_cell's gates for every step at once:
+    x [..., Din] @ wi + (bi + bh), in x's dtype."""
+    return x @ p["wi"].to(x.dtype) + (p["bi"] + p["bh"]).to(x.dtype)
+
+
+def lstm_cell(p, gates_in, h, c):
+    """unast_tpu/nn/core.py::lstm_cell, one step. gates_in: [B, 4H], this
+    step's lstm_gates_in(p, x) (computed ahead for the whole sequence);
+    h, c: [B, H]. Returns (h', c')."""
+    gates = gates_in + h @ p["wh"].to(h.dtype)
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    c_new = f * c + i * torch.tanh(g)
+    return o * torch.tanh(c_new), c_new
 
 
 def cast_weights(tree, dtype: torch.dtype):

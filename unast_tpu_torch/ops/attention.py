@@ -1,16 +1,22 @@
 """Flash attention of the port: two hand-written Hopper kernels behind
-`flash_attention`, and their plain PyTorch version `flash_attention_plain`.
+`flash_attention`, their plain PyTorch version `flash_attention_plain`, and
+the backward pass.
 
-Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel). Used by
-the transformer encoders when ModelConfig.attn_impl == 'flash'. Both
-kernels run on the tensor cores with wgmma fed by TMA: bfloat16 inputs go
-to csrc/flash_attn_fwd_wgmma.cu, float32 inputs to csrc/flash_attn_fwd_f32.cu,
+Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel and its
+custom_vjp). Used by the transformer encoders and the teacher-forced
+decoders when ModelConfig.attn_impl == 'flash'. Both kernels run on the
+tensor cores with wgmma fed by TMA: bfloat16 inputs go to
+csrc/flash_attn_fwd_wgmma.cu, float32 inputs to csrc/flash_attn_fwd_f32.cu,
 which splits every operand into two TF32 parts and sums three TF32
 products to keep float32 accuracy (after a pre-pass that splits k and v
 into a workspace allocated here). Both read the [B, T, H, D] tensors in
 place through their strides, so the [B*H, T, D] transposes of the JAX
-wrapper are gone, and load kv_lens per batch row themselves. The backward
-pass comes with the training slice.
+wrapper are gone, and load kv_lens per batch row themselves.
+
+The backward is `flash_attention_bwd_plain`, the JAX package's recompute
+backward (_flash_vjp_bwd, plain jnp there, so plain torch here) on the same
+[B, T, H, D] layout; `_FlashAttention`, a torch.autograd.Function, wires it
+behind the forward on every device.
 """
 
 import ctypes
@@ -18,6 +24,7 @@ import functools
 import math
 
 import torch
+from torch.profiler import record_function
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
@@ -27,17 +34,11 @@ _LIBRARY = {torch.float32: "flash_attn_fwd_f32",
 _TMA_REFUSED = -1   # the TMA unit refused a layout
 
 
-def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
-    """Plain PyTorch version of the kernel, the same function
-    (unast_tpu/ops/attention.py::_flash_fwd): float32 scores of the
-    pre-scaled q against k, -1e9 where key j >= kv_lens[b] or (causal)
-    j > i, float32 softmax and float32 P.V, cast to q's dtype.
-
-    q: [B, Tq, H, D]; k, v: [B, Tk, H, D]; kv_lens: [B] or None."""
-    b, tq, h, d = q.shape
+def _keep(q, k, kv_lens, causal: bool):
+    """bool [B|1, 1, Tq|1, Tk]: key j is visible to query i of row b when
+    j < kv_lens[b] and, if causal, j <= i."""
+    b, tq = q.shape[:2]
     tk = k.shape[1]
-    qf = q.float() * (1.0 / math.sqrt(d))
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
     kpos = torch.arange(tk, device=q.device)
     keep = torch.ones((b, 1, 1, tk), dtype=torch.bool, device=q.device)
     if kv_lens is not None:
@@ -45,10 +46,46 @@ def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
     if causal:
         qpos = torch.arange(tq, device=q.device)
         keep = keep & (kpos[None, :] <= qpos[:, None])[None, None]
-    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return keep
+
+
+def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
+    """Plain PyTorch version of the kernel, the same function
+    (unast_tpu/ops/attention.py::_flash_fwd): float32 scores of the
+    pre-scaled q against k, -1e9 where key j >= kv_lens[b] or (causal)
+    j > i, float32 softmax and float32 P.V, cast to q's dtype.
+
+    q: [B, Tq, H, D]; k, v: [B, Tk, H, D]; kv_lens: [B] or None."""
+    d = q.shape[-1]
+    qf = q.float() * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    s = torch.where(_keep(q, k, kv_lens, causal), s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do):
+    """(dq, dk, dv) of flash attention, step for step the JAX package's
+    recompute backward (unast_tpu/ops/attention.py::_flash_vjp_bwd with
+    _ref_scores), on the [B, T, H, D] layout: float32 scores of q against k
+    times the scale, -1e9 at masked keys, lse = logsumexp, P = exp(s - lse),
+    dV = P^T dO, dP = dO V^T, delta = rowsum(dO * o) from the forward output
+    o, dS = P (dP - delta) scale, dQ = dS K, dK = dS^T Q, each cast to its
+    input's dtype. Every operand is read in float32. Materialises float32
+    [B, H, Tq, Tk] scores, probabilities and their gradients."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s = torch.where(_keep(q, k, kv_lens, causal), s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]   # [B, H, Tq, 1]
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def bind(lib_path, name: str):
@@ -150,21 +187,10 @@ def _check(q, k, v, kv_lens):
                         "needs a positive multiple of 16 below 2**40")
 
 
-def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
-    """Flash-attention forward (unast_tpu/ops/attention.py::flash_attention).
-
-    q: [B, Tq, H, D]; k, v: [B, Tk, H, D] (float32 or bfloat16, last dim
-    contiguous, D in 16/32/64/128); kv_lens: [B] valid key counts (None =
-    all Tk valid). Returns [B, Tq, H, D] in q's dtype.
-
-    On a CUDA tensor it launches the kernel for q's dtype (for float32, a
-    pre-pass and the kernel), adding one to `flash_attention.launches` and
-    to `launches_bf16` or `launches_f32`, or raises (a bfloat16 tensor
-    whose base or b/t/h stride is not a multiple of 16 bytes raises
-    ValueError; float32 takes any strides). On a CPU tensor it runs
-    `flash_attention_plain`, the only case in which the plain version is
-    taken. Precondition: every kv_len >= 1; a row with no visible key has
-    no defined output."""
+def _forward(q, k, v, kv_lens, causal: bool):
+    """The forward on q's device: the kernel for q's dtype on a CUDA tensor
+    (counted in flash_attention's launch counts) or a raise, and the plain
+    version on a CPU tensor, the only case in which it is taken."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_lens, causal)
     if q.device.type != "cuda":
@@ -182,6 +208,50 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
     return o
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The forward (`_forward`: kernel on the card, plain on the CPU) with
+    the plain backward behind it on every device, the counterpart of the
+    JAX package's custom_vjp (_flash, _flash_vjp_fwd, _flash_vjp_bwd). It
+    keeps q, k, v, kv_lens and the output o for the backward, as JAX's
+    residuals do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal):
+        o = _forward(q, k, v, kv_lens, causal)
+        ctx.save_for_backward(q, k, v, kv_lens, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lens, o = ctx.saved_tensors
+        flash_attention.backward_calls += 1
+        with record_function("unast/flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal, o, do)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
+    """Flash attention with its gradient
+    (unast_tpu/ops/attention.py::flash_attention).
+
+    q: [B, Tq, H, D]; k, v: [B, Tk, H, D] (float32 or bfloat16, last dim
+    contiguous, D in 16/32/64/128); kv_lens: [B] valid key counts (None =
+    all Tk valid). Returns [B, Tq, H, D] in q's dtype.
+
+    On a CUDA tensor the forward launches the kernel for q's dtype (for
+    float32, a pre-pass and the kernel), adding one to
+    `flash_attention.launches` and to `launches_bf16` or `launches_f32`,
+    or raises (a bfloat16 tensor whose base or b/t/h stride is not a
+    multiple of 16 bytes raises ValueError; float32 takes any strides). On
+    a CPU tensor it runs `flash_attention_plain`. Where q, k or v needs a
+    gradient, the backward is `flash_attention_bwd_plain` on either device,
+    adding one to `flash_attention.backward_calls`. Precondition: every
+    kv_len >= 1; a row with no visible key has no defined output."""
+    return _FlashAttention.apply(q, k, v, kv_lens, causal)
+
+
 flash_attention.launches = 0        # every launch
 flash_attention.launches_bf16 = 0   # of flash_attn_fwd_wgmma
 flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32 (pre-pass + kernel)
+flash_attention.backward_calls = 0  # of flash_attention_bwd_plain through autograd

@@ -1,0 +1,7 @@
+"""Training of the port (counterpart of unast_tpu/train): the joint UNAST
+train step (ae, cm and sp objectives and the LSTM discriminator), its
+losses, SpecAugment and the optimizers."""
+
+from .steps import TrainState, init_train_state, make_train_step, train_state
+
+__all__ = ["TrainState", "init_train_state", "make_train_step", "train_state"]
