@@ -39,14 +39,15 @@ Phases (each that fails exits non-zero; nothing is caught):
      at the flagship train step's shapes (B 4, T 304 and 816, causal
      self-attention, cross 304 x 816 and 816 x 304) within 2**-6 of each
      gradient's largest element, float32 at TINY's within 1e-4 of it; each
-     with the backward's time;
-  7. the second main path: 3 steps of make_train_step on the same config
+     with the backward's time and, as its library time, that of SDPA's
+     autograd backward under the same mask;
+  7. the second main path: 2 steps of make_train_step on the same config
      (ae 2, cm 1, sp 4 and d 1 micro-batches of 4, synthetic batches at the
      config's 816 mel frames and 304 tokens with ragged lengths from numpy
      seed 0), random weights from seed 0, counts set to 0 just before each
      step and read just after: losses and every new param finite, bf16
      forward launches and backward calls per step as the code implies,
-     float32 launches 0; then a fourth step under torch.profiler, read by
+     float32 launches 0; then a third step under torch.profiler, read by
      the port's record_function ranges (objectives, backward passes,
      greedy decodes, LSTM discriminator, flash backward) for where its
      time goes and the device's idle share;
@@ -54,9 +55,24 @@ Phases (each that fails exits non-zero; nothing is caught):
      width in float32 with flash on (the float32 kernel and the backward on
      the card), train mode with every dropout and mask at 0, counts set to
      0 just before and read just after;
-  9. one `{"kernels": [...]}` line (both routes, with their launches on the
-     serve and the train paths), a `{"backward": ...}`, a `{"train": ...}`
-     and a `{"serve": ...}` line, and last `{"ok": true, "device": ...}`.
+  9. the third main path, the training loop (train/loop.py::train) on the
+     same config with attn_impl='flash', --synthetic --synthetic_size 16
+     --epochs 1 --epoch_steps 2 --sp_warmup_steps 1 --save_every 1
+     --eval_batch_size 2 and a temporary checkpoint_path, counts set to 0
+     just before and read just after: per call (warm-start step, steps,
+     evals, saves) its seconds and its bf16 launches and backward calls
+     against the counts the code implies, the four checkpoint roles, the
+     best checkpoint loaded back equal to the final state bit for bit and
+     through Synthesizer.from_checkpoint (2 TTS + 2 ASR, finite), and
+     evaluate_main's test-set dumps; then the float32 loop of
+     configs/transformer_test.json (flash, objective_eval_mode,
+     SpecAugment spans 0): on the card against the CPU (metrics.jsonl
+     within 1e-4 relative, PER equal) and resumed from
+     model_most_recent.ckpt against the unbroken run;
+  10. one `{"kernels": [...]}` line (both routes, with their launches on
+     the serve, train and loop paths), a `{"backward": ...}`, a
+     `{"train": ...}`, a `{"loop": ...}` and a `{"serve": ...}` line, and
+     last `{"ok": true, "device": ...}`.
 """
 
 import bisect
@@ -184,7 +200,12 @@ BWD_CASES = [
     Case("tiny_train_cross_f32", f32, 2, 12, 20, 2, 16, False, 46, "cross",
          lens=[20, 9]),
 ]
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
+TEST_CONFIG = os.path.join(ROOT, "configs", "transformer_test.json")
+# phase 9's flagship loop: 1 warm-start step, one epoch of 2 joint steps,
+# an eval before and after it (one batch of 2), every checkpoint role
+LOOP_FLAGS = dict(synthetic_size=16, epochs=1, epoch_steps=2, sp_warmup_steps=1,
+                  save_every=1, eval_batch_size=2)
 # the train step's record_function ranges (unast_tpu_torch/train/steps.py)
 TRAIN_PARTS = ("unast/train/ae", "unast/train/cm", "unast/train/sp",
                "unast/train/gen_update", "unast/train/d", "unast/backward",
@@ -398,6 +419,19 @@ def flash_case(c: Case):
     return case
 
 
+def sdpa_backward_call(q, k, v, kv_lens, causal, do):
+    """fn() computing the flash backward's function with one PyTorch call:
+    the autograd backward of scaled_dot_product_attention under the same
+    kv_lens (and causal) mask, on inputs whose forward ran once before.
+    Each call is one torch.autograd.grad over the retained graph: dq, dk
+    and dv of <o, do>, SDPA's own backward kernels and nothing else."""
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    out = sdpa_call(qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+                    kv_lens, causal)()
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
 def fused_leaves(c: Case):
     """The fused projection(s) case c's q, k and v are views of, on the
     card: 'qkv' one [B, T, 3HD] tensor, 'cross' q [B, Tq, H, D] and one
@@ -474,6 +508,7 @@ def backward_case(c: Case):
 
     def bwd():
         return flash_attention_bwd_plain(q, k, v, kv_lens, c.causal, o, do)
+    library = sdpa_backward_call(q, k, v, kv_lens, c.causal, do)
     return {
         "case": c.name, "dtype": str(c.dtype).replace("torch.", ""),
         "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
@@ -481,6 +516,8 @@ def backward_case(c: Case):
         "bound_rel_to_max": rel, "ok": ok,
         "bwd_ms": cuda_ms(bwd, iters), "bwd_device_ms": device_ms(bwd, (), iters)[""],
         "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by,
+        "library_ms": cuda_ms(library, iters),
+        "library_device_ms": device_ms(library, (), iters)[""],
         "fwd_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_lens,
                                                   causal=c.causal), iters),
     }
@@ -581,6 +618,257 @@ def profile_asr(syn, mels):
         "decode_steps": steps, "kernel_launches": launches,
         "kernels_per_step": launches / max(1, steps), "top_kernels": top,
     }
+
+
+def loop_args(config, **flags):
+    """The trainer's namespace for `config` with --synthetic and `flags`, as
+    `python -m unast_tpu_torch.train.loop` parses them."""
+    from unast_tpu_torch.train.config import parse_with_config
+    argv = ["--config", config, "--synthetic"]
+    for k, v in flags.items():
+        argv += [f"--{k}", str(v)]
+    return parse_with_config(argv)
+
+
+def metrics_records(path):
+    """A metrics.jsonl as {"<step>/<key>": value}, without the times."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            out.update({f"{rec['step']}/{k}": v for k, v in rec.items()
+                        if k not in ("step", "time")})
+    return out
+
+
+def compare_records(a, b, steps=None):
+    """Largest relative difference of two metrics.jsonl record sets over
+    their non-PER values (of `steps` only, if given), and whether their
+    keys and PERs are equal."""
+    keep = lambda r: {k: v for k, v in r.items()
+                      if steps is None or int(k.split("/")[0]) in steps}
+    a, b = keep(a), keep(b)
+    pers = [k for k in b if k.endswith("eval/per")]
+    return {"keys_equal": a.keys() == b.keys() and len(b) > 0,
+            "per_equal": a.keys() == b.keys() and all(a[k] == b[k] for k in pers),
+            "max_rel_err": max((abs(a[k] - v) / max(abs(v), 1e-30) for k, v in b.items()
+                                if k in a and k not in pers), default=float("inf"))}
+
+
+class LoopProbe:
+    """For one train() call: wraps the loop module's make_train_step (so
+    every step call), evaluate and save_ckp, recording per call its kind,
+    its seconds (synchronised before and after) and the flash counters'
+    deltas, and for an eval its PER and mean losses; restores them on
+    exit."""
+
+    def __init__(self, loop, fa):
+        self.loop, self.fa, self.calls = loop, fa, []
+
+    def _wrap(self, kind, fn):
+        fa = self.fa
+
+        def run(*a, **kw):
+            before = (fa.launches_bf16, fa.launches_f32, fa.backward_calls)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec = {"kind": kind, "s": time.perf_counter() - t,
+                   "launches_bf16": fa.launches_bf16 - before[0],
+                   "launches_f32": fa.launches_f32 - before[1],
+                   "backward_calls": fa.backward_calls - before[2]}
+            if kind == "eval":
+                rec["per"] = out[0]
+                rec["losses"] = {k: float(np.mean(v)) for k, v in out[1].items()}
+            self.calls.append(rec)
+            return out
+        return run
+
+    def __enter__(self):
+        L = self.loop
+        self.saved = (L.make_train_step, L.evaluate, L.save_ckp)
+        make = L.make_train_step
+        L.make_train_step = lambda cfg, args: self._wrap(
+            "step" if args.ae_steps or args.cm_steps else "warm_start_step",
+            make(cfg, args))
+        L.evaluate = self._wrap("eval", L.evaluate)
+        L.save_ckp = self._wrap("save", L.save_ckp)
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.make_train_step, self.loop.evaluate, self.loop.save_ckp = self.saved
+
+    def of(self, kind, key):
+        return [c[key] for c in self.calls if c["kind"] == kind]
+
+
+def loop_expected(loop, args, cfg, epochs_run, evals):
+    """(bf16 or f32 flash forwards, backward calls) each call kind of
+    train(args) makes per the code (train/steps.py's counts), and in all."""
+    from unast_tpu_torch.train.steps import (flash_calls_per_eval_batch,
+                                             flash_calls_per_step)
+    wargs, wcfg = loop._warm_start(args, cfg)
+    n_val = max(2, args.synthetic_size // 8)
+    per_kind = {"warm_start_step": flash_calls_per_step(wcfg, wargs),
+                "step": flash_calls_per_step(cfg, args),
+                "eval": (flash_calls_per_eval_batch(cfg)
+                         * (n_val // loop._fit_eval_bs(n_val, args.eval_batch_size)), 0),
+                "save": (0, 0)}
+    counts = {"warm_start_step": args.sp_warmup_steps,
+              "step": args.epoch_steps * epochs_run, "eval": evals}
+    total = [sum(per_kind[k][i] * n for k, n in counts.items()) for i in (0, 1)]
+    return per_kind, total
+
+
+def flagship_loop(fa):
+    """Phase 9: train() at the flagship width (bf16, flash) on the synthetic
+    corpus, then its checkpoint loaded back, served and test-evaluated."""
+    import tempfile
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.nn import cast_weights
+    from unast_tpu_torch.train import loop
+    from unast_tpu_torch.train.checkpoint import load_ckp
+    from unast_tpu_torch.train.optim import tree_paths
+    from unast_tpu_torch.train.steps import init_train_state
+
+    def same(a, b):
+        pa, pb = tree_paths(a), tree_paths(b)
+        return pa.keys() == pb.keys() and all(torch.equal(x, pb[k]) for k, x in pa.items())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        args = loop_args(CONFIG, attn_impl="flash", checkpoint_path=ck, tb_log_path="",
+                         out_test_dir=os.path.join(tmp, "test_out"), **LOOP_FLAGS)
+        cfg = loop.model_config_from_args(args)
+        per_kind, expected = loop_expected(loop, args, cfg, args.epochs, args.epochs + 1)
+        reset_launch_counts(fa)
+        bwd0 = fa.backward_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with LoopProbe(loop, fa) as probe:
+            t = time.perf_counter()
+            ts, _ = loop.train(args)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        seen = [fa.launches_bf16, fa.backward_calls - bwd0]
+        assert seen == expected and fa.launches_f32 == 0, (seen, expected, fa.launches_f32)
+        for c in probe.calls:
+            assert [c["launches_bf16"], c["backward_calls"]] == list(per_kind[c["kind"]]), c
+        records = metrics_records(os.path.join(ck, "metrics.jsonl"))
+        assert records and all(np.isfinite(v) for v in records.values()), records
+        roles = sorted(f for f in os.listdir(ck) if f.endswith(".ckpt"))
+        assert roles == ["model_0.ckpt", "model_best.ckpt", "model_most_recent.ckpt",
+                         "model_temporary.ckpt"], roles
+
+        best = os.path.join(ck, "model_best.ckpt")
+        template = init_train_state(torch.Generator().manual_seed(0), cfg, args,
+                                    args.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, loaded, _ = load_ckp(best, template)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        syn = Synthesizer.from_checkpoint(ck, args)
+        from_checkpoint_s = time.perf_counter() - t
+        equal = (same(loaded.params, ts.params) and same(loaded.net_state, ts.net_state)
+                 and loaded.step == ts.step
+                 and same(syn.params, cast_weights(ts.params, cfg.dtype))
+                 and same(syn.net_state, ts.net_state))
+        assert equal, "the checkpoint does not hold the loop's final state"
+        t = time.perf_counter()
+        wavs = syn.tts(SENTENCES[:2])
+        texts = syn.asr(wavs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        assert len(wavs) == len(texts) == 2 and all(
+            w.ndim == 1 and len(w) > 0 and np.isfinite(w).all() for w in wavs)
+
+        args.is_eval_test, args.load_path = True, best
+        reset_launch_counts(fa)
+        t = time.perf_counter()
+        test_per, d_score = loop.evaluate_main(args)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t
+        with open(os.path.join(args.out_test_dir, "text_preds.json")) as f:
+            n_preds = len(json.load(f))
+        n_mels = len(os.listdir(os.path.join(args.out_test_dir, "mels")))
+        n_test = max(2, args.synthetic_size // 8)
+        assert n_preds == n_mels == n_test and np.isfinite(test_per), (n_preds, n_mels)
+        assert fa.launches_bf16 == per_kind["eval"][0], (fa.launches_bf16, per_kind)
+        return {
+            "config": os.path.relpath(CONFIG, ROOT), "flags": LOOP_FLAGS,
+            "attn_impl": cfg.attn_impl, "compute_dtype": cfg.compute_dtype,
+            "train_s": train_s,
+            "sp_warmup_s": sum(probe.of("warm_start_step", "s")),
+            "epoch_s": sum(probe.of("step", "s")),
+            "steps_per_s": args.epoch_steps / sum(probe.of("step", "s")),
+            "step_s": probe.of("step", "s"),
+            "eval_s": probe.of("eval", "s"), "per": probe.of("eval", "per"),
+            "eval_losses": probe.of("eval", "losses"),
+            "save_s": probe.of("save", "s"), "load_s": load_s,
+            "from_checkpoint_s": from_checkpoint_s,
+            "ckpt_bytes": os.path.getsize(best),
+            "max_memory_allocated_bytes": peak,
+            "launches": {"per_call_expected": per_kind, "expected": expected,
+                         "seen": seen, "calls": probe.calls},
+            "metrics_jsonl": records,
+            "from_checkpoint_equal": equal,
+            "serve_2_tts_2_asr_s": serve_s, "serve_texts": texts,
+            "evaluate_main": {"s": test_s, "per": test_per, "d_score": d_score,
+                              "utterances": n_preds,
+                              "launches_bf16": per_kind["eval"][0]},
+        }
+
+
+def tiny_loop_walk(fa):
+    """Phase 9, float32: train() at configs/transformer_test.json (d 64, 1
+    layer, flash, so the float32 kernel) on the card against the same run
+    on the CPU, 2 epochs, in objective_eval_mode with the SpecAugment
+    spans at 0 (no draw then reaches a result, so the two devices' streams
+    do not matter); and on the card, 1 epoch then a resume to 2 from
+    model_most_recent.ckpt against the unbroken run."""
+    import tempfile
+    from unast_tpu_torch.train import loop
+    make_cfg = loop.model_config_from_args
+    loop.model_config_from_args = lambda a: make_cfg(a).replace(
+        spec_freq_mask=0, spec_time_mask=0)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def run(name, device, epochs, **kw):
+                args = loop_args(TEST_CONFIG, attn_impl="flash", device=device,
+                                 epochs=epochs, sp_warmup_steps=1,
+                                 checkpoint_path=os.path.join(tmp, name), **kw)
+                args.objective_eval_mode = True
+                t = time.perf_counter()
+                loop.train(args)
+                return (metrics_records(os.path.join(tmp, name, "metrics.jsonl")),
+                        time.perf_counter() - t, args)
+            on_cpu, cpu_s, _ = run("cpu", "cpu", 2)
+            reset_launch_counts(fa)
+            bwd0 = fa.backward_calls
+            on_gpu, gpu_s, args = run("gpu", "cuda", 2)
+            seen = [fa.launches_f32, fa.backward_calls - bwd0]
+            _, expected = loop_expected(loop, args, loop.model_config_from_args(args),
+                                        2, 3)
+            run("resumed", "cuda", 1)
+            resumed, _, _ = run("resumed", "cuda", 2, auto_resume="true")
+    finally:
+        loop.model_config_from_args = make_cfg
+    out = {"config": os.path.relpath(TEST_CONFIG, ROOT), "cpu_s": cpu_s, "gpu_s": gpu_s,
+           "launches_f32": seen[0], "backward_calls": seen[1],
+           "expected": expected, "launches_bf16": fa.launches_bf16,
+           "card_vs_cpu": compare_records(on_gpu, on_cpu),
+           "resume_vs_unbroken": compare_records(resumed, on_gpu, steps={3, 4})}
+    # float32 on both; metrics 1e-4 relative (tests/test_torch_loop.py's
+    # tolerance against the JAX loop), PER equal
+    out["ok"] = all(c["keys_equal"] and c["per_equal"] and c["max_rel_err"] <= 1e-4
+                    for c in (out["card_vs_cpu"], out["resume_vs_unbroken"]))
+    assert out["ok"], out
+    assert seen == expected and out["launches_bf16"] == 0, out
+    return out
 
 
 def main() -> int:
@@ -798,20 +1086,31 @@ def main() -> int:
     assert (tiny_train["launches_f32"], tiny_train["launches_bf16"],
             tiny_train["backward_calls"]) == (tiny_fwd, 0, tiny_bwd), (tiny_train, tiny_fwd)
 
+    # 9. the third main path: the training loop at flagship width (bf16),
+    # its checkpoint served and test-evaluated, and the float32 loop card
+    # against CPU at configs/transformer_test.json width
+    loop_run = flagship_loop(fa)
+    loop_run["tiny_gpu_vs_cpu"] = tiny_loop_walk(fa)
+
     for kernel_case in cases:
         kernel_case.pop("ok")
     routes = [
         ("flash_attn_fwd_wgmma", "bfloat16", "flash_attn_fwd_wgmma.cu",
          "asr_encoder_qkv", launches_bf16,
          "flagship serve: 8 TTS + 8 ASR, bf16", train_launches_bf16,
-         f"flagship train: {TRAIN_STEPS} steps, bf16 (phase 7)"),
+         f"flagship train: {TRAIN_STEPS} steps, bf16 (phase 7)",
+         loop_run["launches"]["seen"][0],
+         "flagship loop: warm-start step, 2 steps, 2 evals, bf16 (phase 9)"),
         ("flash_attn_fwd_f32", "float32", "flash_attn_fwd_f32.cu",
          "tiny_asr_encoder_f32", tiny_launches_f32,
          "TINY serve on the card, float32 (phase 5)", tiny_train_launches_f32,
-         "TINY train step on the card, float32 (phase 8)"),
+         "TINY train step on the card, float32 (phase 8)",
+         loop_run["tiny_gpu_vs_cpu"]["launches_f32"],
+         "transformer_test loop on the card, 2 epochs, float32 (phase 9)"),
     ]
     kernels = []
-    for name, dtype, source, main_name, n, path, n_train, train_path in routes:
+    for (name, dtype, source, main_name, n, path, n_train, train_path,
+         n_loop, loop_path) in routes:
         main_case = next(c for c in cases if c["case"] == main_name)
         kernels.append({
             "name": name, "route": "cuda",
@@ -819,6 +1118,7 @@ def main() -> int:
             "replaces": "unast_tpu/ops/attention.py:81",
             "dtype": dtype, "launches": n, "launches_counted_on": path,
             "launches_train": n_train, "launches_train_counted_on": train_path,
+            "launches_loop": n_loop, "launches_loop_counted_on": loop_path,
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -846,6 +1146,7 @@ def main() -> int:
         "tiny_gpu_vs_cpu": tiny_train,
     }}))
 
+    print(json.dumps({"loop": loop_run}))
     n = len(SENTENCES)
     print(json.dumps({"serve": {
         "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,

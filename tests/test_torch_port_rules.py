@@ -98,8 +98,8 @@ def test_flash_wrapper_never_falls_back_on_cuda():
 
 @pytest.mark.parametrize("cfg_kw,args_kw,match", [
     ({"ctc_weight": 0.3}, {}, "ctc_weight"),
-    ({}, {"optim_type": "adafactor"}, "adafactor"),
-    ({}, {"ema_decay": 0.999}, "ema_decay"),
+    ({"pp": 2}, {}, "pp"),
+    ({"speech_encoder": "conformer"}, {}, "conformer"),
     ({}, {"cm_text_decode": "spec"}, "cm_text_decode"),
     ({}, {"cm_text_decode": "ctc"}, "cm_text_decode"),
     ({"remat": True}, {}, "remat"),
@@ -110,6 +110,26 @@ def test_unported_train_options_raise(cfg_kw, args_kw, match):
     cfg = TINY.replace(use_discriminator=True, **cfg_kw)
     with pytest.raises(NotImplementedError, match=match):
         make_train_step(cfg, train_args(**args_kw))
+
+
+@pytest.mark.parametrize("args_kw", [{"optim_type": "adafactor"},
+                                     {"ema_decay": 0.999}])
+def test_ported_optimizer_options_build(args_kw):
+    """adafactor and ema_decay > 0, which raised before this slice, make a
+    train step (tests/test_torch_loop.py holds them to optax)."""
+    cfg = TINY.replace(use_discriminator=True)
+    make_train_step(cfg, train_args(**args_kw))
+
+
+def test_unported_vocoder_options_raise(tmp_path):
+    from unast_tpu_torch.infer import server, synthesize
+    params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
+    with pytest.raises(NotImplementedError, match="vocoder slice"):
+        synthesize.vocode("list.csv", str(tmp_path), str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="vocoder slice"):
+        synthesize.synthesize_text(params, state, TINY, "hi", vocoder_pv=({}, {}))
+    with pytest.raises(NotImplementedError, match="vocoder_ckpt"):
+        server.main(["--vocoder_ckpt", "v.ckpt", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("text_decode", ["spec", "ctc"])

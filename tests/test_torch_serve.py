@@ -23,8 +23,6 @@ import torch
 
 from unast_tpu import nn as jnn
 from unast_tpu.audio import dsp as jdsp
-from unast_tpu.audio.params import AudioParams
-from unast_tpu.infer.serve import Synthesizer as JSynthesizer
 from unast_tpu.models import TINY as JTINY, networks as JN, transformer as JT
 from unast_tpu.models import unast as JU
 from unast_tpu.text import raw_text_to_phoneme_ids as j_text_ids
@@ -40,9 +38,23 @@ from unast_tpu_torch.models import networks as TN, transformer as TT
 from unast_tpu_torch.text import raw_text_to_phoneme_ids as t_text_ids
 from unast_tpu_torch.text import sequence_to_text as t_seq_to_text
 
+import torch_serve_golden as SG
+import torch_train_golden as G
+
 ECTX_J = jnn.Ctx.eval()
 ECTX_T = tnn.Ctx.eval()
 MIN_MARGIN = 1e-3   # least top-1 / top-2 logit gap a greedy choice may have
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    test workers share the host's cores (with a thread pool each, torch's
+    small ops run many times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -64,6 +76,16 @@ def _models(stop_bias: float = 0.0):
     np_s = jax.tree_util.tree_map(np.asarray, state)
     tp, ts = params_from_jax(np_p, np_s)
     return params, state, tp, ts
+
+
+@pytest.fixture(scope="module")
+def serve_golden():
+    z = np.load(SG.GOLDEN)
+    assert str(z["source_hash"]) == SG.source_hash(), (
+        "tests/goldens/torch_serve.npz is stale: the JAX package, "
+        "tests/torch_serve_golden.py or a library version changed; run "
+        "`JAX_PLATFORMS=cpu python tests/torch_serve_golden.py`")
+    return {k: z[k] for k in z.files}
 
 
 def _inputs(seed=0, b=2):
@@ -260,15 +282,18 @@ def test_greedy_decodes_match_jax(stop_bias):
                                    rtol=1e-4)
 
 
-def test_synthesizer_matches_jax():
-    params, state, tp, ts = _models(-100.0)
-    kw = dict(text_buckets=(8, 16), mel_buckets=(16, 24), max_batch=4)
-    jsyn = JSynthesizer(params, state, JTINY,
-                        audio_params=AudioParams(n_iter=2), **kw)
+def test_synthesizer_matches_jax(serve_golden):
+    """The port's Synthesizer against the JAX one's golden
+    (tests/torch_serve_golden.py) on the same weights and requests."""
+    params, state, tp, ts = _models(SG.STOP_BIAS)
+    assert str(serve_golden["init_hash"]) == G.init_hash(params), (
+        "tests/goldens/torch_serve.npz is stale: the JAX init changed; run "
+        "`JAX_PLATFORMS=cpu python tests/torch_serve_golden.py`")
     tsyn = TSynthesizer(tp, ts, TTINY, audio_params=TAudioParams(n_iter=2),
-                        device="cpu", **kw)
-    texts = ["hi there", "ok", "go now"]
-    for a, b in zip(jsyn.tts_mels(texts), tsyn.tts_mels(texts)):
+                        device="cpu", **SG.KW)
+    texts = SG.TEXTS
+    for i, b in enumerate(tsyn.tts_mels(texts)):
+        a = serve_golden[f"tts_mels/{i}"]
         assert a.shape == b.shape
         np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
     # Griffin-Lim normalizes the phase est/|est| also at bins whose
@@ -277,16 +302,14 @@ def test_synthesizer_matches_jax():
     # 1.6e-3 of its peak from a float64 run (the port's 2.2e-3). So the
     # waveforms (same trim bounds, hence same lengths) are held at 2e-3 of
     # their peak; after de-emphasis they differ by under 2e-4 of it here.
-    jw, tw = jsyn.tts(texts), tsyn.tts(texts)
-    long_text = "go now and see the sun over the hills"   # 3 segments at TINY
-    jw.append(jsyn.tts_long(long_text))
-    tw.append(tsyn.tts_long(long_text))
-    for a, b in zip(jw, tw):
+    tw = tsyn.tts(texts)
+    tw.append(tsyn.tts_long(SG.LONG_TEXT))   # 3 segments at TINY
+    for i, b in enumerate(tw):
+        a = serve_golden[f"tts/{i}"]
         assert a.shape == b.shape and len(a) > 0
         np.testing.assert_allclose(b, a, atol=2e-3 * np.abs(a).max(), rtol=0)
-    mels = [np.random.default_rng(13).uniform(0, 1, (n, 80)).astype(np.float32)
-            for n in (20, 11)]
-    jids, tids = jsyn.asr_ids(mels), tsyn.asr_ids(mels)
+    mels = SG.asr_mels()
+    tids = tsyn.asr_ids(mels)
     padded = np.zeros((2, 24, 80), np.float32)
     for i, m in enumerate(mels):
         padded[i, :len(m)] = m
@@ -296,9 +319,9 @@ def test_synthesizer_matches_jax():
             torch.tensor([len(m) for m in mels]))
         ids, _ = TN.text_tr_infer(tp["text_m"], ECTX_T, TTINY, enc, mask)
         gaps = _greedy_margins(tp["text_m"], TTINY, enc, mask, ids.numpy())
-    for a, b, g in zip(jids, tids, gaps):
+    for i, (b, g) in enumerate(zip(tids, gaps)):
         assert g[:len(b)].min() > MIN_MARGIN, g.min()
-        assert np.array_equal(np.asarray(a), np.asarray(b))
+        assert np.array_equal(serve_golden[f"asr_ids/{i}"], np.asarray(b))
 
 
 def test_wav_to_mel_matches_jax():

@@ -3,9 +3,12 @@
 The JAX package `unast_tpu` stays the reference; this package imports
 nothing of it. Its layout follows the JAX package's, so each module's
 counterpart is easy to find. It serves greedy TTS and ASR
-(`infer.serve.Synthesizer`) and trains (`train.make_train_step`, the joint
-UNAST step with the LSTM discriminator) on the transformer backbone; with
-attn_impl='flash' the encoders' and the teacher-forced decoders' attention
-runs through hand-written flash-attention kernels (`ops.attention`, source
-in `csrc/`), whose gradient is a plain-torch recompute backward.
+(`infer.serve.Synthesizer`, `infer.server`) and trains (`python -m
+unast_tpu_torch.train.loop`: the datasets of `data`, the joint UNAST step
+of `train.make_train_step` with the LSTM discriminator, PER evaluation of
+`infer.evaluate`, checkpoints of `train.checkpoint`) on the transformer
+backbone; with attn_impl='flash' the encoders' and the teacher-forced
+decoders' attention runs through hand-written flash-attention kernels
+(`ops.attention`, source in `csrc/`), whose gradient is a plain-torch
+recompute backward.
 """

@@ -1,4 +1,6 @@
-"""Serving of the port (counterpart of unast_tpu/infer)."""
+"""Serving and evaluation of the port (counterpart of unast_tpu/infer):
+the Synthesizer, its HTTP front end, synthesis helpers, evaluation and
+PER."""
 
 from .serve import Synthesizer
 

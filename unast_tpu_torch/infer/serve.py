@@ -82,6 +82,23 @@ class Synthesizer:
         # decode steps of the last tts/asr call, one entry per batch chunk
         self.last_decode_steps: List[int] = []
 
+    @classmethod
+    def from_checkpoint(cls, ckpt_path: str, args, **kw):
+        """unast_tpu/infer/serve.py::Synthesizer.from_checkpoint: a
+        Synthesizer on the params and BN state of a train/checkpoint.py
+        checkpoint (a save directory means its model_best.ckpt), for the
+        model of the flat config namespace `args` (train/config.py). The
+        device is kw's, else args.device."""
+        from ..train.checkpoint import load_ckp
+        from ..train.config import model_config_from_args
+        from ..train.steps import init_train_state
+        cfg = model_config_from_args(args)
+        kw.setdefault("device", getattr(args, "device", None))
+        template = init_train_state(torch.Generator().manual_seed(0), cfg, args,
+                                    kw["device"])
+        _, _, ts, _ = load_ckp(ckpt_path, template)
+        return cls(ts.params, ts.net_state, cfg, **kw)
+
     def _bucket(self, buckets, need):
         """unast_tpu/infer/serve.py::Synthesizer._bucket: the smallest
         bucket that fits `need`, else the largest."""

@@ -33,6 +33,7 @@ import contextlib
 import functools
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -43,8 +44,9 @@ from ..models import unast as U
 from ..models.config import ModelConfig
 from . import losses as L
 from .augment import specaugment
-from .optim import (apply_updates, global_norm, make_optimizer, make_schedule,
-                    split_params, tree_leaves, tree_map, tree_unflatten)
+from .optim import (ParamsEma, apply_updates, find_ema, global_norm,
+                    make_optimizer, make_schedule, split_params, tree_leaves,
+                    tree_map, tree_unflatten)
 
 
 class TrainState(NamedTuple):
@@ -96,12 +98,24 @@ def flash_calls_per_step(cfg: ModelConfig, args):
     return cfg.num_layers * fwd, cfg.num_layers * bwd
 
 
+def flash_calls_per_eval_batch(cfg: ModelConfig):
+    """Flash-attention forwards of one infer/evaluate.py::eval_batch with
+    attn_impl='flash' (none with gradients, so no backward), per layer:
+    the four teacher-forced tasks (text_ae, speech_ae, tts, asr) one
+    encoder and one decoder's self- and cross-attention each; the two cm
+    tasks four each (their no-grad encoder before the greedy decode, whose
+    KV-cached steps do not use flash, then one encoder and one decoder);
+    the greedy ASR and TTS one encoder each; the discriminator's two
+    encoders."""
+    per_layer = 4 * 3 + 2 * 4 + 2 + (2 if cfg.use_discriminator else 0)
+    return cfg.num_layers * per_layer
+
+
 def check_train_args(cfg: ModelConfig, args):
     """Raise, before any step runs, on an option of the train step that
     this slice does not run: the CTC head's (ctc_weight > 0, cm
     text_decode 'spec'/'ctc') and the model options of
-    networks.check_ported. make_optimizers raises on ema_decay > 0 and
-    adafactor."""
+    networks.check_ported."""
     later = {
         "ctc_weight > 0": cfg.ctc_weight > 0,
         "cm_text_decode 'spec'/'ctc'":
@@ -117,12 +131,29 @@ def check_train_args(cfg: ModelConfig, args):
 
 def make_optimizers(cfg: ModelConfig, args):
     """unast_tpu/train/steps.py::make_optimizers: (generator optimizer,
-    discriminator optimizer) over one schedule. ema_decay > 0 raises."""
-    if float(getattr(args, "ema_decay", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError(
-            "ema_decay > 0 comes with a later slice of the port")
+    discriminator optimizer) over one schedule. With ema_decay > 0 the
+    generator's keeps an EMA of its params (optim.ParamsEma; ema_params
+    reads it); the discriminator's does not, so that the adversary tracks
+    the current generator."""
     sched = make_schedule(args)
-    return make_optimizer(args, sched), make_optimizer(args, sched)
+    gen_tx = make_optimizer(args, sched)
+    ema = float(getattr(args, "ema_decay", 0.0) or 0.0)
+    if ema > 0.0:
+        gen_tx = ParamsEma(gen_tx, ema)
+    return gen_tx, make_optimizer(args, sched)
+
+
+def ema_params(ts: TrainState):
+    """unast_tpu/train/steps.py::ema_params: the full param tree with the
+    generator partition replaced by its EMA, or None when ema_decay is
+    off. The discriminator's params pass through."""
+    ema = find_ema(ts.gen_opt)
+    if ema is None:
+        return None
+    out = dict(ema)
+    if "discriminator" in ts.params:
+        out["discriminator"] = ts.params["discriminator"]
+    return out
 
 
 def train_state(params, net_state, cfg: ModelConfig, args) -> TrainState:
@@ -191,6 +222,15 @@ def _gold(batch):
     text, mel, text_len, mel_len = batch
     gold_stop = L.stop_label_from_lens(mel_len, mel.shape[1])
     return text, mel, text_len, mel_len, gold_stop
+
+
+def seeded_generator(seed: int, index: int, device) -> torch.Generator:
+    """A torch.Generator on `device` seeded from the pair (seed, index)
+    through numpy's SeedSequence: the counterpart of
+    jax.random.fold_in(PRNGKey(seed), index), by which the loop gives step
+    `index` its draws, so a resumed run draws what an unbroken one would."""
+    state = np.random.SeedSequence([seed, index]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 def _obj_ctx(gen, args) -> nn.Ctx:
