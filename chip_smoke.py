@@ -41,23 +41,24 @@ Phases (each that fails exits non-zero; nothing is caught):
      gradient's largest element, float32 at TINY's within 1e-4 of it; each
      with the backward's time and, as its library time, that of SDPA's
      autograd backward under the same mask;
-  7. the second main path: 2 steps of make_train_step on the same config
+  7. the second main path: 1 step of make_train_step on the same config
      (ae 2, cm 1, sp 4 and d 1 micro-batches of 4, synthetic batches at the
      config's 816 mel frames and 304 tokens with ragged lengths from numpy
      seed 0), random weights from seed 0, counts set to 0 just before each
      step and read just after: losses and every new param finite, bf16
      forward launches and backward calls per step as the code implies,
-     float32 launches 0; then a third step under torch.profiler, read by
+     float32 launches 0; then a second step under torch.profiler, read by
      the port's record_function ranges (objectives, backward passes,
      greedy decodes, LSTM discriminator, flash backward) for where its
-     time goes and the device's idle share;
+     time goes and the device's idle share (against the profiled wall,
+     so an upper bound);
   8. one train step on the card against the same step on the CPU at TINY
      width in float32 with flash on (the float32 kernel and the backward on
      the card), train mode with every dropout and mask at 0, counts set to
      0 just before and read just after;
   9. the third main path, the training loop (train/loop.py::train) on the
      same config with attn_impl='flash', --synthetic --synthetic_size 16
-     --epochs 1 --epoch_steps 2 --sp_warmup_steps 1 --save_every 1
+     --epochs 1 --epoch_steps 1 --sp_warmup_steps 1 --save_every 1
      --eval_batch_size 2 and a temporary checkpoint_path, counts set to 0
      just before and read just after: per call (warm-start step, steps,
      evals, saves) its seconds and its bf16 launches and backward calls
@@ -69,10 +70,34 @@ Phases (each that fails exits non-zero; nothing is caught):
      SpecAugment spans 0): on the card against the CPU (metrics.jsonl
      within 1e-4 relative, PER equal) and resumed from
      model_most_recent.ckpt against the unbroken run;
-  10. one `{"kernels": [...]}` line (both routes, with their launches on
-     the serve, train and loop paths), a `{"backward": ...}`, a
-     `{"train": ...}`, a `{"loop": ...}` and a `{"serve": ...}` line, and
-     last `{"ok": true, "device": ...}`.
+  10. the RNN backbone served (phases 10-12 each print their seconds as
+     they end): a Synthesizer on configs/rnn_d.json (hidden 256, 2 layers,
+     bidirectional LSTM encoders, location-sensitive attention, bf16),
+     random weights from seed 0, the stop bias lowered by 100: 8 sentences
+     -> tts -> asr, counts set to 0 just before and read just after (the
+     RNN calls no attention kernel: 0 launches), ms per decode step, the
+     asr_ids profile, peak memory; TINY f32 on the card against the CPU
+     under 'lsa' and 'luong' (mels 1e-4, ids equal, each greedy choice
+     leading by more than 1e-3 on the CPU);
+  11. the RNN backbone trained: 2 steps of make_train_step with rnn_d's
+     own train args (adam, multistep, B2, ae 1 / cm 2 / sp 1 / d 1) on
+     synthetic batches at 816 frames / 304 tokens, counts set to 0 just
+     before each step and read just after (0 forwards, 0 backward calls),
+     losses and params finite, step seconds, peak memory; one TINY f32 RNN
+     step on the card against the CPU (phase 8's tolerances);
+  12. the CBHG vocoder: infer/vocoder.py::train_vocoder at
+     configs/vocoder.json width (hidden 256, n_fft 2048, l1, adamw), 2
+     steps at batch 8 on synthetic items padded to 816 frames; its
+     checkpoint saved and loaded back exactly; make_mags on 3 dumps;
+     Synthesizer(vocoder_pv=) on phase 4's flagship transformer serving 8
+     TTS requests, counts set to 0 just before and read just after (4 bf16
+     launches: one encoder call); a TINY f32 vocoder on the card against
+     the CPU in eval and train mode (1e-4);
+  13. one `{"kernels": [...]}` line (both routes, with their launches on
+     the serve, train, loop, vocoder-serve and RNN paths), a
+     `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
+     `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`
+     and a `{"serve": ...}` line, and last `{"ok": true, "device": ...}`.
 """
 
 import bisect
@@ -200,11 +225,14 @@ BWD_CASES = [
     Case("tiny_train_cross_f32", f32, 2, 12, 20, 2, 16, False, 46, "cross",
          lens=[20, 9]),
 ]
-TRAIN_STEPS = 2
+TRAIN_STEPS = 1
 TEST_CONFIG = os.path.join(ROOT, "configs", "transformer_test.json")
-# phase 9's flagship loop: 1 warm-start step, one epoch of 2 joint steps,
-# an eval before and after it (one batch of 2), every checkpoint role
-LOOP_FLAGS = dict(synthetic_size=16, epochs=1, epoch_steps=2, sp_warmup_steps=1,
+RNN_CONFIG = os.path.join(ROOT, "configs", "rnn_d.json")
+VOCODER_CONFIG = os.path.join(ROOT, "configs", "vocoder.json")
+# phase 9's flagship loop: 1 warm-start step, one epoch of 1 joint step
+# (phase 7 takes more at the same width), an eval before and after it (one
+# batch of 2), every checkpoint role
+LOOP_FLAGS = dict(synthetic_size=16, epochs=1, epoch_steps=1, sp_warmup_steps=1,
                   save_every=1, eval_batch_size=2)
 # the train step's record_function ranges (unast_tpu_torch/train/steps.py)
 TRAIN_PARTS = ("unast/train/ae", "unast/train/cm", "unast/train/sp",
@@ -871,6 +899,338 @@ def tiny_loop_walk(fa):
     return out
 
 
+def rnn_text_margins(p, s, cfg, enc_outputs, pad, ids):
+    """Least top-1 minus top-2 logit of each row over the steps of a greedy
+    RNN text decode that followed `ids` [B, n] (text_rnn_infer's
+    arithmetic, on the device of the weights), up to the row's length in
+    `lens`."""
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.models import modules as M, networks as N, rnn as R
+    (hc, enc_out), b = enc_outputs, ids.shape[0]
+    ectx = nn.Ctx.eval()
+    bufs = M.text_prenet_step_init(p["prenet"], b, cfg, enc_out.dtype, enc_out.device)
+    emb = M.text_embed(p["prenet"], ectx, torch.full((b,), 1, device=enc_out.device), cfg)
+    attn = N._init_attn_state(p, cfg, enc_out)
+    gaps = []
+    for i in range(ids.shape[1]):
+        x, bufs = M.text_prenet_step(p["prenet"], s["prenet"], ectx, emb, bufs, cfg)
+        out, hc, attn = R.rnn_decoder_step(p["decoder"], ectx, x, hc, enc_out, pad,
+                                           attn, 0.0, cfg.d_attn)
+        top2 = torch.topk(M.text_postnet(p["postnet"], ectx, out, cfg).float(), 2).values
+        gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        emb = M.text_embed(p["prenet"], ectx, torch.as_tensor(ids[:, i], device=enc_out.device),
+                           cfg)
+    return np.stack(gaps, axis=1)
+
+
+def rnn_serve(fa):
+    """Phase 10: a Synthesizer on configs/rnn_d.json (the RNN backbone,
+    bf16) with random weights from seed 0 and the stop bias lowered by
+    100: 8 sentences -> tts -> 8 waveforms -> asr, counts set to 0 just
+    before and read just after (the RNN path calls no attention kernel);
+    then TINY f32 on the card against the CPU under 'lsa' and 'luong'."""
+    from unast_tpu_torch.audio.params import AudioParams
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import TINY, ModelConfig, networks, unast_init
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.from_json(RNN_CONFIG)
+    params, state = unast_init(torch.Generator().manual_seed(0), cfg)
+    params["speech_m"]["postnet"]["stop_proj"]["b"] -= 100.0
+    syn = Synthesizer(params, state, cfg)
+    t = time.perf_counter()
+    syn.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t
+    reset_launch_counts(fa)
+    bwd0 = fa.backward_calls
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wavs = syn.tts(SENTENCES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tts_steps = sum(syn.last_decode_steps)
+    texts = syn.asr(wavs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    asr_steps = sum(syn.last_decode_steps)
+    launches = [fa.launches, fa.backward_calls - bwd0]
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    mels = syn.tts_mels(SENTENCES)
+    torch.cuda.synchronize()
+    tts_mels_s = time.perf_counter() - t
+    asr_profile = profile_asr(syn, mels)
+    assert len(wavs) == len(texts) == len(SENTENCES)
+    for w in wavs:
+        assert w.ndim == 1 and len(w) > 0 and np.isfinite(w).all(), w.shape
+    assert all(np.isfinite(m).all() for m in mels)
+    assert launches == [0, 0], launches
+
+    tiny = {}
+    rng = np.random.default_rng(1)
+    asr_mels = [rng.uniform(0, 1, (n, 80)).astype(np.float32) for n in (20, 11)]
+    short = ["hi there", "ok", "go now"]
+    for attn in ("lsa", "luong"):
+        tcfg = TINY.replace(model_type="rnn", d_attn=attn, attn_dim=16)
+        tp, ts = unast_init(torch.Generator().manual_seed(0), tcfg)
+        tp["speech_m"]["postnet"]["stop_proj"]["b"] -= 100.0
+        kw = dict(audio_params=AudioParams(n_iter=2), text_buckets=(8, 16),
+                  mel_buckets=(16, 24), max_batch=4)
+        on_gpu = Synthesizer(tp, ts, tcfg, device="cuda", **kw)
+        on_cpu = Synthesizer(tp, ts, tcfg, device="cpu", **kw)
+        reset_launch_counts(fa)
+        gpu_mels, gpu_ids = on_gpu.tts_mels(short), on_gpu.asr_ids(asr_mels)
+        n_launch = fa.launches
+        cpu_ids = on_cpu.asr_ids(asr_mels)
+        mel_err = max(float(np.abs(a - b).max()) for a, b in
+                      zip(gpu_mels, on_cpu.tts_mels(short)))
+        padded = np.zeros((2, 24, 80), np.float32)
+        for i, m in enumerate(asr_mels):
+            padded[i, :len(m)] = m
+        from unast_tpu_torch import nn
+        with torch.no_grad():
+            (enc, mask), _ = networks.speech_encode(
+                on_cpu.params["speech_m"], on_cpu.net_state["speech_m"], nn.Ctx.eval(), tcfg,
+                torch.from_numpy(padded), torch.tensor([len(m) for m in asr_mels]))
+            ids = np.stack([np.pad(i, (0, 16 - len(i))) for i in cpu_ids])
+            gaps = rnn_text_margins(on_cpu.params["text_m"], on_cpu.net_state["text_m"],
+                                    tcfg, enc, mask, ids)
+        least = min(float(g[:len(i)].min()) for g, i in zip(gaps, cpu_ids))
+        ids_equal = all(np.array_equal(a, b) for a, b in zip(gpu_ids, cpu_ids))
+        tiny[attn] = {"tts_mels_max_abs_err": mel_err, "asr_ids_equal": ids_equal,
+                      "least_greedy_margin_cpu": least, "flash_launches": n_launch}
+        # float32 on both sides; every greedy choice leads by the margin
+        # printed (above 1e-3 for the ids to be held equal)
+        assert mel_err <= 1e-4 and ids_equal and n_launch == 0, tiny[attn]
+        assert least > 1e-3, tiny[attn]
+    n = len(SENTENCES)
+    return {
+        "config": os.path.relpath(RNN_CONFIG, ROOT), "compute_dtype": cfg.compute_dtype,
+        "hidden": cfg.hidden, "layers": cfg.num_layers, "d_attn": cfg.d_attn,
+        "attn_dim": cfg.attn_dim, "requests": n, "warmup_s": warmup_s,
+        "tts_batch_s": t1 - t0, "tts_utt_per_s": n / (t1 - t0),
+        "tts_mels_s": tts_mels_s, "tts_decode_steps": tts_steps,
+        "tts_ms_per_step": 1e3 * tts_mels_s / max(1, tts_steps),
+        "asr_batch_s": t2 - t1, "asr_decode_steps": asr_steps,
+        "asr_ms_per_step": 1e3 * asr_profile["wall_s"] / max(1, asr_profile["decode_steps"]),
+        "wav_samples": [len(w) for w in wavs],
+        "flash_launches": launches[0], "backward_calls": launches[1],
+        "asr_ids_profile": asr_profile, "max_memory_allocated_bytes": peak,
+        "tiny_gpu_vs_cpu": tiny, "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def rnn_train(fa):
+    """Phase 11: 2 steps of make_train_step on configs/rnn_d.json with its
+    own train args (adam, multistep, B2, ae 1 / cm 2 / sp 1 / d 1) on
+    synthetic batches at 816 frames / 304 tokens (numpy seed 0), random
+    weights from seed 0, counts set to 0 just before each step and read
+    just after; then one TINY f32 RNN step on the card against the CPU."""
+    from unast_tpu_torch.models import TINY, ModelConfig, networks, unast_init
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.train import init_train_state, make_train_step, train_state
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.optim import tree_paths
+    from unast_tpu_torch.train.steps import ZERO_DROPOUTS, zero_fixed_dropouts
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.from_json(RNN_CONFIG)
+    args = train_args(RNN_CONFIG)
+    ts = init_train_state(torch.Generator().manual_seed(0), cfg, args)
+    batches = train_batches(np.random.default_rng(0), args, cfg, args.train_batch_size,
+                            args.data_text_len, args.data_mel_len, "cuda")
+    step_fn = make_train_step(cfg, args)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    decoders = (networks.text_rnn_infer, networks.speech_rnn_infer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(2):
+        reset_launch_counts(fa)
+        before = [fa.backward_calls] + [d.steps for d in decoders]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ts, metrics = step_fn(ts, gen, batches)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        after = [fa.backward_calls] + [d.steps for d in decoders]
+        steps.append({"step": i, "s": seconds,
+                      "metrics": {k: float(v) for k, v in metrics.items()},
+                      "decode_steps": {"text": after[1] - before[1],
+                                       "speech": after[2] - before[2]},
+                      "flash_launches": fa.launches,
+                      "backward_calls": after[0] - before[0]})
+    peak = torch.cuda.max_memory_allocated()
+    for s_ in steps:
+        assert all(np.isfinite(v) for v in s_["metrics"].values()), s_["metrics"]
+        assert s_["flash_launches"] == 0 and s_["backward_calls"] == 0, s_
+    nonfinite = [k for k, x in tree_paths(ts.params).items()
+                 if not bool(torch.isfinite(x).all())]
+    assert not nonfinite and ts.step == 2, nonfinite
+
+    tiny_t = TINY.replace(model_type="rnn", e_bi=True, d_attn="lsa", attn_dim=16,
+                          use_discriminator=True, disc_num_layers=1, **ZERO_DROPOUTS)
+    targs = train_args(os.path.join(ROOT, "configs", "rnn_d_test.json"))
+    tp0, ts0 = unast_init(torch.Generator().manual_seed(0), tiny_t)
+    tb = train_batches(np.random.default_rng(1), targs, tiny_t, 2, 12, 20, "cpu")
+    tiny_step = make_train_step(tiny_t, targs)
+    with zero_fixed_dropouts():
+        on_cpu = tiny_step(train_state(tp0, ts0, tiny_t, targs),
+                           torch.Generator().manual_seed(0), tb)
+        reset_launch_counts(fa)
+        on_gpu = tiny_step(train_state(tree_to(tp0, "cuda"), tree_to(ts0, "cuda"),
+                                       tiny_t, targs),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           {k: tuple(x.cuda() for x in v) for k, v in tb.items()})
+        torch.cuda.synchronize()
+    tiny = {"flash_launches": fa.launches,
+            **compare_train_steps(tp0, on_gpu, on_cpu, targs.lr)}
+    # as phase 8: metrics 1e-4 relative, BN state 1e-5, first moments within
+    # 1e-4 relative + 1e-5 of the largest, normalised updates 1e-3
+    tiny["ok"] = (tiny["metrics_rel"] <= 1e-4 and tiny["state_abs"] <= 1e-5
+                  and tiny["gen_mu_scaled"] <= 1 and tiny["disc_mu_scaled"] <= 1
+                  and tiny["update_abs"] <= 1e-3 and tiny["flash_launches"] == 0)
+    assert tiny["ok"], tiny
+    return {
+        "config": os.path.relpath(RNN_CONFIG, ROOT), "compute_dtype": cfg.compute_dtype,
+        "optim_type": args.optim_type, "sched_type": args.sched_type,
+        "batch": args.train_batch_size, "text_len": args.data_text_len,
+        "mel_len": args.data_mel_len,
+        "micro_batches": {k: getattr(args, f"{k}_steps") for k in ("ae", "cm", "sp", "d")},
+        "first_step_s": steps[0]["s"], "later_step_s": steps[1]["s"],
+        "max_memory_allocated_bytes": peak, "steps": steps,
+        "tiny_gpu_vs_cpu": tiny, "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def vocoder_phase(fa, flag_params, flag_state, flag_cfg):
+    """Phase 12: infer/vocoder.py::train_vocoder at configs/vocoder.json
+    width (hidden 256, n_fft 2048, l1, adamw) for 2 steps of batch 8 on 9
+    synthetic items padded to 816 frames (one held out); the checkpoint
+    saved and loaded back exactly; make_mags on 3 dumps; then
+    Synthesizer(vocoder_pv=) on the flagship transformer of phase 4 (stop
+    bias lowered by 100) serving 8 TTS requests, counts set to 0 just
+    before and read just after; and a TINY f32 vocoder on the card against
+    the CPU."""
+    import tempfile
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.data.dataset import SyntheticSpeechDataset
+    from unast_tpu_torch.infer import vocoder as V
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import ModelConfig, unast
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.train.config import parse_with_config
+    from unast_tpu_torch.train.optim import tree_paths
+    t_phase = time.perf_counter()
+    args = parse_with_config(["--config", VOCODER_CONFIG, "--synthetic_size", "9"])
+    args.hidden_size, args.n_fft = args.hidden, 2048   # as infer/vocoder.py's main
+    ds = SyntheticSpeechDataset(size=args.synthetic_size, seed=args.seed)
+    t = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    data_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    step = V.make_vocoder_step
+    V.make_vocoder_step = lambda a, tx: _timed(step(a, tx), step_s)
+    try:
+        params, vstate, losses = V.train_vocoder(args, ds, epochs=2)
+    finally:
+        V.make_vocoder_step = step
+    train_peak = torch.cuda.max_memory_allocated()
+    assert len(step_s) == 2 and np.isfinite(losses).all(), (step_s, losses)
+    assert all(bool(torch.isfinite(x).all()) for x in tree_paths(params).values())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vocoder.ckpt")
+        t = time.perf_counter()
+        V.save_vocoder_ckpt(params, vstate, path)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        lp, ls = V.load_vocoder_ckpt(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ckpt_bytes = os.path.getsize(path)
+        equal = all(
+            pa.keys() == pb.keys() and all(torch.equal(x, pb[k]) for k, x in pa.items())
+            for pa, pb in ((tree_paths(lp), tree_paths(params)),
+                           (tree_paths(ls), tree_paths(vstate))))
+        assert equal, "the vocoder checkpoint does not hold the trained trees"
+        rng = np.random.default_rng(2)
+        lens = (300, 500, 815)
+        for i, n in enumerate(lens):
+            np.save(os.path.join(tmp, f"u{i}.pt"), rng.uniform(size=(n, 80)).astype(np.float32))
+        t = time.perf_counter()
+        V.make_mags(lp, ls, tmp, [f"u{i}" for i in range(3)], mel_len=args.data_mel_len)
+        make_mags_s = time.perf_counter() - t
+        for i, n in enumerate(lens):
+            m = np.load(os.path.join(tmp, f"u{i}.mag.npy"))
+            assert m.shape == (n, 1025) and np.isfinite(m).all(), m.shape
+
+    syn = Synthesizer(flag_params, flag_state, flag_cfg, vocoder_pv=(lp, ls))
+    syn.tts(SENTENCES[:1])
+    reset_launch_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    wavs = syn.tts(SENTENCES)
+    torch.cuda.synchronize()
+    tts_s = time.perf_counter() - t
+    launches = [fa.launches_bf16, fa.launches_f32]
+    encoder_calls = len(syn.last_decode_steps)
+    serve_peak = torch.cuda.max_memory_allocated()
+    for w in wavs:
+        assert w.ndim == 1 and len(w) > 0 and np.isfinite(w).all(), w.shape
+    assert launches == [flag_cfg.num_layers * encoder_calls, 0], (launches, encoder_calls)
+    with torch.inference_mode():
+        mel_b = torch.rand((8, 815, 80), device="cuda").to(flag_cfg.dtype)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        unast.vocoder(*syn.vocoder_pv, nn.Ctx.eval(), mel_b)
+        torch.cuda.synchronize()
+    cbhg_s = time.perf_counter() - t
+
+    vp, vs = unast.vocoder_init(torch.Generator().manual_seed(0), ModelConfig(hidden=16), 2048)
+    mel = torch.from_numpy(np.random.default_rng(3).uniform(size=(2, 40, 80)).astype(np.float32))
+    tiny = {}
+    for mode in ("eval", "train"):
+        ctx = nn.Ctx(train=mode == "train")
+        cpu, cpu_s = unast.vocoder(vp, vs, ctx, mel)
+        gpu, gpu_s = unast.vocoder(tree_to(vp, "cuda"), tree_to(vs, "cuda"), ctx, mel.cuda())
+        tiny[mode] = {"max_abs_err": float((gpu.detach().cpu() - cpu.detach()).abs().max()),
+                      "state_abs_err": max(float((a.cpu() - tree_paths(cpu_s)[k]).abs().max())
+                                           for k, a in tree_paths(gpu_s).items())}
+    # float32 on both sides; outputs of order 1
+    assert all(v["max_abs_err"] <= 1e-4 and v["state_abs_err"] <= 1e-4
+               for v in tiny.values()), tiny
+    return {
+        "config": os.path.relpath(VOCODER_CONFIG, ROOT), "hidden": args.hidden_size,
+        "n_fft": args.n_fft, "loss_type": getattr(args, "loss_type", "l1"),
+        "optim_type": args.optim_type, "batch": args.train_batch_size,
+        "mel_len": args.data_mel_len, "synthetic_items": len(ds), "data_s": data_s,
+        "step_s": step_s, "epoch_losses": losses, "train_max_memory_allocated_bytes": train_peak,
+        "ckpt_bytes": ckpt_bytes, "save_s": save_s, "load_s": load_s, "load_equal": equal,
+        "make_mags_s": make_mags_s, "make_mags_lens": list(lens),
+        "serve_config": os.path.relpath(CONFIG, ROOT), "tts_batch_s": tts_s,
+        "tts_utt_per_s": len(SENTENCES) / tts_s, "tts_decode_steps": sum(syn.last_decode_steps),
+        "cbhg_b8_t815_s": cbhg_s, "flash_launches_bf16": launches[0],
+        "flash_launches_f32": launches[1], "encoder_calls": encoder_calls,
+        "serve_max_memory_allocated_bytes": serve_peak,
+        "wav_samples": [len(w) for w in wavs], "tiny_gpu_vs_cpu": tiny,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def _timed(fn, seconds):
+    """fn, appending each call's synchronised seconds to `seconds`."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -888,6 +1248,7 @@ def main() -> int:
     from unast_tpu_torch.train.steps import (ZERO_DROPOUTS, flash_calls_per_step,
                                              zero_fixed_dropouts)
 
+    phase_ends = [(0, time.perf_counter())]
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -899,6 +1260,7 @@ def main() -> int:
                       "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                       "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}))
 
+    phase_ends.append((1, time.perf_counter()))
     # 2. the kernel build
     t = time.perf_counter()
     libs = build.build_all()
@@ -916,10 +1278,12 @@ def main() -> int:
     assert hgmma["flash_attn_fwd_wgmma"][0] > 0, "the bf16 kernel has no wgmma"
     assert hgmma["flash_attn_fwd_f32"][1] > 0, "the f32 kernel has no TF32 wgmma"
 
+    phase_ends.append((2, time.perf_counter()))
     # 3. every kernel against its plain version
     cases = [flash_case(c) for c in FLASH_CASES]
     bad = [c for c in cases if not c["ok"]]
 
+    phase_ends.append((3, time.perf_counter()))
     # 4. the main path at flagship width
     cfg = ModelConfig.from_json(CONFIG).replace(attn_impl="flash")
     params, state = unast_init(torch.Generator().manual_seed(0), cfg)
@@ -960,6 +1324,7 @@ def main() -> int:
     assert launches_bf16 == launches and launches_f32 == 0, (
         launches_bf16, launches_f32)
 
+    phase_ends.append((4, time.perf_counter()))
     # 5. the card against the CPU at TINY width (float32, flash on): the
     # float32 kernel's path, its launches counted from here
     tiny = TINY.replace(attn_impl="flash")
@@ -986,11 +1351,13 @@ def main() -> int:
     assert tiny_launches_f32 > 0 and tiny_launches_bf16 == 0, (
         tiny_launches_f32, tiny_launches_bf16)
 
+    phase_ends.append((5, time.perf_counter()))
     # 6. the flash-attention backward against autograd through the plain
     # version, at the train step's shapes
     bwd_cases = [backward_case(c) for c in BWD_CASES]
     bad += [c for c in bwd_cases if not c["ok"]]
 
+    phase_ends.append((6, time.perf_counter()))
     # 7. the second main path: train steps at flagship width. The JSON's
     # fast_prng picks JAX's hardware RBG generator; it means nothing here.
     args = train_args(CONFIG)
@@ -1028,11 +1395,13 @@ def main() -> int:
         steps.append({"step": i, **train_step()})
     train_peak = torch.cuda.max_memory_allocated()
     train_launches_bf16 = sum(s_["flash_launches_bf16"] for s_ in steps)
-    # one more step under the profiler: where a step's time goes
+    # a later step under the profiler: where a step's time goes. Its wall
+    # includes the profiler's own host work, so the idle share read
+    # against it is an upper bound.
     profiled = {}
     traced = trace(lambda: profiled.update(train_step()), TRAIN_PARTS)
     busy, n_kernels, top = device_summary(traced["kernels"])
-    later = steps[1:]
+    later = steps[1:] + [profiled]
     mean_later_s = sum(s_["s"] for s_ in later) / len(later)
     flash_traced = sum(n for name, (n, _) in traced["kernels"].items()
                        if ROUTE_KERNELS[bf16][0] in name)
@@ -1053,6 +1422,7 @@ def main() -> int:
                  if not bool(torch.isfinite(x).all())]
     assert not nonfinite and ts.step == TRAIN_STEPS + 1, nonfinite
 
+    phase_ends.append((7, time.perf_counter()))
     # 8. one TINY train step on the card against the CPU, float32, flash on,
     # train mode with every dropout and mask at 0
     tiny_t = TINY.replace(use_discriminator=True, attn_impl="flash", **ZERO_DROPOUTS)
@@ -1086,11 +1456,26 @@ def main() -> int:
     assert (tiny_train["launches_f32"], tiny_train["launches_bf16"],
             tiny_train["backward_calls"]) == (tiny_fwd, 0, tiny_bwd), (tiny_train, tiny_fwd)
 
+    phase_ends.append((8, time.perf_counter()))
     # 9. the third main path: the training loop at flagship width (bf16),
     # its checkpoint served and test-evaluated, and the float32 loop card
     # against CPU at configs/transformer_test.json width
     loop_run = flagship_loop(fa)
     loop_run["tiny_gpu_vs_cpu"] = tiny_loop_walk(fa)
+
+    phase_ends.append((9, time.perf_counter()))
+    # 10.-12. the RNN backbone served and trained at full width, and the
+    # CBHG vocoder trained and served through
+    rnn_serve_run = rnn_serve(fa)
+    print(json.dumps({"phase": 10, "s": rnn_serve_run["phase_s"]}), flush=True)
+    rnn_train_run = rnn_train(fa)
+    print(json.dumps({"phase": 11, "s": rnn_train_run["phase_s"]}), flush=True)
+    vocoder_run = vocoder_phase(fa, params, state, cfg)
+    print(json.dumps({"phase": 12, "s": vocoder_run["phase_s"]}), flush=True)
+    phase_ends.append((12, time.perf_counter()))
+    print(json.dumps({"phase_s": {
+        f"{a + 1}" if b - a == 1 else f"{a + 1}-{b}": t1 - t0
+        for (a, t0), (b, t1) in zip(phase_ends, phase_ends[1:])}}), flush=True)
 
     for kernel_case in cases:
         kernel_case.pop("ok")
@@ -1098,9 +1483,9 @@ def main() -> int:
         ("flash_attn_fwd_wgmma", "bfloat16", "flash_attn_fwd_wgmma.cu",
          "asr_encoder_qkv", launches_bf16,
          "flagship serve: 8 TTS + 8 ASR, bf16", train_launches_bf16,
-         f"flagship train: {TRAIN_STEPS} steps, bf16 (phase 7)",
+         f"flagship train: {TRAIN_STEPS} untraced step(s), bf16 (phase 7)",
          loop_run["launches"]["seen"][0],
-         "flagship loop: warm-start step, 2 steps, 2 evals, bf16 (phase 9)"),
+         "flagship loop: warm-start step, 1 step, 2 evals, bf16 (phase 9)"),
         ("flash_attn_fwd_f32", "float32", "flash_attn_fwd_f32.cu",
          "tiny_asr_encoder_f32", tiny_launches_f32,
          "TINY serve on the card, float32 (phase 5)", tiny_train_launches_f32,
@@ -1119,6 +1504,14 @@ def main() -> int:
             "dtype": dtype, "launches": n, "launches_counted_on": path,
             "launches_train": n_train, "launches_train_counted_on": train_path,
             "launches_loop": n_loop, "launches_loop_counted_on": loop_path,
+            "launches_vocoder_serve": vocoder_run[
+                "flash_launches_bf16" if dtype == "bfloat16" else "flash_launches_f32"],
+            "launches_vocoder_serve_counted_on":
+                "flagship serve through the CBHG vocoder: 8 TTS, bf16 (phase 12)",
+            "launches_rnn": rnn_serve_run["flash_launches"] + sum(
+                s_["flash_launches"] for s_ in rnn_train_run["steps"]),
+            "launches_rnn_counted_on": "rnn_d serve (8 TTS + 8 ASR) and 2 train steps "
+                                       "(phases 10, 11): the RNN calls no attention kernel",
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -1147,6 +1540,9 @@ def main() -> int:
     }}))
 
     print(json.dumps({"loop": loop_run}))
+    print(json.dumps({"rnn_serve": rnn_serve_run}))
+    print(json.dumps({"rnn_train": rnn_train_run}))
+    print(json.dumps({"vocoder": vocoder_run}))
     n = len(SENTENCES)
     print(json.dumps({"serve": {
         "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,

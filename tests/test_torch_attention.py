@@ -2,7 +2,9 @@
 JAX package's: the plain PyTorch version against the Pallas kernel (in
 interpret mode on the CPU, as tests/test_ops.py runs it) and against the
 plain attention_core, with ragged kv_lens, causal or not, Tq != Tk. Inputs
-are made with numpy from a seed. Tolerances: float32 at 2e-5 (that of
+are made with numpy from a seed; the JAX side's outputs come from the
+hash-guarded golden tests/goldens/torch_attention.npz
+(tests/torch_attention_golden.py). Tolerances: float32 at 2e-5 (that of
 tests/test_ops.py); bfloat16 at 2e-2, about two bf16 ulps of outputs of
 order 1, since each side rounds its float32 result once.
 
@@ -17,19 +19,17 @@ TMA cannot take through its check. The float32 kernel's split-TF32
 arithmetic is emulated in numpy and held against the JAX kernel.
 """
 
-import functools
-
 import numpy as np
 import pytest
-import jax.numpy as jnp
 import torch
-
-from unast_tpu import nn as jnn
-from unast_tpu.models.transformer import attention_core, causal_bias, padding_bias
-from unast_tpu.ops import flash_attention as jax_flash
 
 from unast_tpu_torch.ops import attention
 from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+import torch_attention_golden as AG
+
+_inputs = AG.inputs
+CASES = AG.CASES
 
 
 @pytest.fixture
@@ -43,68 +43,38 @@ def float32_products():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-def _inputs(seed, b, tq, tk, h, d):
-    rng = np.random.default_rng(seed)
-    q = rng.normal(size=(b, tq, h, d)).astype(np.float32)
-    k = rng.normal(size=(b, tk, h, d)).astype(np.float32)
-    v = rng.normal(size=(b, tk, h, d)).astype(np.float32)
-    kv_lens = np.array([tk, max(1, tk - 9)][:b], np.int32)
-    return q, k, v, kv_lens
-
-
-def _attention_core(q, k, v, kv_lens, causal):
-    pad = jnp.arange(k.shape[1])[None, :] >= jnp.asarray(kv_lens)[:, None]
-    bias = padding_bias(pad)
-    if causal:
-        tq, tk = q.shape[1], k.shape[1]
-        if tq == tk:
-            bias = bias + causal_bias(tq)
-        else:  # the kernels' top-left aligned mask: key j <= query i
-            keep = jnp.arange(tk)[None, :] <= jnp.arange(tq)[:, None]
-            bias = bias + jnp.where(keep, 0.0, -1e9)[None, None]
-    return attention_core(q, k, v, bias, jnn.Ctx.eval(), 0.0)
-
-
-CASES = [  # (causal, tq, tk, d)
-    (False, 40, 56, 64),
-    (True, 40, 40, 64),
-    (False, 24, 33, 32),
-    (True, 17, 30, 16),
-]
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_flash_f32(causal, tq, tk, d):
-    """The JAX kernel (interpret mode) on _inputs(0, 2, tq, tk, 2, d); kept,
-    since each call runs the interpreter anew."""
-    q, k, v, kv_lens = _inputs(0, 2, tq, tk, 2, d)
-    return np.asarray(jax_flash(q, k, v, jnp.asarray(kv_lens), causal=causal))
+@pytest.fixture(scope="module")
+def golden():
+    """The JAX kernel's (interpret mode) and attention_core's outputs on
+    the cases, from tests/goldens/torch_attention.npz."""
+    z = np.load(AG.GOLDEN)
+    assert str(z["source_hash"]) == AG.source_hash(), (
+        "tests/goldens/torch_attention.npz is stale: the JAX package, "
+        "tests/torch_attention_golden.py or a library version changed; run "
+        "`JAX_PLATFORMS=cpu python tests/torch_attention_golden.py`")
+    return {k: z[k] for k in z.files}
 
 
 @pytest.mark.parametrize("causal,tq,tk,d", CASES)
-def test_plain_matches_jax_f32(causal, tq, tk, d):
+def test_plain_matches_jax_f32(golden, causal, tq, tk, d):
     q, k, v, kv_lens = _inputs(0, 2, tq, tk, 2, d)
     out = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
                                 torch.from_numpy(kv_lens), causal=causal)
     out = out.numpy()
-    ref_kernel = _jax_flash_f32(causal, tq, tk, d)
-    np.testing.assert_allclose(out, ref_kernel, atol=2e-5, rtol=2e-5)
-    ref_core = np.asarray(_attention_core(q, k, v, kv_lens, causal))
-    np.testing.assert_allclose(out, ref_core, atol=2e-5, rtol=2e-5)
+    case = AG.key(causal, tq, tk, d)
+    np.testing.assert_allclose(out, golden["f32/" + case], atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, golden["core/" + case], atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_plain_matches_jax_bf16(causal):
+@pytest.mark.parametrize("causal", AG.BF16_CAUSAL)
+def test_plain_matches_jax_bf16(golden, causal):
     q, k, v, kv_lens = _inputs(1, 2, 32, 32, 2, 64)
-    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
-    ref = np.asarray(jax_flash(qb, kb, vb, jnp.asarray(kv_lens), causal=causal)
-                     .astype(jnp.float32))
-    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
-                  .to(torch.bfloat16) for x in (qb, kb, vb))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
     out = flash_attention_plain(tq, tk, tv, torch.from_numpy(kv_lens),
                                 causal=causal)
     assert out.dtype == torch.bfloat16
-    np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(out.float().numpy(), golden[f"bf16/{causal}"],
+                               atol=2e-2, rtol=2e-2)
 
 
 def _tf32(x):
@@ -141,13 +111,13 @@ def _emulated_f32_kernel(q, k, v, kv_lens, parts):
     return np.swapaxes(o, 1, 2)
 
 
-def test_split_tf32_arithmetic_matches_jax_f32():
+def test_split_tf32_arithmetic_matches_jax_f32(golden):
     """Three TF32 products of split operands hold the float32 kernel's
     2e-5 against the JAX kernel; one TF32 product does not, which is why
     the float32 kernel splits."""
     causal, tq, tk, d = CASES[0]
     q, k, v, kv_lens = _inputs(0, 2, tq, tk, 2, d)
-    ref = _jax_flash_f32(causal, tq, tk, d)
+    ref = golden["f32/" + AG.key(causal, tq, tk, d)]
     np.testing.assert_allclose(_emulated_f32_kernel(q, k, v, kv_lens, 3), ref,
                                atol=2e-5, rtol=2e-5)
     one = _emulated_f32_kernel(q, k, v, kv_lens, 1)
@@ -195,26 +165,20 @@ def _views(layout, x, tq, tk, h, d):
 
 
 def _view_inputs(layout, seed, b, tq, tk, h, d):
-    rng = np.random.default_rng(seed)
-    if layout == "qkv":
-        x = torch.from_numpy(rng.normal(size=(b, tq, 3 * h * d)).astype(np.float32))
-    else:
-        x = (torch.from_numpy(rng.normal(size=(b, tq, h, d)).astype(np.float32)),
-             torch.from_numpy(rng.normal(size=(b, tk, 2 * h * d)).astype(np.float32)))
-    lens = np.array([tk, max(1, tk - 9)][:b], np.int32)
-    return _views(layout, x, tq, tk, h, d), lens
+    x, lens = AG.fused_inputs(layout, seed, b, tq, tk, h, d)
+    x = tuple(torch.from_numpy(a) for a in x)
+    return _views(layout, x[0] if layout == "qkv" else x, tq, tk, h, d), lens
 
 
-@pytest.mark.parametrize("layout", ["qkv", "cross"])
-def test_plain_on_fused_views_matches_jax(layout):
+@pytest.mark.parametrize("layout", AG.VIEW_LAYOUTS)
+def test_plain_on_fused_views_matches_jax(golden, layout):
     """The strided views the encoders (and later the decoders' cross
     attention) hand to the kernel give JAX's answer on contiguous copies."""
     (q, k, v), lens = _view_inputs(layout, 4, 2, 24, 24, 2, 16)
     assert not k.is_contiguous() and not v.is_contiguous()
     out = flash_attention_plain(q, k, v, torch.from_numpy(lens))
-    ref = np.asarray(jax_flash(*(np.ascontiguousarray(x.numpy()) for x in (q, k, v)),
-                               jnp.asarray(lens)))
-    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out.numpy(), golden[f"views/{layout}"], atol=2e-5,
+                               rtol=2e-5)
 
 
 def _misaligned(kind, device="cpu"):

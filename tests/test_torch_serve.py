@@ -3,10 +3,13 @@ CPU at TINY width: nn ops, the encoders under both attention impls, one
 cached decode step, the greedy decodes, the Synthesizer end to end, the
 wav->mel DSP and the text frontend.
 
-The same weights go to both sides: JAX init, leaves as numpy, then
-bridge.params_from_jax. Inputs are made with numpy from a seed. Everything
-runs in float32 in eval mode (no dropout), with JAX's Pallas kernel in
-interpret mode as its own tests run it. Tolerances: 1e-5 where both sides
+The same weights go to both sides: JAX's init from PRNGKey(0), leaves as
+numpy (kept in the golden below), then bridge.params_from_jax. Inputs are made with numpy from a seed. Everything runs
+in float32 in eval mode (no dropout), with JAX's Pallas kernel in
+interpret mode as its own tests run it. What JAX compiles slowly (the
+Synthesizer, the encoders, the greedy decodes, and the init, which JAX
+runs op by op) comes from the hash-guarded golden
+tests/goldens/torch_serve.npz (tests/torch_serve_golden.py). Tolerances: 1e-5 where both sides
 do the same float32 ops, 1e-4 for mels after the greedy loops, 2e-3 of the
 peak for Griffin-Lim waveforms (see test_synthesizer_matches_jax), 5e-4
 for wav->mel (the dft_high path's stated tolerance), and exact ids and
@@ -23,8 +26,7 @@ import torch
 
 from unast_tpu import nn as jnn
 from unast_tpu.audio import dsp as jdsp
-from unast_tpu.models import TINY as JTINY, networks as JN, transformer as JT
-from unast_tpu.models import unast as JU
+from unast_tpu.models import TINY as JTINY, transformer as JT
 from unast_tpu.text import raw_text_to_phoneme_ids as j_text_ids
 from unast_tpu.text import sequence_to_text as j_seq_to_text
 
@@ -68,18 +70,16 @@ def _np(x):
 
 @functools.lru_cache(maxsize=2)
 def _models(stop_bias: float = 0.0):
-    """(JAX params, JAX state, port params, port state) at TINY, seed 0."""
-    params, state = JU.unast_init(jax.random.PRNGKey(0), JTINY)
-    params["speech_m"]["postnet"]["stop_proj"]["b"] = (
-        params["speech_m"]["postnet"]["stop_proj"]["b"] + stop_bias)
-    np_p = jax.tree_util.tree_map(np.asarray, params)
-    np_s = jax.tree_util.tree_map(np.asarray, state)
-    tp, ts = params_from_jax(np_p, np_s)
+    """(numpy params, numpy state, port params, port state) at TINY: JAX's
+    init from PRNGKey(0), as tests/goldens/torch_serve.npz keeps it, which
+    the bridge turns into the port's."""
+    params, state = SG.models_np(_golden(), stop_bias)
+    tp, ts = params_from_jax(params, state)
     return params, state, tp, ts
 
 
-@pytest.fixture(scope="module")
-def serve_golden():
+@functools.lru_cache(maxsize=1)
+def _golden():
     z = np.load(SG.GOLDEN)
     assert str(z["source_hash"]) == SG.source_hash(), (
         "tests/goldens/torch_serve.npz is stale: the JAX package, "
@@ -88,13 +88,12 @@ def serve_golden():
     return {k: z[k] for k in z.files}
 
 
-def _inputs(seed=0, b=2):
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(3, 46, size=(b, JTINY.max_text_len)).astype(np.int32)
-    tlens = np.array([JTINY.max_text_len, 9][:b], np.int32)
-    mel = rng.uniform(0, 1, size=(b, JTINY.max_mel_len, 80)).astype(np.float32)
-    mlens = np.array([JTINY.max_mel_len, 13][:b], np.int32)
-    return ids, tlens, mel, mlens
+@pytest.fixture(scope="module")
+def serve_golden():
+    return _golden()
+
+
+_inputs = SG.inputs
 
 
 def _greedy_margins(tp, cfg, memory, pad_mask, ids):
@@ -186,40 +185,20 @@ def test_bridge_unstacks_layer_stacks():
         assert torch.equal(a, b)
 
 
-@functools.partial(jax.jit, static_argnums=0)
-def _jax_encoders(cfg, params, state, ids, tlens, mel, mlens):
-    (tm, tmask), _ = JN.text_tr_encode(params["text_m"], state["text_m"],
-                                       ECTX_J, cfg, ids, tlens)
-    (sm, _), _ = JN.speech_tr_encode(params["speech_m"], state["speech_m"],
-                                     ECTX_J, cfg, mel, mlens)
-    return tm, tmask, sm
-
-
-@functools.partial(jax.jit, static_argnums=0)
-def _jax_decodes(cfg, params, state, ids, tlens, mel, mlens):
-    (t_enc, t_mask), _ = JN.text_tr_encode(params["text_m"], state["text_m"],
-                                           ECTX_J, cfg, ids, tlens)
-    speech, _ = JN.speech_tr_infer(params["speech_m"], state["speech_m"],
-                                   ECTX_J, cfg, t_enc, t_mask)
-    (s_enc, s_mask), _ = JN.speech_tr_encode(
-        params["speech_m"], state["speech_m"], ECTX_J, cfg, mel, mlens)
-    return speech, JN.text_tr_infer(params["text_m"], ECTX_J, cfg, s_enc,
-                                    s_mask)
-
-
-@pytest.mark.parametrize("impl", ["xla", "flash"])
-def test_encoders_match_jax(impl):
-    params, state, tp, ts = _models()
-    jcfg, tcfg = JTINY.replace(attn_impl=impl), TTINY.replace(attn_impl=impl)
+@pytest.mark.parametrize("impl", SG.IMPLS)
+def test_encoders_match_jax(serve_golden, impl):
+    _, _, tp, ts = _models()
+    tcfg = TTINY.replace(attn_impl=impl)
     ids, tlens, mel, mlens = _inputs()
-    jm, jmask, jsm = _jax_encoders(jcfg, params, state, ids, tlens, mel, mlens)
     (tm, tmask), _ = TN.text_tr_encode(tp["text_m"], ts["text_m"], ECTX_T,
                                        tcfg, _t(ids).long(), _t(tlens).long())
-    np.testing.assert_allclose(_np(tm), np.asarray(jm), atol=1e-5, rtol=1e-5)
-    assert np.array_equal(tmask.numpy(), np.asarray(jmask))
+    g = f"encoders/{impl}/"
+    np.testing.assert_allclose(_np(tm), serve_golden[g + "text"], atol=1e-5, rtol=1e-5)
+    assert np.array_equal(tmask.numpy(), serve_golden[g + "text_mask"])
     (tsm, _), _ = TN.speech_tr_encode(tp["speech_m"], ts["speech_m"], ECTX_T,
                                       tcfg, _t(mel), _t(mlens).long())
-    np.testing.assert_allclose(_np(tsm), np.asarray(jsm), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(tsm), serve_golden[g + "speech"], atol=1e-5,
+                               rtol=1e-5)
 
 
 def test_decoder_step_matches_jax():
@@ -252,15 +231,15 @@ def test_decoder_step_matches_jax():
         np.testing.assert_allclose(_np(b), np.asarray(a), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("stop_bias", [-100.0, 100.0])
-def test_greedy_decodes_match_jax(stop_bias):
+@pytest.mark.parametrize("stop_bias", SG.GREEDY_STOP_BIASES)
+def test_greedy_decodes_match_jax(serve_golden, stop_bias):
     """stop_bias -100: every row decodes the full max_mel_len frames;
     +100: every row stops on the first frame (the early exit)."""
-    params, state, tp, ts = _models(stop_bias)
+    _, _, tp, ts = _models(stop_bias)
     ids, tlens, mel, mlens = _inputs(seed=3)
-    jcfg, tcfg = JTINY.replace(attn_impl="flash"), TTINY.replace(attn_impl="flash")
-    (jpre, jpost, jstops, jsl), (jids, jtl) = _jax_decodes(
-        jcfg, params, state, ids, tlens, mel, mlens)
+    tcfg = TTINY.replace(attn_impl="flash")
+    ref = {k.split("/")[-1]: v for k, v in serve_golden.items()
+           if k.startswith(f"greedy/{stop_bias}/")}
     with torch.inference_mode():
         (t_enc, t_mask), _ = TN.text_tr_encode(
             tp["text_m"], ts["text_m"], ECTX_T, tcfg, _t(ids).long(),
@@ -274,12 +253,11 @@ def test_greedy_decodes_match_jax(stop_bias):
         gaps = _greedy_margins(tp["text_m"], tcfg, s_enc, s_mask,
                                tids.numpy())
     assert gaps[:, :int(ttl.max())].min() > MIN_MARGIN, gaps.min()
-    assert np.array_equal(tsl.numpy(), np.asarray(jsl))
-    assert np.array_equal(tids.numpy(), np.asarray(jids))
-    assert np.array_equal(ttl.numpy(), np.asarray(jtl))
-    for a, b in ((jpre, tpre), (jpost, tpost), (jstops, tstops)):
-        np.testing.assert_allclose(_np(b), np.asarray(a), atol=1e-4,
-                                   rtol=1e-4)
+    assert np.array_equal(tsl.numpy(), ref["stop_lens"])
+    assert np.array_equal(tids.numpy(), ref["ids"])
+    assert np.array_equal(ttl.numpy(), ref["text_lens"])
+    for name, b in (("pre", tpre), ("post", tpost), ("stops", tstops)):
+        np.testing.assert_allclose(_np(b), ref[name], atol=1e-4, rtol=1e-4)
 
 
 def test_synthesizer_matches_jax(serve_golden):

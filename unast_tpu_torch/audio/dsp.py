@@ -212,6 +212,18 @@ def _mag_to_wav_core(mag: torch.Tensor, p: AudioParams) -> torch.Tensor:
     return deemphasis(wav, p.preemphasis)
 
 
+def mag_to_wav(mag, p: AudioParams = DEFAULT, trim: bool = True,
+               device=None) -> np.ndarray:
+    """unast_tpu/audio/dsp.py::mag_to_wav: normalized magnitude [T, n_freqs]
+    -> waveform (np.float32) by _mag_to_wav_core on `device` (None = cuda),
+    silence-trimmed on the host."""
+    mag = torch.as_tensor(np.asarray(mag)).to(resolve_device(device))
+    wav = _mag_to_wav_core(mag[None], p)[0].float().cpu().numpy()
+    if trim:
+        wav, _ = ref_dsp.trim_silence(wav, p)
+    return wav
+
+
 def mel_to_mag_pseudo_inverse(p: AudioParams = DEFAULT) -> np.ndarray:
     """unast_tpu/audio/dsp.py::mel_to_mag_pseudo_inverse: (n_mels, n_freqs)
     least-squares pseudo-inverse of the mel filterbank."""

@@ -51,6 +51,18 @@ def params_from_jax(params, net_state):
     leaves as numpy arrays -> the port's (params, net_state) of float32 torch
     tensors on the CPU, name for name: `text_m`, `speech_m` and, where the
     model has one, the LSTM `discriminator` (its cells, reduce_h / reduce_c
-    and fc2). A layer stack stacked over a leading axis is unstacked into a
-    list."""
+    and fc2). The RNN backbone's trees come across the same way: the
+    encoder's `layers` and reduce_h / reduce_c, the decoder's `cells` list,
+    `attn` and `proj`. A layer stack stacked over a leading axis is
+    unstacked into a list."""
     return _to_torch(params), _to_torch(net_state)
+
+
+def vocoder_from_jax(params, vstate):
+    """JAX (params, state) of unast_tpu/models/unast.py::vocoder_init (or
+    unast_tpu/infer/vocoder.py's checkpoint), leaves as numpy arrays -> the
+    port's float32 torch trees on the CPU, name for name: `pre`, `post` and
+    the CBHG's `bank` and `bn_bank` lists, proj1 / proj2 with their BNs,
+    `highway` and the `gru` layers' fwd / bwd cells; the BN state's
+    `bn_bank` list and bn_proj1 / bn_proj2."""
+    return _to_torch(params), _to_torch(vstate)

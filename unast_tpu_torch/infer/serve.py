@@ -4,10 +4,11 @@
     wavs = syn.tts(["hello world", ...])               # list of np wavs
     texts = syn.asr([wav1, wav2])                      # list of strings
 
-Requests are padded into fixed text/mel buckets, decoded greedily with the
-KV-cached loops (models/networks.py), and vocoded with the mel
-pseudo-inverse lift and batched Griffin-Lim, all on the device. The
-options of the JAX Synthesizer that this slice does not port raise
+Requests are padded into fixed text/mel buckets, decoded greedily
+(models/networks.py: the KV-cached transformer loops or the RNN loops),
+and vocoded with the CBHG vocoder (`vocoder_pv`) or else the mel
+pseudo-inverse lift, then batched Griffin-Lim, all on the device. The
+options of the JAX Synthesizer that the port does not have yet raise
 NotImplementedError.
 """
 
@@ -44,8 +45,11 @@ class Synthesizer:
                  nar_pv=None, melgan_params=None, ctc_pv=None,
                  melgan_chunk=None, pcm16: bool = False, device=None):
         """params / net_state: the port's trees (bridge.params_from_jax
-        converts JAX ones). device: None means cuda, and raises when there
-        is no CUDA device; tests pass device='cpu'."""
+        converts JAX ones). vocoder_pv: optional (params, state) of a
+        trained CBHG vocoder (infer/vocoder.py; bridge.vocoder_from_jax):
+        the magnitudes then come from it instead of the pseudo-inverse
+        lift. device: None means cuda, and raises when there is no CUDA
+        device; tests pass device='cpu'."""
         unported = [
             ("mesh", mesh is not None, "multi-device slice"),
             ("quantize", quantize is not None, "int8 quantization slice"),
@@ -55,10 +59,7 @@ class Synthesizer:
             ("ctc_pv", ctc_pv is not None, "one-pass families slice"),
             ("melgan_chunk", melgan_chunk is not None,
              "one-pass families slice"),
-            ("vocoder_pv", vocoder_pv is not None, "RNN/CBHG vocoder slice"),
             ("pcm16", pcm16, "one-pass families slice"),
-            ("model_type='rnn'", cfg.model_type != "transformer",
-             "RNN backbone slice"),
         ]
         for what, given, slice_name in unported:
             if given:
@@ -77,6 +78,11 @@ class Synthesizer:
         # functions would cast them at every use with the same rounding.
         self.params = nn.tree_to(nn.cast_weights(params, cfg.dtype), self.device)
         self.net_state = nn.tree_to(net_state, self.device)
+        self.vocoder_pv = None
+        if vocoder_pv is not None:
+            self.vocoder_pv = (
+                nn.tree_to(nn.cast_weights(vocoder_pv[0], cfg.dtype), self.device),
+                nn.tree_to(vocoder_pv[1], self.device))
         self._lift = torch.from_numpy(
             dsp.mel_to_mag_pseudo_inverse(audio_params)).to(self.device)
         # decode steps of the last tts/asr call, one entry per batch chunk
@@ -146,9 +152,10 @@ class Synthesizer:
 
     def tts(self, texts: List[str]):
         """unast_tpu/infer/serve.py::Synthesizer.tts: texts -> list of
-        waveforms (np.float32). Vocoding (pseudo-inverse lift, then Griffin-Lim) runs batched at a
-        fixed mel bucket per chunk; each waveform is then cut at its stop
-        length and silence-trimmed on the host."""
+        waveforms (np.float32). Vocoding (CBHG vocoder or pseudo-inverse
+        lift, then Griffin-Lim) runs batched at a fixed mel bucket per
+        chunk; each waveform is then cut at its stop length and
+        silence-trimmed on the host."""
         return self._tts_wavs_from_seqs(
             [np.asarray(raw_text_to_phoneme_ids(t), np.int64) for t in texts])
 
@@ -185,13 +192,17 @@ class Synthesizer:
         return np.concatenate(out)
 
     def _vocode(self, mel_b: torch.Tensor) -> torch.Tensor:
-        """The lift vocoder of unast_tpu/infer/serve.py::Synthesizer (its
-        _vocode_fn): [rows, T, n_mels] -> [rows, hop*(T-1)] waveforms by the
-        float32 lift
-        mel_b @ lift (a bf16 mel is cast first; torch does not promote
-        bf16 @ f32 the way jnp does), clip, batched Griffin-Lim."""
-        mag = torch.clamp(mel_b.float() @ self._lift, 1e-8, 1.0)
-        return dsp._mag_to_wav_core(mag, self.audio_params)
+        """unast_tpu/infer/serve.py::Synthesizer's _vocode_fn: [rows, T,
+        n_mels] -> [rows, hop*(T-1)] waveforms. With vocoder_pv the CBHG
+        vocoder (eval mode, in the mel's dtype) gives the magnitudes;
+        else the float32 lift mel_b @ lift (a bf16 mel is cast first;
+        torch does not promote bf16 @ f32 the way jnp does). Then clip to
+        [1e-8, 1] and batched Griffin-Lim."""
+        if self.vocoder_pv is not None:
+            mag, _ = U.vocoder(*self.vocoder_pv, nn.Ctx.eval(), mel_b)
+        else:
+            mag = mel_b.float() @ self._lift
+        return dsp._mag_to_wav_core(torch.clamp(mag, 1e-8, 1.0), self.audio_params)
 
     def _tts_wavs_from_seqs(self, seqs):
         """unast_tpu/infer/serve.py::Synthesizer._tts_wavs_from_seqs:
@@ -218,7 +229,11 @@ class Synthesizer:
     def asr_ids(self, mels: List[np.ndarray], beam: int = 1,
                 ctc_beam: int = 1, spec: bool = False):
         """unast_tpu/infer/serve.py::Synthesizer.asr_ids: mels (list of
-        [T, n_mels]) -> list of phoneme-id np arrays, greedy (beam 1)."""
+        [T, n_mels]) -> list of phoneme-id np arrays, greedy (beam 1). Beam
+        search needs the transformer backbone (ValueError on the RNN, as
+        in JAX)."""
+        if beam > 1 and self.cfg.model_type != "transformer":
+            raise ValueError("beam search requires the transformer backbone")
         if beam > 1:
             _not_ported("beam > 1", "one-pass families slice")
         if ctc_beam > 1:
@@ -276,5 +291,5 @@ class Synthesizer:
                                       device=self.device),
                       mel_len=torch.full((1,), mb, dtype=torch.long,
                                          device=self.device), infer=True)
-            self._vocode(torch.zeros((1, self.mel_buckets[0],
-                                      self.cfg.num_mels), device=self.device))
+            self._vocode(torch.zeros((1, self.mel_buckets[0], self.cfg.num_mels),
+                                     dtype=self.cfg.dtype, device=self.device))

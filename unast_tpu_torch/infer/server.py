@@ -7,10 +7,11 @@ the card runs full batches; serve_http puts a stdlib HTTP endpoint over it
 GET /healthz).
 
     python -m unast_tpu_torch.infer.server --load_path ckpt/model_best.ckpt \
-        --config configs/transformer_trans.json --port 8571 [--device cpu]
+        --config configs/transformer_trans.json --port 8571 [--device cpu] \
+        [--vocoder_ckpt vocoder.ckpt]
 
---vocoder_ckpt (the CBHG vocoder) comes with the RNN/CBHG vocoder slice of
-the port and raises NotImplementedError.
+--vocoder_ckpt: a CBHG vocoder checkpoint (infer/vocoder.py) that makes
+the TTS magnitudes in place of the mel pseudo-inverse lift.
 """
 
 import io
@@ -232,11 +233,11 @@ def main(argv=None):
     ap.add_argument("--vocoder_ckpt", default=None)
     known, rest = ap.parse_known_args(argv)
     args = parse_with_config(rest)
+    kw = {}
     if known.vocoder_ckpt:
-        raise NotImplementedError(
-            "--vocoder_ckpt (the CBHG vocoder) comes with the RNN/CBHG "
-            "vocoder slice of the port (ROADMAP.md queue 1 item 4)")
-    syn = Synthesizer.from_checkpoint(args.load_path, args)
+        from .vocoder import load_vocoder_ckpt
+        kw["vocoder_pv"] = load_vocoder_ckpt(known.vocoder_ckpt, args.device)
+    syn = Synthesizer.from_checkpoint(args.load_path, args, **kw)
     syn.warmup()
     batcher = DynamicBatcher(syn, max_wait_ms=known.max_wait_ms)
     server = serve_http(batcher, known.host, known.port)

@@ -1,6 +1,6 @@
 """Model stack of the port (counterpart of unast_tpu/models): the
-transformer backbone's serving and training paths and the LSTM
-discriminator."""
+transformer and RNN backbones' serving and training paths, the LSTM
+discriminator and the CBHG vocoder."""
 
 from .config import ModelConfig, TINY, VOCAB_SIZE, PAD_IDX, SOS_IDX, EOS_IDX
 from . import modules, transformer, networks, rnn, unast

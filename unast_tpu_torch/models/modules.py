@@ -1,6 +1,8 @@
 """Shared NN modules of the port: masks, positional encoding, the speech and
-text prenets and postnets. Mirrors `unast_tpu/models/modules.py`; all
-activations are [B, T, C] channels-last.
+text prenets (with the RNN text decoder's incremental causal prenet) and
+postnets, the highway network and the CBHG of the vocoder. Mirrors
+`unast_tpu/models/modules.py`; all activations are [B, T, C]
+channels-last.
 """
 
 import functools
@@ -165,8 +167,43 @@ def text_embed(p, ctx: nn.Ctx, ids, cfg: ModelConfig):
     return nn.dropout(ctx, emb, cfg.t_pre_drop)
 
 
+def text_prenet_step_init(p, batch: int, cfg: ModelConfig, dtype, device=None):
+    """unast_tpu/models/modules.py::text_prenet_step_init: one rolling
+    buffer of the last 5 positions per conv layer's input (zeros are the
+    causal conv's left padding)."""
+    def zeros(c):
+        return torch.zeros((batch, 5, c), dtype=dtype, device=device)
+    return zeros(cfg.t_emb_dim), zeros(cfg.e_in), zeros(cfg.e_in)
+
+
+def text_prenet_step(p, s, ctx: nn.Ctx, emb_t, bufs, cfg: ModelConfig):
+    """unast_tpu/models/modules.py::text_prenet_step: one position of the
+    causal conv stack. emb_t: [B, emb]. Returns (y [B, e_in], new_bufs).
+    Equals text_prenet_convs(causal=True) at every position (BN on running
+    statistics): each conv is one window product, y_i = sum_k w[k] .
+    x[i-4+k]."""
+    def conv_pos(cp, buf):
+        w = nn.weight(cp, buf.dtype)                         # [5, Cin, Cout]
+        y = buf.flatten(1) @ w.flatten(0, 1)
+        if "b" in cp:
+            y = y + cp["b"].to(buf.dtype)
+        return y
+
+    new_bufs = []
+    h = emb_t
+    for i, buf in enumerate(bufs, start=1):
+        buf = torch.cat([buf[:, 1:], h[:, None]], dim=1)
+        new_bufs.append(buf)
+        h, _ = nn.batchnorm(p["bn"][f"bn{i}"], s["bn"][f"bn{i}"],
+                            conv_pos(p[f"conv{i}"], buf), train=False)
+        h = nn.dropout(ctx, torch.relu(h), cfg.t_pre_drop)
+    return h, tuple(new_bufs)
+
+
 def text_prenet_convs(p, s, ctx: nn.Ctx, x, cfg: ModelConfig, causal=False):
-    """unast_tpu/models/modules.py::text_prenet_convs -> (x, new_state)."""
+    """unast_tpu/models/modules.py::text_prenet_convs -> (x, new_state).
+    causal=True pads 4 frames on the left only: the RNN text decoder's
+    input path."""
     pad = (4, 0) if causal else (2, 2)
     new_bn = {}
     for i in (1, 2, 3):
@@ -190,3 +227,124 @@ def text_postnet_init(gen: torch.Generator, cfg: ModelConfig):
 def text_postnet(p, ctx: nn.Ctx, x, cfg: ModelConfig):
     """unast_tpu/models/modules.py::text_postnet."""
     return nn.linear(p["fc"], nn.dropout(ctx, x, cfg.t_post_drop))
+
+
+# ---------------------------------------------------------------------------
+# Highway network
+# ---------------------------------------------------------------------------
+
+
+def highway_init(gen: torch.Generator, units: int, num_layers: int = 4):
+    """unast_tpu/models/modules.py::highway_init."""
+    linears, gates = [], []
+    for _ in range(num_layers):
+        linears.append(nn.linear_init(gen, units, units))
+        gates.append(nn.linear_init(gen, units, units))
+    return {"linears": linears, "gates": gates}
+
+
+def highway(p, x):
+    """unast_tpu/models/modules.py::highway: x <- relu(W x) * t + x * (1 - t),
+    t = sigmoid(G x), per layer."""
+    for fc, gate in zip(p["linears"], p["gates"]):
+        h = torch.relu(nn.linear(fc, x))
+        t = torch.sigmoid(nn.linear(gate, x))
+        x = h * t + x * (1.0 - t)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# CBHG. The conv bank is CHAINED as in the reference (conv_k reads the
+# output of conv_{k-1}, not the input), and an even kernel's conv, padded
+# k // 2 on each side, gives one frame too many, which is trimmed.
+# ---------------------------------------------------------------------------
+
+
+def cbhg_init(gen: torch.Generator, hidden: int, K: int = 16,
+              projection_size: int = 256, num_gru_layers: int = 2):
+    """unast_tpu/models/modules.py::cbhg_init -> (params, state): the bank of
+    K convs with their BNs, two projection convs with theirs, a 4-layer
+    highway and a bidirectional GRU of num_gru_layers layers, hidden // 2
+    per direction."""
+    params = {"bank": [], "bn_bank": []}
+    state = {"bn_bank": []}
+    c_in = projection_size
+    for k in range(1, K + 1):
+        params["bank"].append(nn.conv1d_init(gen, c_in, hidden, k,
+                                             torch_default=True))
+        bp, bs = nn.batchnorm_init(hidden)
+        params["bn_bank"].append(bp)
+        state["bn_bank"].append(bs)
+        c_in = hidden
+    params["proj1"] = nn.conv1d_init(gen, hidden * K, hidden, 3,
+                                     torch_default=True)
+    params["proj2"] = nn.conv1d_init(gen, hidden, projection_size, 3,
+                                     torch_default=True)
+    params["bn_proj1"], state["bn_proj1"] = nn.batchnorm_init(hidden)
+    params["bn_proj2"], state["bn_proj2"] = nn.batchnorm_init(projection_size)
+    params["highway"] = highway_init(gen, projection_size)
+    gru = []
+    d_in = projection_size
+    for _ in range(num_gru_layers):
+        gru.append({"fwd": nn.gru_cell_init(gen, d_in, hidden // 2),
+                    "bwd": nn.gru_cell_init(gen, d_in, hidden // 2)})
+        d_in = hidden
+    params["gru"] = gru
+    return params, state
+
+
+def _maxpool2_same(x):
+    """unast_tpu/models/modules.py::_maxpool2_same: torch MaxPool1d(k=2,
+    stride=1, pad=1) then the last frame trimmed, on [B, T, C]: out[t] =
+    max(x[t-1], x[t]), with -inf before the first frame."""
+    return torch.cat([x[:, :1], torch.maximum(x[:, 1:], x[:, :-1])], dim=1)
+
+
+def _gru_bidir(gru_params, x):
+    """unast_tpu/models/modules.py::_gru_bidir: a stacked bidirectional GRU
+    over [B, T, C] (no masking: the backward direction starts at the last,
+    possibly padded, frame), as a Python loop over time. Each direction's
+    input half of the gates is one product over the sequence."""
+    for layer_p in gru_params:
+        b, t_len = x.shape[:2]
+        outs = []
+        for name, steps in (("fwd", range(t_len)),
+                            ("bwd", range(t_len - 1, -1, -1))):
+            cell = layer_p[name]
+            gates_in = nn.gru_gates_in(cell, x)                  # [B, T, 3H]
+            h = torch.zeros((b, cell["wh"].shape[0]), dtype=x.dtype,
+                            device=x.device)
+            seq = [None] * t_len
+            for t in steps:
+                h = nn.gru_cell(cell, gates_in[:, t], h)
+                seq[t] = h
+            outs.append(torch.stack(seq, dim=1))
+        x = torch.cat(outs, dim=-1)
+    return x
+
+
+def cbhg(p, s, ctx: nn.Ctx, x, K: int = 16):
+    """unast_tpu/models/modules.py::cbhg. x: [B, T, projection_size] ->
+    [B, T, hidden]. BN uses batch statistics in train mode. Returns (y,
+    new_state)."""
+    new_state = {"bn_bank": []}
+    outs = []
+    h = x
+    for k in range(1, K + 1):
+        y = nn.conv1d(p["bank"][k - 1], h, padding=(k // 2, k // 2))
+        if k % 2 == 0:
+            y = y[:, :-1]
+        y, bs = nn.batchnorm(p["bn_bank"][k - 1], s["bn_bank"][k - 1], y,
+                             ctx.train)
+        new_state["bn_bank"].append(bs)
+        h = torch.relu(y)
+        outs.append(h)
+    y = _maxpool2_same(torch.cat(outs, dim=-1))             # [B, T, hidden*K]
+    y = nn.conv1d(p["proj1"], y, padding=(1, 1))
+    y, new_state["bn_proj1"] = nn.batchnorm(p["bn_proj1"], s["bn_proj1"], y,
+                                            ctx.train)
+    y = nn.conv1d(p["proj2"], torch.relu(y), padding=(1, 1))
+    y, new_state["bn_proj2"] = nn.batchnorm(p["bn_proj2"], s["bn_proj2"], y,
+                                            ctx.train)
+    y = highway(p["highway"], y + x)
+    return _gru_bidir(p["gru"], y), new_state

@@ -1,17 +1,27 @@
-"""The transformer backbone networks of the port, mirroring
-`unast_tpu/models/networks.py`: TextTransformer and SpeechTransformer init,
-encode (with the denoising AE's input noise), teacher-forced decode
-(`*_decode_sequence`) and KV-cached greedy decode (`*_infer`), plus the
-model_type dispatchers.
+"""The backbone networks of the port, mirroring
+`unast_tpu/models/networks.py`: TextTransformer, SpeechTransformer, TextRNN
+and SpeechRNN init, encode (with the denoising AE's input noise),
+teacher-forced decode (`*_decode_sequence`) and greedy decode (`*_infer`:
+KV-cached for the transformer; the LSTM state and the attention state
+carried step to step for the RNN), plus the model_type dispatchers.
 
-Each JAX `lax.while_loop` decode is a Python loop with the same early exit:
+Each JAX `lax.scan` over time (the RNN decoders) is a Python loop. Each
+JAX `lax.while_loop` decode is a Python loop with the same early exit:
 it stops once every row's stop condition fired, which costs one host sync
 per step to read the stop flags. Fixed [B, max_len(+1), ...] buffers, the
 go-frame, the reduction_factor grouping and the stop bookkeeping are the
 JAX package's. Under a train-mode Ctx (the cm objective's pseudo-pair
 decodes) every step draws fresh dropout masks from the Ctx's one
-generator, as JAX folds the step index into its key (_fold_ctx). The RNN
-backbone and the conformer encoder come with later slices.
+generator, as JAX folds the step index into its key (_fold_ctx). The
+conformer encoder comes with a later slice.
+
+The RNN text decoder reads its gold inputs through the text prenet's
+CAUSAL convs (once over the sequence), and its greedy decode evaluates the
+same convs incrementally (modules.text_prenet_step), as JAX does. The RNN
+speech decoder's prenet is one pointwise MLP, run here once over the
+teacher-forced inputs ahead of the loop (JAX runs it inside its scan):
+the same values in eval mode, the same distribution of dropout masks in
+train mode.
 """
 
 from typing import Optional
@@ -22,13 +32,13 @@ from torch.profiler import record_function
 from .. import nn
 from .config import ModelConfig, PAD_IDX, SOS_IDX, EOS_IDX
 from . import modules as M
+from . import rnn as R
 from . import transformer as T
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise on a configuration this slice of the port does not run."""
+    """Raise on a configuration the port does not run yet."""
     later = {
-        "model_type='rnn'": cfg.model_type != "transformer",
         "speech_encoder='conformer'": cfg.speech_encoder != "transformer",
         "moe_experts > 0": cfg.moe_experts > 0,
         "pp > 1": cfg.pp > 1,
@@ -38,8 +48,8 @@ def check_ported(cfg: ModelConfig):
     off = [name for name, on in later.items() if on]
     if off:
         raise NotImplementedError(
-            f"{', '.join(off)}: not in the serving and training slices of "
-            "the port; these come with later slices (ROADMAP.md queue 1)")
+            f"{', '.join(off)}: not in the port yet; these come with later "
+            "slices (ROADMAP.md queue 1)")
 
 
 # ===========================================================================
@@ -239,57 +249,269 @@ speech_tr_infer.steps = 0   # decode steps (frame groups) run, in all calls
 
 
 # ===========================================================================
+# TextRNN
+# ===========================================================================
+
+
+def text_rnn_init(gen: torch.Generator, cfg: ModelConfig):
+    """unast_tpu/models/networks.py::text_rnn_init -> (params, state)."""
+    check_ported(cfg)
+    prenet_p, prenet_s = M.text_prenet_init(gen, cfg)
+    params = {
+        "prenet": prenet_p,
+        "encoder": R.rnn_encoder_init(gen, cfg.e_in, cfg.hidden,
+                                      cfg.num_layers, cfg.e_bi),
+        "decoder": R.rnn_decoder_init(gen, cfg.e_in, cfg.enc_out_dim,
+                                      cfg.hidden, cfg.num_layers,
+                                      cfg.d_attn, cfg.attn_dim),
+        "postnet": M.text_postnet_init(gen, cfg),
+    }
+    return params, {"prenet": prenet_s}
+
+
+def text_rnn_encode(p, s, ctx, cfg: ModelConfig, ids, lens, noise_in=False):
+    """unast_tpu/models/networks.py::text_rnn_encode. Returns ((((h, c),
+    enc_out [B, T, enc_out_dim]), pad_mask), new_state)."""
+    pad_mask = ~M.lens_to_mask(lens, ids.shape[1])
+    x = M.text_embed(p["prenet"], ctx, ids, cfg)
+    if noise_in:
+        x = M.noise_fn(ctx, x, cfg.noise_mask_p)
+    x, prenet_s = M.text_prenet_convs(p["prenet"], s["prenet"], ctx, x, cfg)
+    enc_out, hc = R.rnn_encoder(p["encoder"], ctx, x, lens, cfg.e_drop)
+    return ((hc, enc_out), pad_mask), {"prenet": prenet_s}
+
+
+def _init_attn_state(p, cfg: ModelConfig, enc_out):
+    """unast_tpu/models/networks.py::_init_attn_state: the LSAState for
+    'lsa'. JAX carries a dummy state for the other mechanisms to keep its
+    scan carry uniform; here they carry None."""
+    if cfg.d_attn == "lsa":
+        return R.lsa_init_state(p["decoder"]["attn"], enc_out)
+    return None
+
+
+def _rnn_decode_loop(p, ctx, cfg: ModelConfig, x, hc, enc_out, enc_pad_mask):
+    """The teacher-forced decoder over inputs x [B, T, D]: -> [B, T, H]."""
+    attn = _init_attn_state(p, cfg, enc_out)
+    outs = []
+    for i in range(x.shape[1]):
+        out, hc, attn = R.rnn_decoder_step(
+            p["decoder"], ctx, x[:, i], hc, enc_out, enc_pad_mask, attn,
+            cfg.d_drop, cfg.d_attn)
+        outs.append(out)
+    return torch.stack(outs, dim=1)
+
+
+def text_rnn_decode_sequence(p, s, ctx, cfg: ModelConfig, tgt, tgt_lens,
+                             enc_outputs, enc_pad_mask):
+    """unast_tpu/models/networks.py::text_rnn_decode_sequence:
+    teacher-forced decode of tgt [B, T] (shifted right behind SOS) through
+    the CAUSAL prenet convs -> (logits [B, T, V], new_state)."""
+    hc, enc_out = enc_outputs
+    sos = torch.full((tgt.shape[0], 1), SOS_IDX, dtype=tgt.dtype,
+                     device=tgt.device)
+    tgt_in = torch.cat([sos, tgt[:, :-1]], dim=1)
+    x = M.text_embed(p["prenet"], ctx, tgt_in, cfg)
+    x, prenet_s = M.text_prenet_convs(p["prenet"], s["prenet"], ctx, x, cfg,
+                                      causal=True)
+    h_seq = _rnn_decode_loop(p, ctx, cfg, x, hc, enc_out, enc_pad_mask)
+    return M.text_postnet(p["postnet"], ctx, h_seq, cfg), {"prenet": prenet_s}
+
+
+def text_rnn_infer(p, s, ctx, cfg: ModelConfig, enc_outputs, enc_pad_mask,
+                   max_len: Optional[int] = None):
+    """unast_tpu/models/networks.py::text_rnn_infer: greedy decode, the
+    causal prenet evaluated incrementally (BN on running statistics).
+    Returns (ids [B, max_len] masked past stop, stop_lens [B])."""
+    max_len = max_len or cfg.max_text_len
+    hc, enc_out = enc_outputs
+    b = enc_out.shape[0]
+    dev = enc_out.device
+    tokens = torch.full((b, max_len), PAD_IDX, dtype=torch.long, device=dev)
+    stop_lens = torch.full((b,), max_len, dtype=torch.long, device=dev)
+    bufs = M.text_prenet_step_init(p["prenet"], b, cfg, enc_out.dtype, dev)
+    cur_emb = M.text_embed(p["prenet"], ctx, torch.full(
+        (b,), SOS_IDX, dtype=torch.long, device=dev), cfg)
+    attn = _init_attn_state(p, cfg, enc_out)
+    for i in range(max_len):
+        if not bool((stop_lens == max_len).any()):
+            break
+        text_rnn_infer.steps += 1
+        x_t, bufs = M.text_prenet_step(p["prenet"], s["prenet"], ctx, cur_emb,
+                                       bufs, cfg)
+        out, hc, attn = R.rnn_decoder_step(
+            p["decoder"], ctx, x_t, hc, enc_out, enc_pad_mask, attn,
+            cfg.d_drop, cfg.d_attn)
+        choice = torch.argmax(M.text_postnet(p["postnet"], ctx, out, cfg), dim=-1)
+        tokens[:, i] = choice
+        newly = (choice == EOS_IDX) & (stop_lens == max_len)
+        stop_lens = torch.where(newly, i + 1, stop_lens)
+        cur_emb = M.text_embed(p["prenet"], ctx, choice, cfg)
+    return tokens * M.lens_to_mask(stop_lens, max_len).to(tokens.dtype), stop_lens
+
+
+text_rnn_infer.steps = 0   # decode steps run, in all calls
+
+
+# ===========================================================================
+# SpeechRNN
+# ===========================================================================
+
+
+def speech_rnn_init(gen: torch.Generator, cfg: ModelConfig):
+    """unast_tpu/models/networks.py::speech_rnn_init -> (params, state). The
+    RNN decoder takes one frame a step: reduction_factor must be 1."""
+    assert cfg.reduction_factor == 1, (
+        "reduction_factor > 1 is implemented for the transformer speech "
+        "decoder only (the RNN decoder consumes one frame per step)")
+    check_ported(cfg)
+    params = {
+        "prenet": M.speech_prenet_init(gen, cfg),
+        "encoder": R.rnn_encoder_init(gen, cfg.e_in, cfg.hidden,
+                                      cfg.num_layers, cfg.e_bi),
+        "decoder": R.rnn_decoder_init(gen, cfg.e_in, cfg.enc_out_dim,
+                                      cfg.hidden, cfg.num_layers,
+                                      cfg.d_attn, cfg.attn_dim),
+    }
+    params["postnet"], postnet_s = M.speech_postnet_init(gen, cfg)
+    return params, {"postnet": postnet_s}
+
+
+def speech_rnn_encode(p, s, ctx, cfg: ModelConfig, mel, lens, noise_in=False):
+    """unast_tpu/models/networks.py::speech_rnn_encode. Returns ((((h, c),
+    enc_out), pad_mask), state)."""
+    pad_mask = ~M.lens_to_mask(lens, mel.shape[1])
+    x = M.noise_fn(ctx, mel, cfg.noise_mask_p) if noise_in else mel
+    x = M.speech_prenet(p["prenet"], ctx, x, cfg)
+    enc_out, hc = R.rnn_encoder(p["encoder"], ctx, x, lens, cfg.e_drop)
+    return ((hc, enc_out), pad_mask), s
+
+
+def speech_rnn_decode_sequence(p, s, ctx, cfg: ModelConfig, tgt, tgt_lens,
+                               enc_outputs, enc_pad_mask):
+    """unast_tpu/models/networks.py::speech_rnn_decode_sequence:
+    teacher-forced decode of tgt [B, T, num_mels] behind a zero go-frame.
+    The postnet runs over the buffer WITH the leading zero frame, which is
+    then shifted off. Returns ((pre, post, stop [B, T], tgt_lens),
+    new_state)."""
+    hc, enc_out = enc_outputs
+    go = torch.zeros((tgt.shape[0], 1, cfg.num_mels), dtype=tgt.dtype,
+                     device=tgt.device)
+    x = M.speech_prenet(p["prenet"], ctx, torch.cat([go, tgt[:, :-1]], dim=1),
+                        cfg)
+    h_seq = _rnn_decode_loop(p, ctx, cfg, x, hc, enc_out, enc_pad_mask)
+    pre, stop = M.speech_mel_and_stop(p["postnet"], h_seq)
+    buf = torch.cat([torch.zeros_like(pre[:, :1]), pre], dim=1)
+    resid, postnet_s = M.speech_postnet(p["postnet"], s["postnet"], ctx, buf, cfg)
+    return ((pre, (buf + resid)[:, 1:], stop.squeeze(-1), tgt_lens),
+            dict(s, postnet=postnet_s))
+
+
+def speech_rnn_infer(p, s, ctx, cfg: ModelConfig, enc_outputs, enc_pad_mask,
+                     max_len: Optional[int] = None):
+    """unast_tpu/models/networks.py::speech_rnn_infer: greedy decode, a row
+    stops the first step sigmoid(stop) >= cfg.stop_threshold; the postnet
+    runs once over the buffer with its leading zero go-frame. pre, post
+    and stops are masked past each row's stop_len. Returns ((pre, post,
+    stops, stop_lens), new_state)."""
+    max_len = max_len or cfg.max_mel_len
+    hc, enc_out = enc_outputs
+    b = enc_out.shape[0]
+    dev = enc_out.device
+    frames = torch.zeros((b, max_len + 1, cfg.num_mels), dtype=enc_out.dtype,
+                         device=dev)
+    stops = torch.zeros((b, max_len), dtype=enc_out.dtype, device=dev)
+    stop_lens = torch.full((b,), max_len, dtype=torch.long, device=dev)
+    attn = _init_attn_state(p, cfg, enc_out)
+    for i in range(max_len):
+        if not bool((stop_lens == max_len).any()):
+            break
+        speech_rnn_infer.steps += 1
+        x = M.speech_prenet(p["prenet"], ctx, frames[:, i], cfg)
+        out, hc, attn = R.rnn_decoder_step(
+            p["decoder"], ctx, x, hc, enc_out, enc_pad_mask, attn,
+            cfg.d_drop, cfg.d_attn)
+        mel_t, stop_t = M.speech_mel_and_stop(p["postnet"], out)
+        frames[:, i + 1] = mel_t
+        stops[:, i] = stop_t[:, 0]
+        newly = ((torch.sigmoid(stop_t[:, 0]) >= cfg.stop_threshold)
+                 & (stop_lens == max_len))
+        stop_lens = torch.where(newly, i + 1, stop_lens)
+    mask = M.lens_to_mask(stop_lens, max_len).to(frames.dtype)
+    resid, postnet_s = M.speech_postnet(p["postnet"], s["postnet"], ctx,
+                                        frames, cfg)
+    pre = frames[:, 1:] * mask[..., None]
+    post = (frames + resid)[:, 1:] * mask[..., None]
+    return (pre, post, stops * mask, stop_lens), dict(s, postnet=postnet_s)
+
+
+speech_rnn_infer.steps = 0   # decode steps run, in all calls
+
+
+# ===========================================================================
 # Dispatch helpers (unast_tpu/models/networks.py:705-754)
 # ===========================================================================
 
 
+def _is_tr(cfg: ModelConfig) -> bool:
+    check_ported(cfg)
+    return cfg.model_type == "transformer"
+
+
 def text_init(gen: torch.Generator, cfg: ModelConfig):
-    """unast_tpu/models/networks.py::text_init (transformer only)."""
-    return text_transformer_init(gen, cfg)
+    """unast_tpu/models/networks.py::text_init."""
+    return (text_transformer_init if _is_tr(cfg) else text_rnn_init)(gen, cfg)
 
 
 def speech_init(gen: torch.Generator, cfg: ModelConfig):
-    """unast_tpu/models/networks.py::speech_init (transformer only)."""
-    return speech_transformer_init(gen, cfg)
+    """unast_tpu/models/networks.py::speech_init."""
+    return (speech_transformer_init if _is_tr(cfg) else speech_rnn_init)(gen, cfg)
 
 
 def text_encode(p, s, ctx, cfg, ids, lens, noise_in=False):
-    """unast_tpu/models/networks.py::text_encode (transformer only)."""
-    return text_tr_encode(p, s, ctx, cfg, ids, lens, noise_in)
+    """unast_tpu/models/networks.py::text_encode."""
+    fn = text_tr_encode if _is_tr(cfg) else text_rnn_encode
+    return fn(p, s, ctx, cfg, ids, lens, noise_in)
 
 
 def speech_encode(p, s, ctx, cfg, mel, lens, noise_in=False):
-    """unast_tpu/models/networks.py::speech_encode (transformer only)."""
-    return speech_tr_encode(p, s, ctx, cfg, mel, lens, noise_in)
+    """unast_tpu/models/networks.py::speech_encode."""
+    fn = speech_tr_encode if _is_tr(cfg) else speech_rnn_encode
+    return fn(p, s, ctx, cfg, mel, lens, noise_in)
 
 
 def text_decode_sequence(p, s, ctx, cfg, tgt, tgt_lens, memory, mem_mask,
                          cross_weights_out=None):
-    """unast_tpu/models/networks.py::text_decode_sequence (transformer
-    only): (logits, state), the state untouched."""
-    check_ported(cfg)
-    return text_tr_decode_sequence(p, ctx, cfg, tgt, tgt_lens, memory,
-                                   mem_mask, cross_weights_out), s
+    """unast_tpu/models/networks.py::text_decode_sequence: (logits, state).
+    cross_weights_out collects the transformer decoder's cross-attention
+    weights; the RNN decoder leaves it as it is."""
+    if _is_tr(cfg):
+        return text_tr_decode_sequence(p, ctx, cfg, tgt, tgt_lens, memory,
+                                       mem_mask, cross_weights_out), s
+    return text_rnn_decode_sequence(p, s, ctx, cfg, tgt, tgt_lens, memory,
+                                    mem_mask)
 
 
 def speech_decode_sequence(p, s, ctx, cfg, tgt, tgt_lens, memory, mem_mask,
                            cross_weights_out=None):
-    """unast_tpu/models/networks.py::speech_decode_sequence (transformer
-    only)."""
-    check_ported(cfg)
-    return speech_tr_decode_sequence(p, s, ctx, cfg, tgt, tgt_lens, memory,
-                                     mem_mask, cross_weights_out)
+    """unast_tpu/models/networks.py::speech_decode_sequence."""
+    if _is_tr(cfg):
+        return speech_tr_decode_sequence(p, s, ctx, cfg, tgt, tgt_lens, memory,
+                                         mem_mask, cross_weights_out)
+    return speech_rnn_decode_sequence(p, s, ctx, cfg, tgt, tgt_lens, memory,
+                                      mem_mask)
 
 
 def text_infer(p, s, ctx, cfg, memory, mem_mask, max_len=None):
-    """unast_tpu/models/networks.py::text_infer (transformer only)."""
-    check_ported(cfg)
+    """unast_tpu/models/networks.py::text_infer: ((ids, stop_lens), s)."""
     with record_function("unast/text_infer"):
-        return text_tr_infer(p, ctx, cfg, memory, mem_mask, max_len), s
+        if _is_tr(cfg):
+            return text_tr_infer(p, ctx, cfg, memory, mem_mask, max_len), s
+        return text_rnn_infer(p, s, ctx, cfg, memory, mem_mask, max_len), s
 
 
 def speech_infer(p, s, ctx, cfg, memory, mem_mask, max_len=None):
-    """unast_tpu/models/networks.py::speech_infer (transformer only)."""
-    check_ported(cfg)
+    """unast_tpu/models/networks.py::speech_infer."""
+    fn = speech_tr_infer if _is_tr(cfg) else speech_rnn_infer
     with record_function("unast/speech_infer"):
-        return speech_tr_infer(p, s, ctx, cfg, memory, mem_mask, max_len)
+        return fn(p, s, ctx, cfg, memory, mem_mask, max_len)

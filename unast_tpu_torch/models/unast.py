@@ -1,6 +1,6 @@
-"""UNAST facade of the port: init, the six task methods and the LSTM
-discriminator, mirroring `unast_tpu/models/unast.py`. The CBHG vocoder and
-the MLP discriminator come with a later slice.
+"""UNAST facade of the port: init, the six task methods, the LSTM
+discriminator and the CBHG vocoder, mirroring `unast_tpu/models/unast.py`.
+The MLP discriminator comes with a later slice.
 
 All tasks are functions (params, state, ctx, cfg, batch) -> (outputs,
 new_state). The cross-modal tasks make their greedy pseudo-pairs under
@@ -13,6 +13,7 @@ from torch.profiler import record_function
 
 from .. import nn
 from .config import ModelConfig
+from . import modules as M
 from . import networks as N
 from . import rnn as R
 
@@ -40,8 +41,8 @@ def _merge(state, **updates):
 
 def _latent(enc_outputs, cfg: ModelConfig):
     """unast_tpu/models/unast.py::_latent: the per-position latent the
-    discriminator sees, the transformer memory (the RNN backbone's output
-    sequence in JAX; that backbone comes with a later slice)."""
+    discriminator sees: the transformer memory, or the RNN encoder's output
+    sequence (enc_out of ((h, c), enc_out))."""
     if cfg.model_type == "transformer":
         return enc_outputs
     return enc_outputs[1]
@@ -205,3 +206,29 @@ def lstm_discriminator(p, ctx: nn.Ctx, latents, lens, dropout_p=0.2,
         _, (h, _) = R.rnn_encoder(p["rnn"], ctx, latents, lens, dropout_p)
         top = torch.nn.functional.leaky_relu(h[-1], slope)
         return nn.linear(p["fc2"], nn.dropout(ctx, top, dropout_p)).squeeze(-1)
+
+
+# ---------------------------------------------------------------------------
+# CBHG vocoder: mel -> magnitude spectrogram
+# ---------------------------------------------------------------------------
+
+
+def vocoder_init(gen: torch.Generator, cfg: ModelConfig, n_fft: int = 2048):
+    """unast_tpu/models/unast.py::vocoder_init -> (params, state): a 1x1 conv
+    num_mels -> hidden, the CBHG at hidden width, a 1x1 conv to the
+    n_fft // 2 + 1 magnitude bins."""
+    pre = nn.conv1d_init(gen, cfg.num_mels, cfg.hidden, 1)
+    cbhg_p, cbhg_s = M.cbhg_init(gen, cfg.hidden, projection_size=cfg.hidden)
+    post = nn.conv1d_init(gen, cfg.hidden, n_fft // 2 + 1, 1)
+    return {"pre": pre, "cbhg": cbhg_p, "post": post}, {"cbhg": cbhg_s}
+
+
+def vocoder(p, s, ctx: nn.Ctx, mel, dtype=None):
+    """unast_tpu/models/unast.py::vocoder: mel [B, T, num_mels] -> mag
+    [B, T, n_fft // 2 + 1], in `dtype` if given, else mel's. Returns
+    (mag, new_state)."""
+    if dtype is not None:
+        mel = mel.to(dtype)
+    x = nn.conv1d(p["pre"], mel, padding=(0, 0))
+    x, cbhg_s = M.cbhg(p["cbhg"], s["cbhg"], ctx, x)
+    return nn.conv1d(p["post"], x, padding=(0, 0)), {"cbhg": cbhg_s}

@@ -6,6 +6,7 @@ from .core import (
     xavier_uniform,
     torch_linear_uniform,
     linear_init,
+    weight,
     linear,
     conv1d_init,
     conv1d,
@@ -19,14 +20,17 @@ from .core import (
     lstm_cell_init,
     lstm_gates_in,
     lstm_cell,
+    gru_cell_init,
+    gru_gates_in,
+    gru_cell,
     cast_weights,
     tree_to,
 )
 
 __all__ = [
     "Ctx", "calculate_gain", "xavier_uniform", "torch_linear_uniform",
-    "linear_init", "linear", "conv1d_init", "conv1d", "embedding_init",
+    "linear_init", "weight", "linear", "conv1d_init", "conv1d", "embedding_init",
     "embedding", "batchnorm_init", "batchnorm", "layernorm_init",
     "layernorm", "dropout", "lstm_cell_init", "lstm_gates_in", "lstm_cell",
-    "cast_weights", "tree_to",
+    "gru_cell_init", "gru_gates_in", "gru_cell", "cast_weights", "tree_to",
 ]

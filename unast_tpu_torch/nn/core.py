@@ -1,6 +1,6 @@
 """Functional NN primitives of the port: linear / conv1d / embedding / norms /
-dropout / the LSTM cell and their initializers, as plain functions over
-dicts of tensors.
+dropout / the LSTM and GRU cells and their initializers, as plain
+functions over dicts of tensors.
 
 Mirrors `unast_tpu/nn/core.py`. Layouts are the JAX package's so the
 param trees map name for name (bridge.py): linear `w` is [in, out], conv
@@ -139,9 +139,20 @@ def layernorm_init(c: int):
 # ---------------------------------------------------------------------------
 
 
+def weight(p, dtype: torch.dtype, name: str = "w") -> torch.Tensor:
+    """unast_tpu/nn/core.py::weight: the weight `name` of p in `dtype`. The
+    int8 weight-only form ({name}_q + {name}_scale) comes with the int8
+    quantization slice and raises."""
+    if name + "_q" in p:
+        raise NotImplementedError(
+            f"int8 weight {name}_q: nn/quant.py comes with a later slice of "
+            "the port (ROADMAP.md queue 1 item 6)")
+    return p[name].to(dtype)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """unast_tpu/nn/core.py::linear. x: [..., in] @ w [in, out]."""
-    y = x @ p["w"].to(x.dtype)
+    y = x @ weight(p, x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -153,7 +164,7 @@ def conv1d(p, x: torch.Tensor, padding) -> torch.Tensor:
     if isinstance(padding, int):
         padding = (padding, padding)
     xt = F.pad(x.transpose(1, 2), tuple(padding))           # [B, Cin, T+l+r]
-    w = p["w"].to(x.dtype).permute(2, 1, 0)                  # [Cout, Cin, k]
+    w = weight(p, x.dtype).permute(2, 1, 0)                  # [Cout, Cin, k]
     y = F.conv1d(xt, w).transpose(1, 2)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
@@ -236,31 +247,69 @@ def lstm_cell_init(gen: torch.Generator, d_in: int, hidden: int):
 def lstm_gates_in(p, x: torch.Tensor) -> torch.Tensor:
     """The input half of lstm_cell's gates for every step at once:
     x [..., Din] @ wi + (bi + bh), in x's dtype."""
-    return x @ p["wi"].to(x.dtype) + (p["bi"] + p["bh"]).to(x.dtype)
+    return x @ weight(p, x.dtype, "wi") + (p["bi"] + p["bh"]).to(x.dtype)
 
 
 def lstm_cell(p, gates_in, h, c):
     """unast_tpu/nn/core.py::lstm_cell, one step. gates_in: [B, 4H], this
     step's lstm_gates_in(p, x) (computed ahead for the whole sequence);
     h, c: [B, H]. Returns (h', c')."""
-    gates = gates_in + h @ p["wh"].to(h.dtype)
+    gates = gates_in + h @ weight(p, h.dtype, "wh")
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
     i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
     c_new = f * c + i * torch.tanh(g)
     return o * torch.tanh(c_new), c_new
 
 
+# ---------------------------------------------------------------------------
+# GRU cell (torch gate order [r z n])
+# ---------------------------------------------------------------------------
+
+
+def gru_cell_init(gen: torch.Generator, d_in: int, hidden: int):
+    """unast_tpu/nn/core.py::gru_cell_init: input and hidden weights
+    [in, 3H] and two biases [3H], gates in the order [r z n]."""
+    a = 1.0 / math.sqrt(hidden)
+    return {
+        "wi": _uniform(gen, (d_in, 3 * hidden), a),
+        "wh": _uniform(gen, (hidden, 3 * hidden), a),
+        "bi": _uniform(gen, (3 * hidden,), a),
+        "bh": _uniform(gen, (3 * hidden,), a),
+    }
+
+
+def gru_gates_in(p, x: torch.Tensor) -> torch.Tensor:
+    """The input half of gru_cell's gates for every step at once:
+    x [..., Din] @ wi + bi, in x's dtype."""
+    return x @ weight(p, x.dtype, "wi") + p["bi"].to(x.dtype)
+
+
+def gru_cell(p, gates_in, h):
+    """unast_tpu/nn/core.py::gru_cell, one step with torch's GRU equations:
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)). gates_in: [B, 3H], this
+    step's gru_gates_in(p, x); h: [B, H]. Returns h'."""
+    gh = h @ weight(p, h.dtype, "wh") + p["bh"].to(h.dtype)
+    ir, iz, in_ = torch.chunk(gates_in, 3, dim=-1)
+    hr, hz, hn = torch.chunk(gh, 3, dim=-1)
+    r = torch.sigmoid(ir + hr)
+    z = torch.sigmoid(iz + hz)
+    n = torch.tanh(in_ + r * hn)
+    return (1 - z) * n + z * h
+
+
 def cast_weights(tree, dtype: torch.dtype):
-    """Cast every linear/conv/embedding weight (`w`, and its `b`) to the
-    activation dtype once, ahead of use. The apply functions cast these
-    leaves to x.dtype anyway, so the rounding is the same; norm params
-    and BN statistics stay float32 as in JAX."""
+    """Cast every linear/conv/embedding weight (`w`, and its `b`) and every
+    LSTM/GRU cell's weight matrices (`wi`, `wh`) to the activation dtype
+    once, ahead of use. The apply functions cast these leaves to x.dtype
+    anyway, so the rounding is the same. The cells' biases stay float32
+    (lstm_gates_in adds its two in float32 before the cast, as JAX does),
+    as do norm params and BN statistics."""
     if isinstance(tree, dict):
         out = {k: cast_weights(v, dtype) for k, v in tree.items()}
-        if "w" in tree:
-            for k in ("w", "b"):
-                if k in tree:
-                    out[k] = tree[k].to(dtype)
+        for k in (("w", "b") if "w" in tree else ("wi", "wh") if "wh" in tree
+                  else ()):
+            if k in tree:
+                out[k] = tree[k].to(dtype)
         return out
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_weights(v, dtype) for v in tree)

@@ -89,7 +89,10 @@ def flash_calls_per_step(cfg: ModelConfig, args):
     cross-attention too unless guided attention collects its weights,
     which needs attention_core), all with gradients; a cm micro-batch four
     encoders (two of them no-grad, for the pseudo-pairs) and two decoders'
-    self- and cross-attention; a d micro-batch two no-grad encoders."""
+    self- and cross-attention; a d micro-batch two no-grad encoders. The
+    RNN backbone calls no attention kernel: (0, 0)."""
+    if cfg.model_type != "transformer":
+        return 0, 0
     tf = 4 if _ga_cfg(cfg, args)[0] else 6
     fwd = args.ae_steps * tf + args.cm_steps * 8 + args.sp_steps * tf
     bwd = args.ae_steps * tf + args.cm_steps * 6 + args.sp_steps * tf
@@ -106,7 +109,9 @@ def flash_calls_per_eval_batch(cfg: ModelConfig):
     tasks four each (their no-grad encoder before the greedy decode, whose
     KV-cached steps do not use flash, then one encoder and one decoder);
     the greedy ASR and TTS one encoder each; the discriminator's two
-    encoders."""
+    encoders. The RNN backbone calls no attention kernel: 0."""
+    if cfg.model_type != "transformer":
+        return 0
     per_layer = 4 * 3 + 2 * 4 + 2 + (2 if cfg.use_discriminator else 0)
     return cfg.num_layers * per_layer
 
