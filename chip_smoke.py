@@ -93,19 +93,39 @@ Phases (each that fails exits non-zero; nothing is caught):
      TTS requests, counts set to 0 just before and read just after (4 bf16
      launches: one encoder call); a TINY f32 vocoder on the card against
      the CPU in eval and train mode (1e-4);
-  13. one `{"kernels": [...]}` line (both routes, with their launches on
-     the serve, train, loop, vocoder-serve and RNN paths), a
-     `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
-     `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`
-     and a `{"serve": ...}` line, and last `{"ok": true, "device": ...}`.
+  13. data on the card: 16 synthetic clips of 1-9.4 s as PCM16 wavs and a
+     metadata.csv, `python -m unast_tpu_torch.data.prepare` on the card
+     (--batch 8 --bucket_s 11 --f0 --shard_out --wav_shard_out) and again
+     with --cpu: caches within 5e-4 (F0 equal), the shards read back
+     equal to the caches, the wav shard aligned with the mel frames,
+     BatchIterator's shard path equal to its item path, seconds per clip
+     of each path, and `python -m unast_tpu_torch.data.shard` on the card;
+  14. the CTC family at flagship width: 20 CTC train steps
+     (train/ctc.py) on phase 13's shard; Synthesizer(ctc_pv=) serving 8
+     ASR requests at the 816-frame bucket one-pass, with ctc_beam 4 and
+     spec=True against the AR model, and the AR model's beam 4; one
+     hybrid joint step (ctc_weight 0.3, cm_text_decode 'spec'); each with
+     its seconds and its launches as the code implies (counts set to 0
+     just before, read just after); TINY f32 card against CPU
+     (ctc_logits under abs/chunk/rel, the streaming step, ctc_loss and
+     its gradient, the CTC draft, speculative, greedy and beam decodes,
+     Synthesizer(ctc_pv=) under every option; 1e-4, ids equal, the CPU's
+     greedy margins above 1e-3); scripts/ctc_check.py's gate on the port
+     (greedy PER < 0.05 after 1200 steps);
+  15. one `{"kernels": [...]}` line (both routes, with their launches on
+     the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
+     beam, CTC train and hybrid paths), a `{"backward": ...}`, a
+     `{"train": ...}`, a `{"loop": ...}`, an `{"rnn_serve": ...}`, an
+     `{"rnn_train": ...}`, a `{"vocoder": ...}`, a `{"data": ...}`, a
+     `{"ctc": ...}` and a `{"serve": ...}` line, and last `{"ok": true,
+     "device": ...}`.
 """
 
-import bisect
-import itertools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import List, NamedTuple, Optional
 
@@ -234,6 +254,20 @@ VOCODER_CONFIG = os.path.join(ROOT, "configs", "vocoder.json")
 # batch of 2), every checkpoint role
 LOOP_FLAGS = dict(synthetic_size=16, epochs=1, epoch_steps=1, sp_warmup_steps=1,
                   save_every=1, eval_batch_size=2)
+# phase 13's corpus: 16 synthetic clips of 1-9.4 s (SyntheticSpeechDataset
+# seed 0, 1-20 words), each with 0.05-0.4 s of low noise before and after
+DATA_CLIPS = 16
+# phase 14: CTC train steps at flagship width, and scripts/ctc_check.py's
+# gate (its flags and steps) on the port
+CTC_TRAIN_STEPS = 20
+CTC_GATE_ARGV = [
+    "--hidden", "64", "--e_in", "64", "--t_emb_dim", "64", "--s_pre_hid", "64",
+    "--ffn_dim", "128", "--num_layers", "2", "--nhead", "2",
+    "--use_discriminator", "false", "--max_mel_len", "112", "--max_text_len", "32",
+    "--data_mel_len", "112", "--data_text_len", "32", "--train_batch_size", "4",
+    "--sched_type", "multistep", "--lr", "1e-3", "--optim_type", "adamw",
+    "--compute_dtype", "bfloat16"]
+CTC_GATE_STEPS = 1200
 # the train step's record_function ranges (unast_tpu_torch/train/steps.py)
 TRAIN_PARTS = ("unast/train/ae", "unast/train/cm", "unast/train/sp",
                "unast/train/gen_update", "unast/train/d", "unast/backward",
@@ -282,47 +316,90 @@ def attention_bound(q, k, kv_lens, causal):
             "operations" if t_ops >= t_bytes else "bytes", cuda_core_ms)
 
 
-def trace(fn, labels=()):
-    """Run fn() once under torch.profiler (CPU and CUDA activity) and read
-    its raw events: {"wall_s": the profiled run's wall time, "kernels":
+def trace(fn, labels=(), record_ops=True):
+    """Run fn() once under the profiler (CPU and CUDA activity) and read its
+    raw events: {"wall_s": the profiled run's wall time, "stop_s" and
+    "read_s": the profiler's stop (its own processing of the events) and
+    this function's read of them, "kernels":
     {name: [launches, device s]} of every device activity, "parts":
     {label: {"count", "host_s", "device_s"}}} for each record_function
     range named in `labels` (the port's 'unast/...' ranges): the ranges'
     wall time on the host, and the device time of the activities that
     start inside them. The device trails its host by little in the
     host-bound loops profiled here, so an activity counts where it
-    starts. The device-side copies of the ranges are not activities."""
+    starts. The device-side copies of the ranges are not activities.
+
+    record_ops=False records on the host only the record_function ranges
+    (RecordScope.USER_SCOPE), not every aten op, inside one range around
+    the whole run: a traced flagship train step then holds its 1.7 million
+    device activities and their launch calls, not several million op
+    events more, which the profiler post-processes and this loop reads in
+    Python. The short windows of the kernel cases record every op (a
+    window of back-to-back kernel calls with no range in it lost some of
+    its kernels under the scope filter). The events are read in one pass,
+    the device's as (start, duration) pairs into numpy."""
     from torch.autograd import DeviceType
+    from torch.autograd import profiler as P
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels, device, ranges = {}, [], {label: [] for label in labels}
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        start, dur = e.start_ns(), e.duration_ns()
-        if e.device_type() == DeviceType.CUDA:
-            if name.startswith("unast/") or e.is_user_annotation():
+
+    def run():
+        with P.record_function("chip_smoke/trace"):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+    if record_ops:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = run()
+            t = time.perf_counter()
+        results = prof.profiler.kineto_results
+        stop_s = time.perf_counter() - t
+    else:
+        from torch._C._profiler import RecordScope
+        config = P.profile(use_device="cuda", use_kineto=True)
+        activities = config.kineto_activities
+        config = config.config()
+        P._prepare_profiler(config, activities)
+        P._enable_profiler(config, activities, {RecordScope.USER_SCOPE})
+        try:
+            wall = run()
+        finally:
+            t = time.perf_counter()
+            results = P._disable_profiler()
+            stop_s = time.perf_counter() - t
+    t_read = time.perf_counter()
+    kernels, starts, durs = {}, [], []
+    ranges = {label: [] for label in labels}
+    cuda = DeviceType.CUDA
+    for e in results.events():
+        if e.device_type() == cuda:
+            name = e.name()
+            if e.is_user_annotation() or name.startswith(("unast/", "chip_smoke/")):
                 continue
+            start, dur = e.start_ns(), e.duration_ns()
             n_s = kernels.setdefault(name, [0, 0.0])
             n_s[0] += 1
             n_s[1] += dur * 1e-9
-            device.append((start, dur))
-        elif name in ranges:
-            ranges[name].append((start, start + dur))
-    device.sort()
-    starts = [start for start, _ in device]
-    done = list(itertools.accumulate((dur for _, dur in device), initial=0))
+            starts.append(start)
+            durs.append(dur)
+        else:
+            name = e.name()
+            if name in ranges:
+                start = e.start_ns()
+                ranges[name].append((start, start + e.duration_ns()))
+    starts = np.asarray(starts, np.int64)
+    order = np.argsort(starts, kind="stable")
+    starts = starts[order]
+    done = np.concatenate([[0], np.cumsum(np.asarray(durs, np.int64)[order])])
 
     def busy_ns(a, b):
-        return done[bisect.bisect_left(starts, b)] - done[bisect.bisect_left(starts, a)]
-    return {"wall_s": wall, "kernels": kernels, "parts": {
-        label: {"count": len(spans),
-                "host_s": sum(b - a for a, b in spans) * 1e-9,
-                "device_s": sum(busy_ns(a, b) for a, b in spans) * 1e-9}
-        for label, spans in ranges.items()}}
+        return int(done[np.searchsorted(starts, b)] - done[np.searchsorted(starts, a)])
+    parts = {label: {"count": len(spans),
+                     "host_s": sum(b - a for a, b in spans) * 1e-9,
+                     "device_s": sum(busy_ns(a, b) for a, b in spans) * 1e-9}
+             for label, spans in ranges.items()}
+    return {"wall_s": wall, "stop_s": stop_s, "read_s": time.perf_counter() - t_read,
+            "kernels": kernels, "parts": parts}
 
 
 def device_ms(fn, symbols, iters: int, tries: int = 3):
@@ -1219,6 +1296,401 @@ def vocoder_phase(fa, flag_params, flag_state, flag_cfg):
     }
 
 
+def _run_cli(module, argv):
+    """python -m module *argv from the repo root, as a user runs it: its
+    (wall seconds, stdout); a non-zero exit fails the phase."""
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module] + argv, cwd=ROOT,
+                         capture_output=True, text=True)
+    if out.returncode:
+        raise SystemExit(f"{module} exited {out.returncode}:\n{out.stdout}\n"
+                         f"{out.stderr}")
+    return time.perf_counter() - t, out.stdout
+
+
+def data_phase(root):
+    """Phase 13: data on the card. A corpus of DATA_CLIPS synthetic clips
+    (wavs/<id>.wav PCM16 and metadata.csv) under `root`, prepared by
+    `python -m unast_tpu_torch.data.prepare` on the card (--batch 8
+    --bucket_s 11 --f0 --shard_out --wav_shard_out) and again with --cpu
+    (the numpy DSP): caches within 5e-4 of each other (F0 equal), the
+    mel shard equal to the card's caches through float16 and to the
+    phonemized transcripts, the wav shard's trimmed clips aligned with the
+    mel frames, BatchIterator's shard path equal to its item path, and
+    `python -m unast_tpu_torch.data.shard` on the card. Returns its record;
+    the card's shard and caches stay under `root` for phase 14."""
+    from unast_tpu_torch.data.batching import BatchIterator
+    from unast_tpu_torch.data.dataset import SyntheticSpeechDataset, load_manifest
+    from unast_tpu_torch.data.shard import PackedShardDataset, WavShardDataset
+    from unast_tpu_torch.infer.synthesize import write_wav
+    from unast_tpu_torch.text import raw_text_to_phoneme_ids
+    t_phase = time.perf_counter()
+    ds = SyntheticSpeechDataset(size=DATA_CLIPS, seed=0, n_words=(1, 20))
+    rng = np.random.default_rng(8)
+    os.makedirs(os.path.join(root, "wavs"))
+    rows, clip_s = [], []
+    for i in range(DATA_CLIPS):
+        fid = f"SYN-{i:04d}"
+        wav = np.concatenate([1e-4 * rng.normal(size=int(rng.integers(1000, 9000))),
+                              ds[i]["wav"], 1e-4 * rng.normal(size=3000)])
+        write_wav(os.path.join(root, "wavs", fid + ".wav"), wav.astype(np.float32))
+        rows.append(f"{fid}|{ds._texts[i]}|{ds._texts[i]}")
+        clip_s.append(len(wav) / 22050)
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    runs = {}
+    for name, extra in (("device", ["--batch", "8", "--bucket_s", "11"]),
+                        ("cpu", ["--cpu"])):
+        wall, out = _run_cli("unast_tpu_torch.data.prepare", [
+            "--data_path", root, "--cache_dir", os.path.join(root, name), "--f0",
+            "--shard_out", os.path.join(root, f"{name}.unsh"),
+            "--wav_shard_out", os.path.join(root, f"{name}.unwv")] + extra)
+        done = next(x for x in out.splitlines() if x.startswith("[prepare] done"))
+        prep_s = float(done.split(" in ")[1].split()[0])
+        runs[name] = {"wall_s": wall, "prepare_s": prep_s,
+                      "s_per_clip": prep_s / DATA_CLIPS}
+    names = sorted(os.listdir(os.path.join(root, "cpu")))
+    assert names == sorted(os.listdir(os.path.join(root, "device"))), names
+    assert len(names) == 3 * DATA_CLIPS, len(names)
+    err = {"mel": 0.0, "mag": 0.0}
+    frames = 0
+    for name in names:
+        a = np.load(os.path.join(root, "device", name))
+        b = np.load(os.path.join(root, "cpu", name))
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        kind = name.split(".")[-2]
+        if kind == "f0":
+            assert np.array_equal(a, b), name
+        else:
+            err[kind] = max(err[kind], float(np.abs(a - b).max()))
+            frames += len(a) if kind == "mel" else 0
+    # tests/test_audio.py::test_wav_to_mel_matches_jax's bound
+    assert max(err.values()) <= 5e-4, err
+    shard = PackedShardDataset(os.path.join(root, "device.unsh"))
+    wshard = WavShardDataset(os.path.join(root, "device.unwv"))
+    manifest = load_manifest(os.path.join(root, "metadata.csv"))
+    assert len(shard) == len(wshard) == DATA_CLIPS
+    aligned = 0
+    for i, (fid, text) in enumerate(manifest):
+        item = shard[i]
+        mel = np.load(os.path.join(root, "device", fid + ".mel.npy"))
+        assert np.array_equal(item["mel"], mel.astype(np.float16).astype(np.float32)), fid
+        assert np.array_equal(item["ids"], np.asarray(raw_text_to_phoneme_ids(text),
+                                                      np.int32)), fid
+        aligned += int(1 + int(wshard.lens([i])[0]) // 275 == len(mel))
+    assert aligned == DATA_CLIPS, aligned
+
+    class Items:
+        """The shard's items without its collate_batch: BatchIterator's
+        item path."""
+        def __len__(self):
+            return len(shard)
+
+        def __getitem__(self, i):
+            return shard[i]
+    batch_ms = {}
+    for label, kw in (("fixed", {}), ("buckets", {"text_buckets": [64, 128, 304],
+                                                   "mel_buckets": [256, 512, 816]})):
+        fast = BatchIterator(shard, 4, 304, 816, seed=3, **kw)
+        slow = BatchIterator(Items(), 4, 304, 816, seed=3, **kw)
+        ms = [0.0, 0.0]
+        for _ in range(6):
+            t = time.perf_counter()
+            a = fast.next_batch()
+            ms[0] += (time.perf_counter() - t) * 1e3 / 6
+            t = time.perf_counter()
+            b = slow.next_batch()
+            ms[1] += (time.perf_counter() - t) * 1e3 / 6
+            assert a.keys() == b.keys() and all(
+                np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in b), label
+        for a, b in zip(fast.next_stacked(2), slow.next_stacked(2)):
+            assert np.array_equal(a, b), label
+        batch_ms[label] = {"shard_path_ms": ms[0], "item_path_ms": ms[1]}
+    shard_cli_s, _ = _run_cli("unast_tpu_torch.data.shard", [
+        "--out", os.path.join(root, "synthetic.unsh"), "--synthetic",
+        "--synthetic_size", "4"])
+    assert len(PackedShardDataset(os.path.join(root, "synthetic.unsh"))) == 4
+    return {
+        "clips": DATA_CLIPS, "clip_s": clip_s, "frames": frames, "prepare": runs,
+        "cache_max_abs_err": err, "f0_equal": True, "shard_mel_bytes":
+            os.path.getsize(os.path.join(root, "device.unsh")),
+        "shard_wav_bytes": os.path.getsize(os.path.join(root, "device.unwv")),
+        "wav_shard_aligned": aligned, "batches": batch_ms,
+        "shard_cli_s": shard_cli_s, "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def _tiny_margin(logits, valid):
+    """Least lead of a greedy choice over its runner-up (float32 logits)."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return float((top2[..., 0] - top2[..., 1])[valid].min())
+
+
+def ctc_tiny_checks(fa):
+    """Phase 14's TINY float32 checks, card against CPU (flash on, so the
+    float32 kernel on the card): ctc_logits under the absolute PE, the
+    chunk mask and the relative bias within 1e-4, greedy ids equal with
+    the CPU's margins above 1e-3; ctc_stream_step on the card within 1e-4
+    of the chunk-masked forward; ctc_loss and its gradient (a batch with
+    an unfit row: the rows that fit) within 1e-4 relative; on a joint
+    TINY model with ctc_weight 0.3, the CTC draft, the speculative decode,
+    the greedy decode and the beam search with ids equal (the CPU's
+    teacher-forced margins above 1e-3); and Synthesizer(ctc_pv=)'s
+    asr_ids under every option equal."""
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import TINY, ctc as C, networks as N, unast as U
+    from unast_tpu_torch.nn import tree_to
+    ectx = nn.Ctx.eval()
+    rng = np.random.default_rng(5)
+    lens = torch.tensor([20, 13])
+    mel = torch.from_numpy(rng.uniform(size=(2, 20, 80)).astype(np.float32))
+    mel *= (torch.arange(20) < lens[:, None])[..., None]
+    field = dict(ctc_chunk=4, ctc_left=1)
+    p_rel, s0 = C.ctc_asr_init(torch.Generator().manual_seed(0),
+                               TINY.replace(ctc_pos="rel", **field))
+    p_abs = {k: v for k, v in p_rel.items() if k != "rel_pos"}
+    out = {"logits": {}}
+    reset_launch_counts(fa)
+    for name, cfg, p in (("abs_flash", TINY.replace(attn_impl="flash"), p_abs),
+                         ("chunk", TINY.replace(**field), p_abs),
+                         ("rel", TINY.replace(ctc_pos="rel", **field), p_rel)):
+        lc, pc, _ = C.ctc_logits(p, s0, ectx, cfg, mel, lens)
+        lg, pg, _ = C.ctc_logits(tree_to(p, "cuda"), tree_to(s0, "cuda"), ectx, cfg,
+                                 mel.cuda(), lens.cuda())
+        ids_c = C.ctc_greedy_decode(lc, pc, cfg.max_text_len)
+        ids_g = C.ctc_greedy_decode(lg, pg, cfg.max_text_len)
+        rec = {"max_abs_err": float((lg.cpu() - lc).abs().max()),
+               "ids_equal": all(torch.equal(a.cpu(), b) for a, b in zip(ids_g, ids_c)),
+               "cpu_min_margin": _tiny_margin(lc, ~pc)}
+        if cfg.ctc_chunk:
+            carry = C.ctc_stream_init(tree_to(p, "cuda"), cfg, 2, "cuda")
+            chunks = []
+            for c0 in range(0, 20, cfg.ctc_chunk):
+                carry, lgc, _ = C.ctc_stream_step(
+                    tree_to(p, "cuda"), ectx, cfg, carry, mel[:, c0:c0 + 4].cuda(),
+                    ~pg[:, c0:c0 + 4])
+                chunks.append(lgc)
+            rec["stream_max_abs_err"] = float(
+                (torch.cat(chunks, 1) - lg)[~pg].abs().max())
+        out["logits"][name] = rec
+        assert (rec["max_abs_err"] <= 1e-4 and rec["ids_equal"]
+                and rec["cpu_min_margin"] > 1e-3
+                and rec.get("stream_max_abs_err", 0.0) <= 1e-4), (name, rec)
+    out["launches_f32"] = fa.launches_f32
+    assert fa.launches_f32 == TINY.num_layers and fa.launches_bf16 == 0, out
+
+    lrng = np.random.default_rng(6)
+    logits = torch.from_numpy(lrng.normal(size=(3, 10, 47)).astype(np.float32))
+    pad = torch.arange(10)[None] >= torch.tensor([10, 7, 4])[:, None]
+    labels = torch.tensor([[4, 8, 8, 15, 23, 42], [6, 6, 11, 0, 0, 0],
+                           [3, 9, 27, 14, 40, 0]])
+    label_lens = torch.tensor([6, 3, 5])
+    res = []
+    for dev in ("cpu", "cuda"):
+        x = logits.to(dev).requires_grad_(True)
+        loss = C.ctc_loss(x, pad.to(dev), labels.to(dev), label_lens.to(dev))
+        res.append((float(loss.detach()), torch.autograd.grad(loss, x)[0].cpu()))
+    (lc, gc), (lg, gg) = res
+    out["loss"] = {"value_rel_err": abs(lg - lc) / abs(lc), "value": lc,
+                   "grad_rows_fit_max_abs_err": float((gg[:2] - gc[:2]).abs().max()),
+                   "grad_max": float(gc.abs().max())}
+    assert (out["loss"]["value_rel_err"] <= 1e-4 and out["loss"]["grad_rows_fit_max_abs_err"]
+            <= 1e-4 * out["loss"]["grad_max"]), out["loss"]
+
+    jcfg = TINY.replace(attn_impl="flash", ctc_weight=0.3)
+    jp, js = U.unast_init(torch.Generator().manual_seed(0), jcfg)
+    dec = {}
+    for dev in ("cpu", "cuda"):
+        p, s = tree_to(jp, dev), tree_to(js, dev)
+        with torch.inference_mode():
+            (enc, mask), _ = N.speech_encode(p["speech_m"], s["speech_m"], ectx, jcfg,
+                                             mel.to(dev), lens.to(dev))
+            logits = nn.linear(p["speech_m"]["ctc_head"], enc).float()
+            draft, _ = C.ctc_greedy_decode(logits, mask, jcfg.max_text_len)
+            spec = N.text_tr_spec_infer(p["text_m"], ectx, jcfg, enc, mask, draft)
+            greedy = N.text_tr_infer(p["text_m"], ectx, jcfg, enc, mask)
+            beam = N.text_tr_beam_search(p["text_m"], ectx, jcfg, enc, mask, beam=3)
+            if dev == "cpu":
+                tf = N.text_tr_decode_sequence(
+                    p["text_m"], ectx, jcfg, greedy[0],
+                    torch.full_like(greedy[1], jcfg.max_text_len), enc, mask)
+                valid = torch.arange(jcfg.max_text_len)[None] < greedy[1][:, None]
+                out["ar_cpu_min_margin"] = _tiny_margin(tf, valid)
+                out["draft_cpu_min_margin"] = _tiny_margin(logits, ~mask)
+        dec[dev] = [t.cpu() if torch.is_tensor(t) else t for t in (
+            draft, *spec, *greedy, *beam)]
+    out["decodes_equal"] = all(
+        (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+        for a, b in zip(dec["cpu"], dec["cuda"]))
+    out["spec_rounds"] = dec["cpu"][3]
+    out["spec_equals_greedy"] = bool(torch.equal(dec["cpu"][1], dec["cpu"][4]))
+    assert (out["decodes_equal"] and out["spec_equals_greedy"]
+            and out["ar_cpu_min_margin"] > 1e-3 and out["draft_cpu_min_margin"] > 1e-3), out
+    kw = dict(mel_buckets=(16, 24), max_batch=4)
+    mels = [mel[i, :int(lens[i])].numpy() for i in range(2)]
+    syns = [Synthesizer(jp, js, jcfg, ctc_pv=(p_abs, s0), device=d, **kw)
+            for d in ("cpu", "cuda")]
+    out["synthesizer_ids_equal"] = {}
+    for name, kw_ in (("ctc", {}), ("ctc_beam", {"ctc_beam": 3}), ("spec", {"spec": True}),
+                      ("beam", {"beam": 3})):
+        a, b = (s_.asr_ids(mels, **kw_) for s_ in syns)
+        out["synthesizer_ids_equal"][name] = all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert all(out["synthesizer_ids_equal"].values()), out
+    return out
+
+
+def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
+    """Phase 14: the CTC family at flagship width (configs/
+    transformer_d_curriculum_fast.json, bf16, attn_impl='flash').
+    CTC_TRAIN_STEPS steps of train/ctc.py's make_ctc_step on phase 13's
+    shard (the config's adamw and batch 4 at 816 frames / 304 tokens),
+    counts set to 0 just before and read just after (one encoder a step:
+    num_layers forwards and backward calls); Synthesizer(ctc_pv=) on the
+    flagship AR model (phase 4's weights) and the trained CTC model
+    serving 8 of the corpus's mels at the 816-frame bucket one-pass, with
+    ctc_beam 4 and spec=True, and the plain AR model with beam 4 (and
+    greedy, which spec equals in float32), each with its batch latency and
+    launches; one hybrid joint step (ctc_weight 0.3, cm_text_decode
+    'spec') on micro-batches from the shard, its launches and backward
+    calls as the code implies for its verify rounds; the TINY float32
+    checks of ctc_tiny_checks; scripts/ctc_check.py's gate on the port
+    (d 64, 2 layers, the synthetic corpus of 4, CTC_GATE_STEPS steps,
+    greedy PER < 0.05)."""
+    from unast_tpu_torch.data.batching import BatchIterator
+    from unast_tpu_torch.data.dataset import SyntheticSpeechDataset
+    from unast_tpu_torch.data.shard import PackedShardDataset
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import networks as N
+    from unast_tpu_torch.train import ctc as TC, init_train_state, make_train_step
+    from unast_tpu_torch.train.config import (model_config_from_args,
+                                              parse_with_config, train_args)
+    from unast_tpu_torch.train.optim import tree_paths
+    from unast_tpu_torch.train.steps import flash_calls_per_step, seeded_generator
+    t_phase = time.perf_counter()
+    cfg = flag_cfg
+    args = train_args(CONFIG)
+    shard = PackedShardDataset(os.path.join(root, "device.unsh"))
+    it = BatchIterator(shard, args.train_batch_size, args.data_text_len,
+                       args.data_mel_len, seed=args.seed + 1)
+    ts = TC.init_ctc_state(torch.Generator().manual_seed(0), cfg, args)
+    step = TC.make_ctc_step(cfg, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fa)
+    bwd0 = fa.backward_calls
+    step_s, losses = [], []
+    for i in range(CTC_TRAIN_STEPS):
+        batch = TC.batch_to(it.next_batch(), "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ts, m = step(ts, seeded_generator(1, i, "cuda"), batch)
+        losses.append(float(m["ctc/loss"]))
+        step_s.append(time.perf_counter() - t)
+    train_counts = [fa.launches_bf16, fa.launches_f32, fa.backward_calls - bwd0]
+    train_peak = torch.cuda.max_memory_allocated()
+    n_train = cfg.num_layers * CTC_TRAIN_STEPS
+    assert np.isfinite(losses).all() and all(
+        bool(torch.isfinite(x).all()) for x in tree_paths(ts.params).values()), losses
+    assert train_counts == [n_train, 0, n_train], train_counts
+
+    mels = sorted((np.load(os.path.join(root, "device", f))[:816]
+                   for f in os.listdir(os.path.join(root, "device")) if f.endswith(".mel.npy")),
+                  key=len)[-8:]
+    assert len(mels[-1]) > 512   # the 816-frame bucket
+    syn = Synthesizer(flag_params, flag_state, cfg, ctc_pv=(ts.params, ts.net_state))
+    syn_ar = Synthesizer(flag_params, flag_state, cfg)
+    syn.asr_ids(mels[:1])
+    serve = {}
+    for name, s_, kw in (("ctc", syn, {}), ("ctc_beam", syn, {"ctc_beam": 4}),
+                         ("spec", syn, {"spec": True}), ("beam", syn_ar, {"beam": 4}),
+                         ("greedy", syn_ar, {})):
+        reset_launch_counts(fa)
+        rounds0 = N.text_tr_spec_infer.rounds
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids = s_.asr_ids(mels, **kw)
+        torch.cuda.synchronize()
+        rounds = N.text_tr_spec_infer.rounds - rounds0
+        serve[name] = {"batch_s": time.perf_counter() - t,
+                       "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
+                       "ids_lens": [len(x) for x in ids], "spec_rounds": rounds}
+        serve[name]["ids"] = ids
+        expected = cfg.num_layers * (2 + 2 * rounds if name == "spec" else 1)
+        assert (fa.launches_bf16, fa.launches_f32) == (expected, 0), (name, serve[name])
+    serve["spec"]["equals_greedy_rows"] = sum(
+        np.array_equal(a, b) for a, b in zip(serve["spec"].pop("ids"),
+                                             serve["greedy"]["ids"]))
+    for rec in serve.values():
+        rec.pop("ids", None)
+
+    hcfg = cfg.replace(ctc_weight=0.3)
+    hargs = train_args(CONFIG, cm_text_decode="spec")
+    hts = init_train_state(torch.Generator().manual_seed(0), hcfg, hargs)
+    hit = BatchIterator(shard, hargs.train_batch_size, hargs.data_text_len,
+                        hargs.data_mel_len, seed=hargs.seed + 2)
+    hbatches = {k: tuple(torch.from_numpy(x.astype(np.int64) if x.dtype == np.int32 else x)
+                         .cuda() for x in hit.next_stacked(getattr(hargs, f"{k}_steps")))
+                for k in ("ae", "cm", "sp", "d")}
+    hstep = make_train_step(hcfg, hargs)
+    reset_launch_counts(fa)
+    bwd0, rounds0 = fa.backward_calls, N.text_tr_spec_infer.rounds
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hts, hm = hstep(hts, torch.Generator(device="cuda").manual_seed(0), hbatches)
+    torch.cuda.synchronize()
+    hybrid_s = time.perf_counter() - t
+    rounds = N.text_tr_spec_infer.rounds - rounds0
+    fwd, bwd = flash_calls_per_step(hcfg, hargs, rounds)
+    hybrid = {"s": hybrid_s, "metrics": {k: float(v) for k, v in hm.items()},
+              "spec_rounds": rounds, "launches_bf16": fa.launches_bf16,
+              "launches_f32": fa.launches_f32, "backward_calls": fa.backward_calls - bwd0,
+              "expected": [fwd, bwd]}
+    assert all(np.isfinite(v) for v in hybrid["metrics"].values()), hybrid
+    assert "sp/ctc_sp" in hybrid["metrics"], hybrid["metrics"]
+    assert (hybrid["launches_bf16"], hybrid["launches_f32"], hybrid["backward_calls"]) == (
+        fwd, 0, bwd), hybrid
+
+    tiny = ctc_tiny_checks(fa)
+
+    gargs = parse_with_config(CTC_GATE_ARGV)
+    gcfg = model_config_from_args(gargs)
+    gds = SyntheticSpeechDataset(size=4, seed=0, phoneme_dur_s=0.04)
+    git = BatchIterator(gds, 4, gargs.data_text_len, gargs.data_mel_len, seed=gargs.seed + 1)
+    eval_batch = BatchIterator(gds, 4, gargs.data_text_len, gargs.data_mel_len,
+                               seed=9).next_batch()
+    gts = TC.init_ctc_state(torch.Generator().manual_seed(0), gcfg, gargs)
+    gstep = TC.make_ctc_step(gcfg, gargs)
+    per0 = TC.eval_per(gts, gcfg, eval_batch)
+    gate_losses = {}
+    t = time.perf_counter()
+    for i in range(CTC_GATE_STEPS):
+        gts, gm = gstep(gts, seeded_generator(1, i, "cuda"),
+                        TC.batch_to(git.next_batch(), "cuda"))
+        if (i + 1) % 200 == 0:
+            gate_losses[i + 1] = float(gm["ctc/loss"])
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t
+    per = TC.eval_per(gts, gcfg, eval_batch)
+    gate = {"steps": CTC_GATE_STEPS, "s": gate_s, "untrained_per": per0,
+            "per": per, "losses": gate_losses, "attn_impl": gcfg.attn_impl}
+    assert per < 0.05, gate
+    return {
+        "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,
+        "compute_dtype": cfg.compute_dtype,
+        "train": {"steps": CTC_TRAIN_STEPS, "batch": args.train_batch_size,
+                  "mel_len": args.data_mel_len, "text_len": args.data_text_len,
+                  "step_s": step_s, "losses": losses,
+                  "max_memory_allocated_bytes": train_peak,
+                  "flash_launches_bf16": train_counts[0],
+                  "flash_launches_f32": train_counts[1],
+                  "backward_calls": train_counts[2]},
+        "serve": {"requests": len(mels), "mel_lens": [len(m) for m in mels], **serve},
+        "hybrid_step": hybrid, "tiny_gpu_vs_cpu": tiny, "ctc_check_gate": gate,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
 def _timed(fn, seconds):
     """fn, appending each call's synchronised seconds to `seconds`."""
     def run(*a, **kw):
@@ -1399,7 +1871,8 @@ def main() -> int:
     # includes the profiler's own host work, so the idle share read
     # against it is an upper bound.
     profiled = {}
-    traced = trace(lambda: profiled.update(train_step()), TRAIN_PARTS)
+    traced = trace(lambda: profiled.update(train_step()), TRAIN_PARTS,
+                   record_ops=False)
     busy, n_kernels, top = device_summary(traced["kernels"])
     later = steps[1:] + [profiled]
     mean_later_s = sum(s_["s"] for s_ in later) / len(later)
@@ -1407,6 +1880,7 @@ def main() -> int:
                        if ROUTE_KERNELS[bf16][0] in name)
     breakdown = {
         "step": TRAIN_STEPS, "wall_profiled_s": traced["wall_s"],
+        "profiler_stop_s": traced["stop_s"], "trace_read_s": traced["read_s"],
         "decode_steps": profiled["decode_steps"],
         "device_busy_s": busy, "device_idle_share": 1.0 - busy / mean_later_s,
         "kernel_launches": n_kernels, "flash_kernels_traced": flash_traced,
@@ -1473,6 +1947,15 @@ def main() -> int:
     vocoder_run = vocoder_phase(fa, params, state, cfg)
     print(json.dumps({"phase": 12, "s": vocoder_run["phase_s"]}), flush=True)
     phase_ends.append((12, time.perf_counter()))
+    # 13.-14. data prepared on the card into shards, then the CTC family
+    # trained on them and served at flagship width
+    with tempfile.TemporaryDirectory() as data_root:
+        data_run = data_phase(data_root)
+        print(json.dumps({"phase": 13, "s": data_run["phase_s"]}), flush=True)
+        phase_ends.append((13, time.perf_counter()))
+        ctc_run = ctc_phase(fa, params, state, cfg, data_root)
+        print(json.dumps({"phase": 14, "s": ctc_run["phase_s"]}), flush=True)
+    phase_ends.append((14, time.perf_counter()))
     print(json.dumps({"phase_s": {
         f"{a + 1}" if b - a == 1 else f"{a + 1}-{b}": t1 - t0
         for (a, t0), (b, t1) in zip(phase_ends, phase_ends[1:])}}), flush=True)
@@ -1494,9 +1977,36 @@ def main() -> int:
          "transformer_test loop on the card, 2 epochs, float32 (phase 9)"),
     ]
     kernels = []
+    ctc_serve, ctc_train = ctc_run["serve"], ctc_run["train"]
+    hybrid = ctc_run["hybrid_step"]
     for (name, dtype, source, main_name, n, path, n_train, train_path,
          n_loop, loop_path) in routes:
         main_case = next(c for c in cases if c["case"] == main_name)
+        key = "launches_bf16" if dtype == "bfloat16" else "launches_f32"
+        ctc_counts = {
+            "launches_ctc_serve": ctc_serve["ctc"][key] + ctc_serve["ctc_beam"][key],
+            "launches_ctc_serve_counted_on":
+                "Synthesizer(ctc_pv=) one-pass and ctc_beam 4, 8 ASR each, bf16 (phase 14)",
+            "launches_spec": ctc_serve["spec"][key],
+            "launches_spec_counted_on":
+                f"Synthesizer(ctc_pv=) spec=True, 8 ASR, {ctc_serve['spec']['spec_rounds']} "
+                "verify rounds, bf16 (phase 14)",
+            "launches_ar_beam": ctc_serve["beam"][key],
+            "launches_ar_beam_counted_on": "Synthesizer beam=4, 8 ASR, bf16 (phase 14)",
+            "launches_ctc_train": ctc_train[
+                "flash_launches_bf16" if dtype == "bfloat16" else "flash_launches_f32"],
+            "bwd_calls_ctc_train": ctc_train["backward_calls"] if dtype == "bfloat16" else 0,
+            "launches_ctc_train_counted_on":
+                f"{CTC_TRAIN_STEPS} CTC train steps on the shard, bf16 (phase 14)",
+            "launches_hybrid": hybrid[key],
+            "bwd_calls_hybrid": hybrid["backward_calls"] if dtype == "bfloat16" else 0,
+            "launches_hybrid_counted_on":
+                "1 hybrid joint step, ctc_weight 0.3, cm_text_decode spec, "
+                f"{hybrid['spec_rounds']} verify rounds, bf16 (phase 14)",
+            "launches_ctc_tiny": (ctc_run["tiny_gpu_vs_cpu"]["launches_f32"]
+                                  if dtype == "float32" else 0),
+            "launches_ctc_tiny_counted_on":
+                "TINY ctc_logits on the card, float32, abs/chunk/rel (phase 14)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",
@@ -1512,6 +2022,7 @@ def main() -> int:
                 s_["flash_launches"] for s_ in rnn_train_run["steps"]),
             "launches_rnn_counted_on": "rnn_d serve (8 TTS + 8 ASR) and 2 train steps "
                                        "(phases 10, 11): the RNN calls no attention kernel",
+            **ctc_counts,
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -1543,6 +2054,8 @@ def main() -> int:
     print(json.dumps({"rnn_serve": rnn_serve_run}))
     print(json.dumps({"rnn_train": rnn_train_run}))
     print(json.dumps({"vocoder": vocoder_run}))
+    print(json.dumps({"data": data_run}))
+    print(json.dumps({"ctc": ctc_run}))
     n = len(SENTENCES)
     print(json.dumps({"serve": {
         "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,
@@ -1563,6 +2076,7 @@ def main() -> int:
         "tiny_gpu_vs_cpu": {"tts_mels_max_abs_err": mel_err,
                             "asr_ids_equal": ids_equal},
     }}))
+    print(smi[0])   # the card's name and power limit again, near the end
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -104,8 +104,10 @@ def test_synthetic_dataset_matches_jax(kw):
     out = TD.add_realism(wav, np.random.default_rng(2), 22050, return_offsets=True)
     ref = JD.add_realism(wav, np.random.default_rng(2), 22050, return_offsets=True)
     assert np.array_equal(out[0], ref[0]) and out[1] == ref[1]
-    with pytest.raises(NotImplementedError, match="include_f0"):
-        TD.SyntheticSpeechDataset(size=1, include_f0=True)
+    mine = TD.SyntheticSpeechDataset(size=1, include_f0=True)[0]
+    ref = JD.SyntheticSpeechDataset(size=1, include_f0=True)[0]
+    _assert_items_equal(mine, ref)
+    assert np.array_equal(mine["f0"], ref["f0"]) and (mine["f0"] > 0).any()
 
 
 def test_manifest_splits_and_ljspeech_match_jax(tmp_path):
@@ -129,8 +131,13 @@ def test_manifest_splits_and_ljspeech_match_jax(tmp_path):
     ref = JD.LJSpeechDataset(val, str(tmp_path))
     for i in (0, 1):
         _assert_items_equal(mine[i], ref[i])
-    with pytest.raises(NotImplementedError, match="include_f0"):
-        TD.LJSpeechDataset(val, str(tmp_path), include_f0=True)
+    for fid, _ in rows[:2]:
+        np.save(tmp_path / f"{fid}.f0.npy", rng.uniform(size=(9,)).astype(np.float32))
+    mine = TD.LJSpeechDataset(val, str(tmp_path), include_f0=True)
+    ref = JD.LJSpeechDataset(val, str(tmp_path), include_f0=True)
+    for i in (0, 1):
+        _assert_items_equal(mine[i], ref[i])
+        assert np.array_equal(mine[i]["f0"], ref[i]["f0"])
 
 
 def _batch_args(**kw):

@@ -2,7 +2,7 @@
 its scripts chip_smoke.py and flash_ab.py: no import of JAX or of the JAX
 package, no silent fallback to the CPU, no fallback from the kernel to its
 plain version, and NotImplementedError for the options of later slices
-(the options that earlier slices refused and this one ports now run)."""
+(the options that earlier slices refused and later ones ported now run)."""
 
 import ast
 import inspect
@@ -25,6 +25,16 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "unast_tpu_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py", ROOT / "flash_ab.py"])
 FORBIDDEN = ("jax", "jaxlib", "unast_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _imported_modules(path: Path):
@@ -52,7 +62,7 @@ def test_synthesizer_without_device_needs_cuda():
 
 @pytest.mark.parametrize("option", [
     {"mesh": object()}, {"quantize": "int8"}, {"nar_pv": ({}, {})},
-    {"melgan_params": {}}, {"ctc_pv": ({}, {})}, {"melgan_chunk": 256},
+    {"melgan_params": {}}, {"melgan_chunk": 256},
     {"pcm16": True}])
 def test_unported_synthesizer_options_raise(option):
     params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
@@ -60,17 +70,24 @@ def test_unported_synthesizer_options_raise(option):
         Synthesizer(params, state, TINY, device="cpu", **option)
 
 
-@pytest.mark.parametrize("option", ["vocoder_pv", "model_type='rnn'"])
+def _ctc_pv(cfg=TINY):
+    from unast_tpu_torch.models.ctc import ctc_asr_init
+    return ctc_asr_init(torch.Generator().manual_seed(1), cfg)
+
+
+@pytest.mark.parametrize("option", ["vocoder_pv", "model_type='rnn'", "ctc_pv"])
 def test_ported_synthesizer_options_run(option):
-    """The CBHG vocoder and the RNN backbone, which raised before this
-    slice, serve a request (tests/test_torch_vocoder.py and
-    tests/test_torch_rnn.py hold them to JAX)."""
+    """The CBHG vocoder, the RNN backbone and the CTC model, which raised
+    before their slices, serve a request (tests/test_torch_vocoder.py,
+    tests/test_torch_rnn.py and tests/test_torch_ctc.py hold them to
+    JAX)."""
     cfg = TINY.replace(max_mel_len=8, model_type="rnn" if "rnn" in option else
                        "transformer")
     params, state = U.unast_init(torch.Generator().manual_seed(0), cfg)
     kw = ({"vocoder_pv": U.vocoder_init(torch.Generator().manual_seed(1),
                                         ModelConfig(hidden=8))}
-          if option == "vocoder_pv" else {})
+          if option == "vocoder_pv" else
+          {"ctc_pv": _ctc_pv(cfg)} if option == "ctc_pv" else {})
     syn = Synthesizer(params, state, cfg, device="cpu", text_buckets=(8,),
                       mel_buckets=(8,), audio_params=AudioParams(n_iter=1), **kw)
     wav, = syn.tts(["ok"])
@@ -80,11 +97,18 @@ def test_ported_synthesizer_options_run(option):
 
 
 @pytest.mark.parametrize("option", [{"beam": 2}, {"ctc_beam": 2}, {"spec": True}])
-def test_unported_asr_options_raise(option):
+def test_ported_asr_options_run(option):
+    """beam, ctc_beam and spec, which raised before this slice, decode a
+    request (tests/test_torch_ctc.py holds them to JAX); ctc_beam and spec
+    without a CTC model raise ValueError, as in JAX."""
     params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
-    syn = Synthesizer(params, state, TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        syn.asr_ids([torch.zeros(5, 80).numpy()], **option)
+    mel = [np.random.default_rng(0).uniform(size=(9, 80)).astype(np.float32)]
+    if "beam" not in option:
+        with pytest.raises(ValueError, match="ctc_pv"):
+            Synthesizer(params, state, TINY, device="cpu").asr_ids(mel, **option)
+    syn = Synthesizer(params, state, TINY, ctc_pv=_ctc_pv(), device="cpu")
+    ids, = syn.asr_ids(mel, **option)
+    assert ids.ndim == 1 and len(ids) <= TINY.max_text_len
 
 
 def test_rnn_beam_search_raises_value_error():
@@ -127,11 +151,8 @@ def test_flash_wrapper_never_falls_back_on_cuda():
 
 
 @pytest.mark.parametrize("cfg_kw,args_kw,match", [
-    ({"ctc_weight": 0.3}, {}, "ctc_weight"),
     ({"pp": 2}, {}, "pp"),
     ({"speech_encoder": "conformer"}, {}, "conformer"),
-    ({}, {"cm_text_decode": "spec"}, "cm_text_decode"),
-    ({}, {"cm_text_decode": "ctc"}, "cm_text_decode"),
     ({"remat": True}, {}, "remat"),
     ({"scan_layers": True}, {}, "scan_layers"),
     ({"moe_experts": 4}, {}, "moe_experts"),
@@ -140,6 +161,28 @@ def test_unported_train_options_raise(cfg_kw, args_kw, match):
     cfg = TINY.replace(use_discriminator=True, **cfg_kw)
     with pytest.raises(NotImplementedError, match=match):
         make_train_step(cfg, train_args(**args_kw))
+
+
+@pytest.mark.parametrize("objective,args_kw", [
+    ("sp", {}), ("cm", {"cm_text_decode": "spec"}),
+    ("cm", {"cm_text_decode": "ctc"})])
+def test_ported_train_options_run(objective, args_kw):
+    """ctc_weight > 0 and cm_text_decode 'spec' / 'ctc', which raised before
+    this slice, make a train step and run their objective at TINY
+    (tests/test_torch_ctc.py holds them to JAX): a finite loss, with the
+    hybrid CTC loss among the sp objective's parts."""
+    from unast_tpu_torch.train import steps as TS
+    cfg = TINY.replace(ctc_weight=0.3)
+    args = train_args(objective_eval_mode=True, **args_kw)
+    make_train_step(cfg, args)
+    params, state = U.unast_init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    batch = (torch.from_numpy(rng.integers(3, 46, (2, 6))),
+             torch.rand(2, 12, 80), torch.tensor([6, 4]), torch.tensor([12, 9]))
+    fn = TS.sp_loss_fn if objective == "sp" else TS.cm_loss_fn
+    loss, (aux, _) = fn(params, state, None, batch, cfg, args, 1.0)
+    assert torch.isfinite(loss)
+    assert ("ctc_sp" in aux) == (objective == "sp")
 
 
 @pytest.mark.parametrize("args_kw", [{"optim_type": "adafactor"},
@@ -196,9 +239,18 @@ def test_vocoder_options_run(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("text_decode", ["spec", "ctc"])
-def test_unported_cm_text_decode_raises(text_decode):
+def test_ported_cm_text_decode_runs(text_decode):
+    """cm_speech_in's 'spec' and 'ctc', which raised before this slice, make
+    a pseudo-transcript (tests/test_torch_ctc.py holds them to JAX); they
+    need ctc_weight > 0 (ValueError otherwise, as in JAX)."""
+    mel = torch.rand((1, 8, 80))
     params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
-    mel = torch.zeros((1, 8, 80))
-    with pytest.raises(NotImplementedError, match="CTC head"):
+    with pytest.raises(ValueError, match="ctc_weight"):
         U.cm_speech_in(params, state, nn.Ctx.eval(), TINY, mel,
                        torch.tensor([8]), text_decode=text_decode)
+    cfg = TINY.replace(ctc_weight=0.3)
+    params, state = U.unast_init(torch.Generator().manual_seed(0), cfg)
+    (pre, _, _, _, t_len, _), _ = U.cm_speech_in(
+        params, state, nn.Ctx.eval(), cfg, mel, torch.tensor([8]),
+        ret_enc_hid=True, text_decode=text_decode)
+    assert pre.shape == mel.shape and 1 <= int(t_len[0]) <= cfg.max_text_len

@@ -10,5 +10,9 @@ of `train.make_train_step` with the LSTM discriminator, PER evaluation of
 backbone; with attn_impl='flash' the encoders' and the teacher-forced
 decoders' attention runs through hand-written flash-attention kernels
 (`ops.attention`, source in `csrc/`), whose gradient is a plain-torch
-recompute backward.
+recompute backward. The RNN backbone and the CBHG vocoder serve and train
+through the same entry points. `python -m unast_tpu_torch.data.prepare`
+prepares a corpus into caches and packed shards (`data.shard`); the CTC
+model (`models.ctc`, `python -m unast_tpu_torch.train.ctc`) serves ASR
+through `Synthesizer(ctc_pv=)`.
 """

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import native
 from ..device import resolve_device
 from . import ref_dsp
 from .filters import mel_filterbank, hann_window
@@ -42,6 +43,12 @@ def overlap_add(frames: torch.Tensor, hop: int, out_len: int) -> torch.Tensor:
     if out_len <= flat.shape[1]:
         return flat[:, :out_len]
     return F.pad(flat, (0, out_len - flat.shape[1]))
+
+
+def preemphasis(y: torch.Tensor, coef: float) -> torch.Tensor:
+    """unast_tpu/audio/dsp.py::preemphasis, along the last axis: out[0] =
+    y[0], out[t] = y[t] - coef * y[t-1]."""
+    return torch.cat([y[..., :1], y[..., 1:] - coef * y[..., :-1]], dim=-1)
 
 
 def deemphasis(y: torch.Tensor, coef: float) -> torch.Tensor:
@@ -133,9 +140,10 @@ def _frame_magnitudes(y_padded: torch.Tensor, p: AudioParams) -> torch.Tensor:
 
 
 def _wav_to_mel_mag_core(y_padded: torch.Tensor, p: AudioParams):
-    """unast_tpu/audio/dsp.py::_wav_to_mel_mag_core, batched: framing ->
-    windowed DFT -> mel projection -> dB-normalize. Returns (mel [B, T,
-    n_mels], mag [B, T, n_freqs])."""
+    """unast_tpu/audio/dsp.py::_wav_to_mel_mag_core, batched, so also its
+    vmapped _wav_to_mel_mag_core_batch: framing -> windowed DFT -> mel
+    projection -> dB-normalize of [B, n] preemphasized + center-padded
+    signals. Returns (mel [B, T, n_mels], mag [B, T, n_freqs])."""
     mag = _frame_magnitudes(y_padded, p)
     mel = mag @ _consts(p, y_padded.device).mel_w
     mel = 20.0 * torch.log10(torch.clamp(mel, min=1e-5))
@@ -150,11 +158,13 @@ _LENGTH_BUCKETS_S = (1, 2, 4, 6, 8, 11)
 
 
 def _host_prep(y: np.ndarray, p: AudioParams, trim: bool):
-    """unast_tpu/audio/dsp.py::_host_prep: trim + preemphasis + reflect
+    """unast_tpu/audio/dsp.py::_host_prep: trim (native.trim_silence, the
+    counterpart of the JAX package's C++ trim) + preemphasis + reflect
     center pad on the host. Returns (y_refl, n_frames_valid, n_samples)."""
     y = np.asarray(y, dtype=np.float32)
     if trim:
-        y, _ = ref_dsp.trim_silence(y, p)
+        y, _ = native.trim_silence(y, p.trim_frame_length, p.trim_hop_length,
+                                   p.trim_top_db)
     n = len(y)
     half = p.n_fft // 2
     if n > 0:
@@ -183,6 +193,33 @@ def wav_to_mel_mag(y: np.ndarray, p: AudioParams = DEFAULT, trim: bool = True,
     y_pad[:len(y_refl)] = y_refl
     mel, mag = _wav_to_mel_mag_core(torch.from_numpy(y_pad)[None].to(dev), p)
     return mel[0], mag[0], n_frames_valid
+
+
+def wav_to_mel_mag_batch(wavs, p: AudioParams = DEFAULT, trim: bool = True,
+                         bucket_s: float = 0.0, device=None):
+    """unast_tpu/audio/dsp.py::wav_to_mel_mag_batch: wavs -> (mel [B, T,
+    n_mels], mag [B, T, n_freqs] on `device` (None = cuda), n_frames [B]
+    int32 on the host), one length bucket for the batch (its longest clip
+    after the trim) and one batched pass. Each row equals wav_to_mel_mag
+    of its clip over its valid frames. bucket_s > 0 pins that bucket for
+    every call; a clip longer than it raises AssertionError, as in JAX."""
+    dev = resolve_device(device)
+    half = p.n_fft // 2
+    prepped = [_host_prep(np.asarray(y), p, trim) for y in wavs]
+    n_max = max(pp[2] for pp in prepped)
+    if bucket_s > 0:
+        assert n_max <= bucket_s * p.sr, (n_max, bucket_s)
+        bucket = int(bucket_s * p.sr)
+    else:
+        bucket = next(
+            (int(b * p.sr) for b in _LENGTH_BUCKETS_S if n_max <= b * p.sr),
+            ((n_max + p.sr - 1) // p.sr) * p.sr if n_max > 0 else p.sr,
+        )
+    y_pad = np.zeros((len(prepped), bucket + 2 * half), dtype=np.float32)
+    for i, (y_refl, _, _) in enumerate(prepped):
+        y_pad[i, :len(y_refl)] = y_refl
+    mel, mag = _wav_to_mel_mag_core(torch.from_numpy(y_pad).to(dev), p)
+    return mel, mag, np.asarray([pp[1] for pp in prepped], np.int32)
 
 
 def griffin_lim(spectrogram: torch.Tensor, p: AudioParams = DEFAULT) -> torch.Tensor:

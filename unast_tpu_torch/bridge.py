@@ -51,7 +51,7 @@ def params_from_jax(params, net_state):
     leaves as numpy arrays -> the port's (params, net_state) of float32 torch
     tensors on the CPU, name for name: `text_m`, `speech_m` and, where the
     model has one, the LSTM `discriminator` (its cells, reduce_h / reduce_c
-    and fc2). The RNN backbone's trees come across the same way: the
+    and fc2); with ctc_weight > 0 the hybrid head `speech_m.ctc_head`. The RNN backbone's trees come across the same way: the
     encoder's `layers` and reduce_h / reduce_c, the decoder's `cells` list,
     `attn` and `proj`. A layer stack stacked over a leading axis is
     unstacked into a list."""
@@ -66,3 +66,11 @@ def vocoder_from_jax(params, vstate):
     `highway` and the `gru` layers' fwd / bwd cells; the BN state's
     `bn_bank` list and bn_proj1 / bn_proj2."""
     return _to_torch(params), _to_torch(vstate)
+
+
+def ctc_from_jax(params, net_state):
+    """JAX (params, state) of unast_tpu/models/ctc.py::ctc_asr_init (or of
+    unast_tpu/train/ctc.py's CtcTrainState), leaves as numpy arrays -> the
+    port's float32 torch trees on the CPU, name for name: `prenet`,
+    `encoder`, `ctc_head` and, for ctc_pos='rel', `rel_pos` [nhead, S]."""
+    return _to_torch(params), _to_torch(net_state)

@@ -1,5 +1,7 @@
 """Data pipeline of the port (counterpart of unast_tpu/data): the LJSpeech
-manifest and splits, the synthetic corpus and fixed-shape numpy batching."""
+manifest and splits, the synthetic corpus, fixed-shape numpy batching, the
+offline preparation (`python -m unast_tpu_torch.data.prepare`) and packed
+shards (`data.shard`)."""
 
 from .dataset import LJSpeechDataset, SyntheticSpeechDataset, load_manifest
 from .batching import collate, BatchIterator, BatchGetter

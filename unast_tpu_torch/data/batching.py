@@ -5,8 +5,9 @@ and arguments it gives exactly the JAX package's batches.
 collate zero-pads text and mel to fixed maxima (or to length buckets);
 BatchIterator is an infinite shuffled stream with drop_last semantics;
 BatchGetter holds the three streams of a train step (supervised,
-unsupervised, full). The JAX module's fast path for packed shards
-(data/shard.py) is not ported: the port's datasets hold items.
+unsupervised, full). A dataset with `collate_batch` (a packed shard,
+data/shard.py) takes the fast path: lengths from its index, each batch
+assembled in one call.
 """
 
 from typing import Sequence
@@ -42,6 +43,14 @@ def collate(items: Sequence[dict], text_len: int, mel_len: int,
            "fnames": fnames}
     if include_mag:
         out["mag"] = mag
+    if items and "f0" in items[0]:
+        # frame-level F0 rides along when the dataset provides it
+        # (include_f0=True; the NAR pitch adaptor)
+        f0 = np.zeros((b, mel_len), np.float32)
+        for i, it in enumerate(items):
+            v = it["f0"][:mel_len]
+            f0[i, :len(v)] = v
+        out["f0"] = f0
     return out
 
 
@@ -120,7 +129,29 @@ class BatchIterator:
             ml = self._pick_bucket(self.mel_buckets, need, self.mel_len)
         return tl, ml
 
+    def _shard_shapes(self, idx_lists):
+        """(text_len, mel_len) of a packed shard's batches `idx_lists`, from
+        its index: the smallest buckets covering their longest items."""
+        tl, ml = self.text_len, self.mel_len
+        if self.text_buckets or self.mel_buckets:
+            t_need = m_need = 0
+            for idx in idx_lists:
+                tls, mls = self.ds.lens(idx)
+                t_need = max(t_need, int(tls.max()))
+                m_need = max(m_need, int(mls.max()))
+            if self.text_buckets:
+                tl = self._pick_bucket(self.text_buckets, t_need, self.text_len)
+            if self.mel_buckets:
+                ml = self._pick_bucket(self.mel_buckets, m_need, self.mel_len)
+        return tl, ml
+
     def next_batch(self):
+        """unast_tpu/data/batching.py::BatchIterator.next_batch."""
+        if hasattr(self.ds, "collate_batch") and not self.include_mag:
+            # packed-shard fast path (data/shard.py): lengths from the
+            # index, the whole batch assembled in one call
+            idx = self._next_indices()
+            return self.ds.collate_batch(idx, *self._shard_shapes([idx]))
         items = self._next_items()
         tl, ml = self._shapes_for(items)
         return collate(items, tl, ml, n_mels=self.n_mels,
@@ -130,6 +161,12 @@ class BatchIterator:
         """Stack n micro-batches along a new leading axis, the layout of a
         train step's micro-batches. All micro-batches are padded to the
         largest bucket among them."""
+        if hasattr(self.ds, "collate_batch") and not self.include_mag:
+            idx_lists = [self._next_indices() for _ in range(n)]
+            tl, ml = self._shard_shapes(idx_lists)
+            bs = [self.ds.collate_batch(idx, tl, ml) for idx in idx_lists]
+            return tuple(np.stack([as_tuple(b)[j] for b in bs])
+                         for j in range(4))
         item_lists = [self._next_items() for _ in range(n)]
         tl = ml = 0
         for items in item_lists:

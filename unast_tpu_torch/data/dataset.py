@@ -2,16 +2,17 @@
 the same seeds, so equal arguments give equal items).
 
 LJSpeechDataset: rows of a pipe-separated manifest, phonemized on access,
-mels from the offline cache `<cache_dir>/<id>.mel.npy` that the JAX
-package's data/prepare.py writes.
+mels from the offline cache `<cache_dir>/<id>.mel.npy` that data/prepare.py
+writes (the port's or the JAX package's: the same files).
 
 SyntheticSpeechDataset: a seeded corpus of sentences with procedurally
 generated audio (per-phoneme harmonic or formant stacks) and mels from the
 numpy DSP (audio/ref_dsp.py), so the whole path runs with no corpus on
 disk.
 
-Frame-level F0 (`include_f0=True`) needs audio/pitch.py, which comes with
-the FastSpeech slice of the port; it raises NotImplementedError here.
+With `include_f0=True` an item also holds its frame-level F0: the
+`<id>.f0.npy` cache of prepare's --f0, or audio/pitch.py::extract_f0 of
+the synthetic waveform.
 """
 
 import os
@@ -22,12 +23,6 @@ import numpy as np
 from ..text import raw_text_to_phoneme_ids
 from ..audio.params import DEFAULT as AUDIO_DEFAULT
 from ..audio import ref_dsp
-
-
-def _no_f0():
-    raise NotImplementedError(
-        "include_f0=True needs audio/pitch.py, which comes with the "
-        "FastSpeech slice of the port (ROADMAP.md queue 1)")
 
 
 def load_manifest(path: str) -> List[Tuple[str, str]]:
@@ -57,8 +52,9 @@ class LJSpeechDataset:
         self.rows = load_manifest(manifest_path)
         self.cache_dir = cache_dir
         self.include_mag = include_mag
-        if include_f0:
-            _no_f0()
+        # frame F0 from the offline cache (prepare.py --f0), for the
+        # FastSpeech pitch adaptor
+        self.include_f0 = include_f0
         self._phon_cache: Dict[int, np.ndarray] = {}
 
     def __len__(self):
@@ -77,6 +73,9 @@ class LJSpeechDataset:
         if self.include_mag:
             item["mag"] = np.load(
                 os.path.join(self.cache_dir, fname + ".mag.npy"))
+        if self.include_f0:
+            item["f0"] = np.load(
+                os.path.join(self.cache_dir, fname + ".f0.npy"))
         return item
 
 
@@ -234,8 +233,7 @@ class SyntheticSpeechDataset:
         self.params = params
         self.phoneme_dur_s = phoneme_dur_s
         self.timbre = timbre
-        if include_f0:
-            _no_f0()
+        self.include_f0 = include_f0  # frame-level F0 (audio/pitch.py)
         # per-utterance log-uniform F0 scale in [e^-j, e^j] (see
         # synth_audio.f0_scale; needed to train a usable pitch adaptor)
         self.pitch_jitter = pitch_jitter
@@ -283,4 +281,9 @@ class SyntheticSpeechDataset:
             self._items[key] = {"ids": ids, "mel": mel, "mag": mag,
                                 "wav": wav.astype(np.float32),
                                 "fname": f"SYN-{i:05d}"}
+            if self.include_f0:
+                from ..audio.pitch import extract_f0
+                f0 = extract_f0(wav, self.params.sr,
+                                self.params.hop_length)[: len(mel)]
+                self._items[key]["f0"] = f0
         return self._items[key]

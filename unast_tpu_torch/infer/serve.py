@@ -7,8 +7,11 @@
 Requests are padded into fixed text/mel buckets, decoded greedily
 (models/networks.py: the KV-cached transformer loops or the RNN loops),
 and vocoded with the CBHG vocoder (`vocoder_pv`) or else the mel
-pseudo-inverse lift, then batched Griffin-Lim, all on the device. The
-options of the JAX Synthesizer that the port does not have yet raise
+pseudo-inverse lift, then batched Griffin-Lim, all on the device. ASR can
+also run through a CTC model (`ctc_pv`): one-pass greedy, prefix beam
+search over its posteriors (`ctc_beam`), or as the draft of the AR
+decoder's speculative decode (`spec`); `beam` runs the AR beam search.
+The options of the JAX Synthesizer that the port does not have yet raise
 NotImplementedError.
 """
 
@@ -21,7 +24,7 @@ from .. import nn
 from ..audio import dsp, ref_dsp
 from ..audio.params import DEFAULT as AUDIO_DEFAULT
 from ..device import resolve_device
-from ..models import unast as U
+from ..models import ctc as CT, networks as N, unast as U
 from ..models.config import ModelConfig
 from ..text import raw_text_to_phoneme_ids, sequence_to_text
 from ..text.symbols import symbols
@@ -48,15 +51,16 @@ class Synthesizer:
         converts JAX ones). vocoder_pv: optional (params, state) of a
         trained CBHG vocoder (infer/vocoder.py; bridge.vocoder_from_jax):
         the magnitudes then come from it instead of the pseudo-inverse
-        lift. device: None means cuda, and raises when there is no CUDA
-        device; tests pass device='cpu'."""
+        lift. ctc_pv: optional (params, state) of a CTC model
+        (models/ctc.py, the same cfg; train/ctc.py, bridge.ctc_from_jax):
+        asr_ids then decodes through it. device: None means cuda, and
+        raises when there is no CUDA device; tests pass device='cpu'."""
         unported = [
             ("mesh", mesh is not None, "multi-device slice"),
             ("quantize", quantize is not None, "int8 quantization slice"),
             ("nar_pv", nar_pv is not None, "one-pass families slice"),
             ("melgan_params", melgan_params is not None,
              "one-pass families slice"),
-            ("ctc_pv", ctc_pv is not None, "one-pass families slice"),
             ("melgan_chunk", melgan_chunk is not None,
              "one-pass families slice"),
             ("pcm16", pcm16, "one-pass families slice"),
@@ -78,6 +82,11 @@ class Synthesizer:
         # functions would cast them at every use with the same rounding.
         self.params = nn.tree_to(nn.cast_weights(params, cfg.dtype), self.device)
         self.net_state = nn.tree_to(net_state, self.device)
+        self.ctc_pv = None
+        if ctc_pv is not None:
+            self.ctc_pv = (
+                nn.tree_to(nn.cast_weights(ctc_pv[0], cfg.dtype), self.device),
+                nn.tree_to(ctc_pv[1], self.device))
         self.vocoder_pv = None
         if vocoder_pv is not None:
             self.vocoder_pv = (
@@ -226,20 +235,74 @@ class Synthesizer:
 
     # -- ASR -----------------------------------------------------------------
 
+    def _asr_impl(self, mel, mel_len):
+        """unast_tpu/infer/serve.py::Synthesizer._asr_impl: the AR model's
+        greedy decode -> (ids, stop_lens)."""
+        (ids, stop_lens), _ = U.asr(self.params, self.net_state,
+                                    nn.Ctx.eval(), self.cfg, mel=mel,
+                                    mel_len=mel_len, infer=True)
+        return ids, stop_lens
+
+    def _ctc_asr_impl(self, mel, mel_len):
+        """unast_tpu/infer/serve.py::Synthesizer._ctc_asr_impl: one-pass
+        greedy CTC through ctc_pv -> (ids, lens)."""
+        (ids, lens), _ = CT.ctc_asr_infer(*self.ctc_pv, nn.Ctx.eval(),
+                                          self.cfg, mel, mel_len)
+        return ids, lens
+
+    def _asr_beam_impl(self, mel, mel_len, beam: int):
+        """unast_tpu/infer/serve.py::Synthesizer._asr_beam_impl: the AR
+        model's KV-cached beam search -> (ids, stop_lens)."""
+        ectx = nn.Ctx.eval()
+        (enc, mask), _ = N.speech_encode(self.params["speech_m"],
+                                         self.net_state["speech_m"], ectx,
+                                         self.cfg, mel, mel_len)
+        return N.text_tr_beam_search(self.params["text_m"], ectx, self.cfg,
+                                     enc, mask, beam=beam)
+
+    def _spec_asr_impl(self, mel, mel_len):
+        """unast_tpu/infer/serve.py::Synthesizer._spec_asr_impl: the CTC
+        model's greedy output drafts, the AR decoder verifies it in
+        parallel teacher-forced passes (networks.text_tr_spec_infer): the
+        AR model's greedy transcript. -> (ids, stop_lens, rounds)."""
+        ectx = nn.Ctx.eval()
+        (draft, _), _ = CT.ctc_asr_infer(*self.ctc_pv, ectx, self.cfg,
+                                         mel, mel_len)
+        (enc, mask), _ = N.speech_encode(self.params["speech_m"],
+                                         self.net_state["speech_m"], ectx,
+                                         self.cfg, mel, mel_len)
+        return N.text_tr_spec_infer(self.params["text_m"], ectx, self.cfg,
+                                    enc, mask, draft)
+
+    def _ctc_log_probs(self, mel, mel_len):
+        """unast_tpu/infer/serve.py::Synthesizer._ctc_log_probs: ctc_pv's
+        log-posteriors [B, T, V+1] and valid frame counts [B]."""
+        logits, pad, _ = CT.ctc_logits(*self.ctc_pv, nn.Ctx.eval(), self.cfg,
+                                       mel, mel_len)
+        return torch.log_softmax(logits, dim=-1), (~pad).sum(dim=1)
+
     def asr_ids(self, mels: List[np.ndarray], beam: int = 1,
                 ctc_beam: int = 1, spec: bool = False):
         """unast_tpu/infer/serve.py::Synthesizer.asr_ids: mels (list of
-        [T, n_mels]) -> list of phoneme-id np arrays, greedy (beam 1). Beam
-        search needs the transformer backbone (ValueError on the RNN, as
-        in JAX)."""
+        [T, n_mels]) -> list of phoneme-id np arrays. Greedy by default:
+        the AR decoder, or with ctc_pv the one-pass CTC decode. beam > 1
+        (transformer backbone): the AR beam search; ctc_beam > 1 (with
+        ctc_pv): prefix beam search over the CTC posteriors on the host;
+        spec=True (with ctc_pv, transformer backbone): the AR model's
+        greedy transcript by CTC-drafted speculative decoding, its verify
+        rounds in self.last_spec_rounds. Options that need what the
+        Synthesizer lacks raise ValueError, as in JAX."""
         if beam > 1 and self.cfg.model_type != "transformer":
             raise ValueError("beam search requires the transformer backbone")
-        if beam > 1:
-            _not_ported("beam > 1", "one-pass families slice")
-        if ctc_beam > 1:
-            _not_ported("ctc_beam > 1", "one-pass families slice")
+        if ctc_beam > 1 and self.ctc_pv is None:
+            raise ValueError("ctc_beam needs Synthesizer(ctc_pv=...)")
         if spec:
-            _not_ported("spec=True", "one-pass families slice")
+            if self.ctc_pv is None:
+                raise ValueError("spec=True needs Synthesizer(ctc_pv=...)")
+            if self.cfg.model_type != "transformer":
+                raise ValueError("speculative decode requires the "
+                                 "transformer backbone")
+            self.last_spec_rounds = []
         self.last_decode_steps = []
         out = []
         for start in range(0, len(mels), self.max_batch):
@@ -252,11 +315,27 @@ class Synthesizer:
                 m = np.asarray(m, np.float32)[:ml]
                 mel[i, :len(m)] = m
                 lens[i] = len(m)
+            mel_t = torch.from_numpy(mel).to(self.device)
+            lens_t = torch.from_numpy(lens).to(self.device)
+            if ctc_beam > 1:
+                with torch.inference_mode():
+                    lp, n_frames = self._ctc_log_probs(mel_t, lens_t)
+                lp, n_frames = lp.cpu().numpy(), n_frames.cpu().numpy()
+                out.extend(np.asarray(CT.ctc_prefix_beam_search(
+                    lp[i], int(n_frames[i]), beam=ctc_beam,
+                    max_text_len=self.cfg.max_text_len), np.int64)
+                    for i in range(n))
+                continue
             with torch.inference_mode():
-                (ids, stop_lens), _ = U.asr(
-                    self.params, self.net_state, nn.Ctx.eval(), self.cfg,
-                    mel=torch.from_numpy(mel).to(self.device),
-                    mel_len=torch.from_numpy(lens).to(self.device), infer=True)
+                if spec:
+                    ids, stop_lens, rounds = self._spec_asr_impl(mel_t, lens_t)
+                    self.last_spec_rounds.append(rounds)
+                elif beam > 1:
+                    ids, stop_lens = self._asr_beam_impl(mel_t, lens_t, beam)
+                elif self.ctc_pv is not None:
+                    ids, stop_lens = self._ctc_asr_impl(mel_t, lens_t)
+                else:
+                    ids, stop_lens = self._asr_impl(mel_t, lens_t)
             ids = ids.cpu().numpy()
             stop_lens = stop_lens.cpu().numpy()
             self.last_decode_steps.append(int(stop_lens.max()))
@@ -285,11 +364,9 @@ class Synthesizer:
                       torch.ones((1, tb), dtype=torch.long, device=self.device),
                       torch.full((1,), tb, dtype=torch.long, device=self.device),
                       infer=True)
+            asr = self._ctc_asr_impl if self.ctc_pv is not None else self._asr_impl
             for mb in self.mel_buckets:
-                U.asr(self.params, self.net_state, nn.Ctx.eval(), self.cfg,
-                      mel=torch.zeros((1, mb, self.cfg.num_mels),
-                                      device=self.device),
-                      mel_len=torch.full((1,), mb, dtype=torch.long,
-                                         device=self.device), infer=True)
+                asr(torch.zeros((1, mb, self.cfg.num_mels), device=self.device),
+                    torch.full((1,), mb, dtype=torch.long, device=self.device))
             self._vocode(torch.zeros((1, self.mel_buckets[0], self.cfg.num_mels),
                                      dtype=self.cfg.dtype, device=self.device))

@@ -1,12 +1,13 @@
 """Model stack of the port (counterpart of unast_tpu/models): the
 transformer and RNN backbones' serving and training paths, the LSTM
-discriminator and the CBHG vocoder."""
+discriminator, the CBHG vocoder and the CTC ASR model."""
 
 from .config import ModelConfig, TINY, VOCAB_SIZE, PAD_IDX, SOS_IDX, EOS_IDX
-from . import modules, transformer, networks, rnn, unast
+from . import modules, transformer, networks, rnn, unast, ctc
 from .unast import unast_init, tts, asr
 
 __all__ = [
     "ModelConfig", "TINY", "VOCAB_SIZE", "PAD_IDX", "SOS_IDX", "EOS_IDX",
-    "modules", "transformer", "networks", "rnn", "unast", "unast_init", "tts", "asr",
+    "modules", "transformer", "networks", "rnn", "unast", "ctc", "unast_init",
+    "tts", "asr",
 ]

@@ -138,6 +138,133 @@ def text_tr_infer(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
 text_tr_infer.steps = 0   # decode steps run, in all calls
 
 
+def text_tr_spec_infer(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
+                       draft, max_len: Optional[int] = None):
+    """unast_tpu/models/networks.py::text_tr_spec_infer: speculative greedy
+    decoding. Each round scores candidate = accepted prefix + draft suffix
+    (e.g. the CTC head's greedy output) in ONE teacher-forced parallel
+    forward (text_tr_decode_sequence), accepts the longest prefix where
+    the decoder's greedy choice equals the candidate plus one corrected
+    token at the first mismatch, so at least one token a round. The
+    output is greedy decoding under the parallel scorer; the Ctx must be
+    in eval mode. draft: [B, >= max_len] ids (PAD-padded). Returns (ids
+    [B, max_len] masked past stop, stop_lens [B], rounds). JAX's
+    while_loop is a Python loop with one host sync a round."""
+    if ctx.train:
+        raise ValueError("speculative decode requires an eval-mode Ctx "
+                         "(dropout would break verify determinism)")
+    max_len = max_len or cfg.max_text_len
+    b = memory.shape[0]
+    dev = memory.device
+    draft = draft[:, :max_len].long()
+    if draft.shape[1] < max_len:
+        draft = torch.nn.functional.pad(draft, (0, max_len - draft.shape[1]),
+                                        value=PAD_IDX)
+    pos = torch.arange(max_len, device=dev)
+    lens_full = torch.full((b,), max_len, dtype=torch.long, device=dev)
+    n = torch.zeros((b,), dtype=torch.long, device=dev)
+    tokens = torch.full((b, max_len), PAD_IDX, dtype=torch.long, device=dev)
+    stop_lens = torch.full((b,), max_len, dtype=torch.long, device=dev)
+    rounds = 0
+    while True:
+        live = (stop_lens == max_len) & (n < max_len)
+        if not bool(live.any()):
+            break
+        text_tr_spec_infer.rounds += 1
+        cand = torch.where(pos[None] < n[:, None], tokens, draft)
+        logits = text_tr_decode_sequence(p, ctx, cfg, cand, lens_full,
+                                         memory, mem_pad_mask)
+        g = torch.argmax(logits, dim=-1)
+        bad = (g != cand).long()
+        # longest all-ok prefix, then one corrected token at the mismatch
+        n_match = (torch.cumsum(bad, dim=1) == 0).sum(dim=1)
+        n_new = torch.clamp(n_match + 1, max=max_len)
+        in_new = pos[None] < n_new[:, None]
+        accepted = torch.where(in_new, g, PAD_IDX)
+        # EOS inside the newly accepted region ends the row
+        is_eos = (accepted == EOS_IDX) & in_new
+        first_eos = torch.argmax(is_eos.long(), dim=1)
+        stop_lens = torch.where(live & is_eos.any(dim=1), first_eos + 1,
+                                stop_lens)
+        tokens = torch.where(live[:, None], accepted, tokens)
+        n = torch.where(live, n_new, n)
+        rounds += 1
+    res = tokens * M.lens_to_mask(stop_lens, max_len).to(tokens.dtype)
+    return res, stop_lens, rounds
+
+
+text_tr_spec_infer.rounds = 0   # verify rounds run, in all calls
+
+
+def text_tr_beam_search(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
+                        beam: int = 4, max_len: Optional[int] = None,
+                        length_penalty: float = 0.6):
+    """unast_tpu/models/networks.py::text_tr_beam_search: KV-cached beam
+    search with beams on a flattened [B*K] axis (the per-step reorder is a
+    gather of the self-attention caches; the cross caches are equal
+    across a row's beams); finished beams are frozen (EOS again at no
+    cost), and the best finished beam of each row is picked under GNMT
+    length normalisation ((5 + len) / 6) ** length_penalty. Returns (ids
+    [B, max_len] masked past stop, stop_lens [B])."""
+    max_len = max_len or cfg.max_text_len
+    b = memory.shape[0]
+    dev = memory.device
+    k = beam
+    mem_k = torch.repeat_interleave(memory, k, dim=0)            # [B*K, Ts, D]
+    pad_k = torch.repeat_interleave(mem_pad_mask, k, dim=0)
+    cache = T.init_cache(p["decoder"], mem_k, max_len, cfg.nhead)
+    mem_bias = T.padding_bias(pad_k)
+    tokens = torch.full((b * k, max_len + 1), PAD_IDX, dtype=torch.long,
+                        device=dev)
+    tokens[:, 0] = SOS_IDX
+    # beam 0 starts live, the others at -1e9, so the first expansion
+    # seeds distinct continuations
+    scores = torch.tensor([0.0] + [-1e9] * (k - 1), device=dev).repeat(b)
+    finished = torch.zeros((b * k,), dtype=torch.bool, device=dev)
+    fin_lens = torch.full((b * k,), max_len, dtype=torch.long, device=dev)
+    rows = torch.arange(b, device=dev)[:, None] * k
+    for i in range(max_len):
+        if bool(finished.all()):
+            break
+        text_tr_beam_search.steps += 1
+        x = M.text_embed(p["prenet"], ctx, tokens[:, i:i + 1], cfg)
+        x = M.positional_encoding(ctx, x, offset=i)
+        h, cache = T.decoder_step(p["decoder"], ctx, x, i, cache, mem_bias,
+                                  cfg.nhead, cfg.d_drop)
+        logits = M.text_postnet(p["postnet"], ctx, h, cfg)[:, -1]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        # frozen beams: only the EOS continuation, no score change
+        v = logp.shape[-1]
+        frozen = torch.full((v,), -1e9, device=dev)
+        frozen[EOS_IDX] = 0.0
+        logp = torch.where(finished[:, None], frozen[None, :], logp)
+        cand = (scores[:, None] + logp).reshape(b, k * v)
+        top_scores, top_idx = torch.topk(cand, k, dim=-1)         # [B, K]
+        flat_src = (rows + top_idx // v).reshape(-1)
+        tok = (top_idx % v).reshape(-1)
+        tokens = tokens[flat_src]
+        cache = T.DecodeCache(cache.self_k[:, flat_src],
+                              cache.self_v[:, flat_src],
+                              cache.cross_k, cache.cross_v)
+        finished = finished[flat_src]
+        fin_lens = fin_lens[flat_src]
+        scores = top_scores.reshape(-1)
+        tokens[:, i + 1] = tok
+        newly = (tok == EOS_IDX) & ~finished
+        fin_lens = torch.where(newly, i + 1, fin_lens)
+        finished = finished | (tok == EOS_IDX)
+    # the best beam of each row under GNMT length normalization
+    lp = ((5.0 + fin_lens.float()) / 6.0) ** length_penalty
+    best = torch.argmax((scores / lp).reshape(b, k), dim=-1)
+    flat_best = torch.arange(b, device=dev) * k + best
+    res = tokens[flat_best][:, 1:]
+    stop_lens = fin_lens[flat_best]
+    return res * M.lens_to_mask(stop_lens, max_len).to(res.dtype), stop_lens
+
+
+text_tr_beam_search.steps = 0   # decode steps run, in all calls
+
+
 # ===========================================================================
 # SpeechTransformer
 # ===========================================================================
@@ -153,20 +280,31 @@ def speech_transformer_init(gen: torch.Generator, cfg: ModelConfig):
     postnet_p, postnet_s = M.speech_postnet_init(gen, cfg)
     params = {"prenet": prenet, "encoder": enc, "decoder": dec,
               "postnet": postnet_p}
+    if cfg.ctc_weight > 0:
+        # hybrid CTC/attention (train/steps.py sp objective): per-frame
+        # head over 46 symbols + 1 blank on the encoder output
+        from .config import VOCAB_SIZE
+        params["ctc_head"] = nn.linear_init(gen, cfg.e_in, VOCAB_SIZE + 1,
+                                            torch_default=True)
     return params, {"postnet": postnet_s}
 
 
-def speech_tr_encode(p, s, ctx, cfg: ModelConfig, mel, lens, noise_in=False):
-    """unast_tpu/models/networks.py::speech_tr_encode (absolute PE,
-    transformer encoder). mel: [B, T, num_mels]; noise_in: the denoising
-    AE's noise on the frames. Returns ((memory, pad_mask), state)."""
+def speech_tr_encode(p, s, ctx, cfg: ModelConfig, mel, lens, noise_in=False,
+                     extra_bias=None, add_pe=True):
+    """unast_tpu/models/networks.py::speech_tr_encode (transformer encoder).
+    mel: [B, T, num_mels]; noise_in: the denoising AE's noise on the
+    frames; extra_bias: an additive attention bias for every layer
+    (transformer.encoder; the CTC encoder's chunk mask and relative bias);
+    add_pe=False skips the absolute sinusoid PE (the relative-position CTC
+    encoder). Returns ((memory, pad_mask), state)."""
     check_ported(cfg)
     pad_mask = ~M.lens_to_mask(lens, mel.shape[1])
     x = M.noise_fn(ctx, mel, cfg.noise_mask_p) if noise_in else mel
     x = M.speech_prenet(p["prenet"], ctx, x, cfg)
-    x = M.positional_encoding(ctx, x)
+    if add_pe:
+        x = M.positional_encoding(ctx, x)
     memory = T.encoder(p["encoder"], ctx, x, pad_mask, cfg.nhead, cfg.e_drop,
-                       impl=cfg.attn_impl)
+                       impl=cfg.attn_impl, extra_bias=extra_bias)
     return (memory, pad_mask), s
 
 

@@ -4,8 +4,7 @@ unrolled path.
 
 Batch-first [B, T, D] throughout; masks are additive float32 biases;
 softmax and layernorm run in float32 whatever the activation dtype.
-`scan_layers`, `remat`, pipeline stages, `chunk_bias` and MoE come with
-later slices.
+`scan_layers`, `remat`, pipeline stages and MoE come with later slices.
 """
 
 import math
@@ -117,6 +116,19 @@ def causal_bias(t: int, device=None) -> torch.Tensor:
     return torch.where(m, zero, zero + NEG_INF)[None, None]
 
 
+def chunk_bias(t: int, chunk: int, left_chunks: int, device=None) -> torch.Tensor:
+    """unast_tpu/models/transformer.py::chunk_bias: additive [1, 1, T, T]
+    block-chunk mask (the streaming CTC encoder's): a query in chunk
+    cq = q // chunk attends keys in chunks [cq - left_chunks, cq];
+    left_chunks < 0 = unlimited left context."""
+    cq = torch.arange(t, device=device) // chunk
+    ok = cq[None, :] <= cq[:, None]  # no future chunks
+    if left_chunks >= 0:
+        ok &= cq[None, :] >= cq[:, None] - left_chunks
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, zero + NEG_INF)[None, None]
+
+
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
@@ -160,11 +172,19 @@ def encoder_layer(p, ctx: nn.Ctx, x, bias, nhead: int, dropout_p: float,
 
 
 def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
-            impl: str = "xla"):
+            impl: str = "xla", extra_bias=None):
     """unast_tpu/models/transformer.py::encoder, unrolled path. x: [B, T, D],
     pad_mask: bool [B, T] True = PAD. impl='flash' passes the per-row
-    valid lengths (kv_lens) to the kernel instead of the bias."""
+    valid lengths (kv_lens) to the kernel instead of the bias.
+    extra_bias: an additive [1|B, 1|H, T, T] bias summed with the padding
+    bias in every layer (chunk_bias, the CTC encoder's relative bias); it
+    needs impl='xla' (ValueError otherwise: the kernel takes only kv_lens
+    and causal, as JAX asserts)."""
+    if extra_bias is not None and impl == "flash":
+        raise ValueError("extra_bias requires the xla attention path")
     bias = padding_bias(pad_mask) if impl != "flash" else None
+    if extra_bias is not None:
+        bias = bias + extra_bias
     kv_lens = ((~pad_mask).sum(dim=1, dtype=torch.int32)
                if impl == "flash" else None)
     for lp in p["layers"]:

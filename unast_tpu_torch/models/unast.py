@@ -12,7 +12,8 @@ import torch
 from torch.profiler import record_function
 
 from .. import nn
-from .config import ModelConfig
+from .config import EOS_IDX, ModelConfig
+from . import ctc as CT
 from . import modules as M
 from . import networks as N
 from . import rnn as R
@@ -106,25 +107,53 @@ def cm_text_in(params, state, ctx, cfg: ModelConfig, text, text_len,
     return logits, new_state
 
 
-def cm_speech_in(params, state, ctx, cfg: ModelConfig, mel, mel_len,
+def _cm_ctc_draft(params, cfg: ModelConfig, s_enc, s_mask, max_len):
+    """unast_tpu/models/unast.py::_cm_ctc_draft: the hybrid CTC head's
+    one-pass greedy transcript off the speech-encoder memory, with EOS
+    appended as the AR decode's output carries it. Returns (ids, lens)."""
+    logits = nn.linear(params["speech_m"]["ctc_head"], s_enc).float()
+    ids, lens = CT.ctc_greedy_decode(logits, s_mask, max_len)
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    at = torch.clamp(lens, max=max_len - 1)
+    ids[rows, at] = torch.where(lens < max_len, EOS_IDX, ids[rows, max_len - 1])
+    return ids, torch.clamp(lens + 1, max=max_len)
+
+
+def cm_speech_in(params, state, ctx: nn.Ctx, cfg: ModelConfig, mel, mel_len,
                  ret_enc_hid=False, infer_text_len=None,
                  text_decode: str = "ar"):
     """unast_tpu/models/unast.py::cm_speech_in, back-translation with speech
-    in: a no-grad greedy ASR makes a pseudo-transcript, then text encode ->
-    speech decode with gradients. Only text_decode='ar' (the KV-cached
-    greedy decode) is ported; 'spec' and 'ctc' need the CTC head of a
-    later slice."""
-    if text_decode != "ar":
-        raise NotImplementedError(
-            f"cm text_decode={text_decode!r} needs the CTC head (models/ctc.py), "
-            "which comes with a later slice of the port")
+    in: a no-grad pseudo-transcript, then text encode -> speech decode with
+    gradients. text_decode 'ar': the KV-cached greedy decode; 'spec': the
+    CTC-drafted speculative decode (networks.text_tr_spec_infer, with an
+    eval-mode Ctx as in JAX: verifying needs a deterministic scorer),
+    equal to the eval-mode greedy transcript; 'ctc': the CTC head's
+    greedy output itself (_cm_ctc_draft). 'spec' and 'ctc' need
+    cfg.ctc_weight > 0 and the transformer backbone (ValueError)."""
     with torch.no_grad():
         (s_enc, s_mask), _ = N.speech_encode(params["speech_m"],
                                              state["speech_m"], ctx, cfg,
                                              mel, mel_len)
-        (text_pred, text_pred_len), _ = N.text_infer(
-            params["text_m"], state["text_m"], ctx, cfg, s_enc, s_mask,
-            max_len=infer_text_len)
+        if text_decode != "ar":
+            if cfg.ctc_weight <= 0 or cfg.model_type != "transformer":
+                raise ValueError(
+                    "cm text_decode 'spec'/'ctc' needs ctc_weight>0 and the "
+                    "transformer backbone")
+            cap = infer_text_len or cfg.max_text_len
+            if text_decode == "ctc":
+                text_pred, text_pred_len = _cm_ctc_draft(
+                    params, cfg, s_enc, s_mask, cap)
+            else:
+                logits = nn.linear(params["speech_m"]["ctc_head"],
+                                   s_enc).float()
+                draft, _ = CT.ctc_greedy_decode(logits, s_mask, cap)
+                text_pred, text_pred_len, _ = N.text_tr_spec_infer(
+                    params["text_m"], nn.Ctx.eval(), cfg, s_enc, s_mask,
+                    draft, max_len=cap)
+        else:
+            (text_pred, text_pred_len), _ = N.text_infer(
+                params["text_m"], state["text_m"], ctx, cfg, s_enc, s_mask,
+                max_len=infer_text_len)
     (t_enc, t_mask), ts = N.text_encode(params["text_m"], state["text_m"],
                                         ctx, cfg, text_pred, text_pred_len)
     (pre, post, stop, _), ss = N.speech_decode_sequence(

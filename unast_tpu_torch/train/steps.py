@@ -38,6 +38,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import nn
+from ..models import ctc as CT
 from ..models import modules as M
 from ..models import networks as N
 from ..models import unast as U
@@ -81,21 +82,27 @@ def zero_fixed_dropouts(modules=M, unast=U):
         modules.positional_encoding, unast.lstm_discriminator = pe, disc
 
 
-def flash_calls_per_step(cfg: ModelConfig, args):
+def flash_calls_per_step(cfg: ModelConfig, args, spec_rounds: int = 0):
     """(flash-attention forwards, backwards) of one step of
     make_train_step with attn_impl='flash', per the task functions: per
     layer, an ae or sp micro-batch runs two encoders and two decoders'
     causal self-attention through flash (and both decoders'
     cross-attention too unless guided attention collects its weights,
-    which needs attention_core), all with gradients; a cm micro-batch four
-    encoders (two of them no-grad, for the pseudo-pairs) and two decoders'
-    self- and cross-attention; a d micro-batch two no-grad encoders. The
-    RNN backbone calls no attention kernel: (0, 0)."""
+    which needs attention_core), all with gradients, and with ctc_weight
+    > 0 an sp micro-batch one more encoder (the CTC head's); a cm
+    micro-batch four encoders (two of them no-grad, for the pseudo-pairs)
+    and two decoders' self- and cross-attention, and with cm_text_decode
+    'spec' a no-grad decoder's self- and cross-attention for each of the
+    step's `spec_rounds` verify rounds (their count depends on the data:
+    networks.text_tr_spec_infer.rounds); a d micro-batch two no-grad
+    encoders. The RNN backbone calls no attention kernel: (0, 0)."""
     if cfg.model_type != "transformer":
         return 0, 0
     tf = 4 if _ga_cfg(cfg, args)[0] else 6
-    fwd = args.ae_steps * tf + args.cm_steps * 8 + args.sp_steps * tf
-    bwd = args.ae_steps * tf + args.cm_steps * 6 + args.sp_steps * tf
+    sp = tf + (1 if cfg.ctc_weight > 0 else 0)
+    fwd = (args.ae_steps * tf + args.cm_steps * 8 + args.sp_steps * sp
+           + 2 * spec_rounds)
+    bwd = args.ae_steps * tf + args.cm_steps * 6 + args.sp_steps * sp
     if cfg.use_discriminator:
         fwd += args.d_steps * 2
     return cfg.num_layers * fwd, cfg.num_layers * bwd
@@ -114,24 +121,6 @@ def flash_calls_per_eval_batch(cfg: ModelConfig):
         return 0
     per_layer = 4 * 3 + 2 * 4 + 2 + (2 if cfg.use_discriminator else 0)
     return cfg.num_layers * per_layer
-
-
-def check_train_args(cfg: ModelConfig, args):
-    """Raise, before any step runs, on an option of the train step that
-    this slice does not run: the CTC head's (ctc_weight > 0, cm
-    text_decode 'spec'/'ctc') and the model options of
-    networks.check_ported."""
-    later = {
-        "ctc_weight > 0": cfg.ctc_weight > 0,
-        "cm_text_decode 'spec'/'ctc'":
-            (getattr(args, "cm_text_decode", "ar") or "ar") != "ar",
-    }
-    off = [name for name, on in later.items() if on]
-    if off:
-        raise NotImplementedError(
-            f"{', '.join(off)}: not in the training slice of the port; these "
-            "come with later slices (ROADMAP.md queue 1)")
-    N.check_ported(cfg)
 
 
 def make_optimizers(cfg: ModelConfig, args):
@@ -296,12 +285,8 @@ def ae_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
 
 def sp_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
     """unast_tpu/train/steps.py::sp_loss_fn, the supervised objective with
-    SpecAugment on the ASR input. ctc_weight > 0 raises (the CTC head
-    comes with a later slice)."""
-    if cfg.ctc_weight > 0:
-        raise NotImplementedError(
-            "ctc_weight > 0 needs the CTC head (models/ctc.py), which comes "
-            "with a later slice of the port")
+    SpecAugment on the ASR input; with cfg.ctc_weight > 0 the hybrid
+    CTC/attention loss on the speech encoder's output (aux 'ctc_sp')."""
     text, mel, text_len, mel_len, gold_stop = _gold(batch)
     ctx = _obj_ctx(gen, args)
     ga_on, ga_w, ga_sigma = _ga_cfg(cfg, args)
@@ -339,8 +324,18 @@ def sp_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
         ga = ga_w * (_ga_loss(tts_ws, s_q, text_len, ga_sigma)
                      + _ga_loss(asr_ws, text_len, mel_len, ga_sigma))
         aux["ga_sp"] = ga
+    ctc = 0.0
+    if cfg.ctc_weight > 0:
+        # hybrid CTC/attention: the CTC loss on the speech-encoder output
+        # over the gold transcript; the re-encode's BN state is discarded
+        # (U.asr threaded it once), as in JAX
+        (mem, pad), _ = N.speech_encode(
+            params["speech_m"], st["speech_m"], ctx, cfg, mel_aug, mel_len)
+        ctc_logits = nn.linear(params["speech_m"]["ctc_head"], mem).float()
+        ctc = cfg.ctc_weight * CT.ctc_loss(ctc_logits, pad, text, text_len)
+        aux["ctc_sp"] = ctc
     aux.update(tts=tts_l, asr=asr_l)
-    return (tts_l + asr_l + d_loss + ga) * scale, (aux, st)
+    return (tts_l + asr_l + d_loss + ga + ctc) * scale, (aux, st)
 
 
 def cm_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
@@ -433,8 +428,9 @@ def make_train_step(cfg: ModelConfig, args):
     `gen` is a torch.Generator there. Metrics carry JAX's names
     ('ae/t_ae', ..., 'grad_norm', 'd/d'), each the mean over the
     micro-batches; 'param_sum' with args.param_sum_metric. Raises
-    NotImplementedError on options of later slices (check_train_args)."""
-    check_train_args(cfg, args)
+    NotImplementedError, before any step runs, on model options of later
+    slices (networks.check_ported)."""
+    N.check_ported(cfg)
     gen_tx, disc_tx = make_optimizers(cfg, args)
     scale = 1.0 / (args.ae_steps + args.cm_steps + args.sp_steps)
 
