@@ -112,12 +112,33 @@ Phases (each that fails exits non-zero; nothing is caught):
      Synthesizer(ctc_pv=) under every option; 1e-4, ids equal, the CPU's
      greedy margins above 1e-3); scripts/ctc_check.py's gate on the port
      (greedy PER < 0.05 after 1200 steps);
-  15. one `{"kernels": [...]}` line (both routes, with their launches on
+  15. FastSpeech at flagship width (phases 15-16 print their seconds as
+     they end): a student from seed 0 (duration bias raised by 2)
+     distilled from phase 4's AR model on phase 13's shard at B4 x 816 /
+     304, one step per duration source (argmax twice, soft, mas, uniform,
+     and ctc from a fresh ctc_weight 0.3 teacher), each with its seconds
+     and its flash launches and backward calls as the code implies, the
+     peak memory; Synthesizer(nar_pv=) serving 8 TTS (one text encoder
+     and one frame decoder: 8 launches); TINY f32 card against CPU (the
+     forward with the pitch and energy adaptors, every duration source,
+     one distill step, the Synthesizer's mels);
+  16. the neural vocoders at base 256 (rates 5/5/11, hop 275): 3 STFT-loss
+     steps each of MelGAN and HiFi-GAN at B8 x 40-frame crops of phase
+     13's shards (crop_batch through MelWavCrops), one adversarial step
+     (msd+mpd); Synthesizer(nar_pv=, melgan_params=, pcm16=True) serving
+     8 TTS (8 launches); melgan_chunk=256 against the whole vocode (1e-5
+     in float32, one PCM16 step); stream_tts's first chunk against the
+     whole utterance; TINY card against CPU (both generators, both
+     discriminators and mr_stft_loss in f32; a vocoder and an adversarial
+     step in f64, and their f32 losses; StreamingCtcAsr equal to the
+     one-shot greedy decode);
+  17. one `{"kernels": [...]}` line (both routes, with their launches on
      the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
-     beam, CTC train and hybrid paths), a `{"backward": ...}`, a
-     `{"train": ...}`, a `{"loop": ...}`, an `{"rnn_serve": ...}`, an
-     `{"rnn_train": ...}`, a `{"vocoder": ...}`, a `{"data": ...}`, a
-     `{"ctc": ...}` and a `{"serve": ...}` line, and last `{"ok": true,
+     beam, CTC train, hybrid, NAR serve, distill and NAR + MelGAN serve
+     paths), a `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`,
+     an `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder":
+     ...}`, a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a
+     `{"melgan": ...}` and a `{"serve": ...}` line, and last `{"ok": true,
      "device": ...}`.
 """
 
@@ -268,6 +289,20 @@ CTC_GATE_ARGV = [
     "--sched_type", "multistep", "--lr", "1e-3", "--optim_type", "adamw",
     "--compute_dtype", "bfloat16"]
 CTC_GATE_STEPS = 1200
+# phases 15-16: the one-pass families on the card. The student's duration
+# bias is raised as tests/test_fastspeech.py raises it, so its
+# free-running lengths run to hundreds of frames; the distill steps take
+# every duration source, two argmax steps first; the vocoders train on
+# crops of phase 13's shards.
+NAR_DUR_BIAS = 2.0
+NAR_SOURCES = ("argmax", "soft", "mas", "uniform", "ctc")
+NAR_STEP_SOURCES = ("argmax",) + NAR_SOURCES
+VOC_BASE = 256
+VOC_STEPS = 3
+VOC_BATCH = 8
+VOC_FRAMES = 40
+MELGAN_CHUNK = 256
+STREAM_CHUNK = 32
 # the train step's record_function ranges (unast_tpu_torch/train/steps.py)
 TRAIN_PARTS = ("unast/train/ae", "unast/train/cm", "unast/train/sp",
                "unast/train/gen_update", "unast/train/d", "unast/backward",
@@ -650,33 +685,58 @@ def train_batches(rng, args, cfg, b, text_len, mel_len, device):
     return out
 
 
-def compare_train_steps(old, a, b, lr):
-    """Largest differences between two results (new TrainState, metrics) of
-    one step from the same params `old`: metrics (relative), BN state,
-    Adam's first moments (relative to 1e-4 |b| + 1e-5 of the tree's
-    largest) and the normalised update (new - old) / lr where b's first
-    moment is above 1e-7."""
+def compare_train_steps(lr, pairs, metrics, state=None):
+    """Largest differences between two results of one step from the same
+    params, b the reference. `pairs` maps a name to (new params a, new
+    params b, optimizer state a, optimizer state b), each state with Adam's
+    first moment `mu` on its params' tree; `metrics` is (metrics a, metrics
+    b) and `state` (net state a, net state b). Gives the metrics (relative),
+    the net state (absolute), per name the first moments relative to
+    1e-4 |b| + 1e-5 of b's largest (<name>_mu_scaled), and over every pair
+    the normalised update (a - b) / lr where b's first moment is above
+    1e-7 (update_abs) and anywhere (update_abs_all: a first Adam step
+    moves an element by about lr, so a sign that rounding decides costs 2
+    at most)."""
     from unast_tpu_torch.train.optim import tree_paths as flat
-    (ta, ma), (tb, mb) = a, b
+    ma, mb = metrics
     out = {"metrics_rel": max(abs(float(ma[k]) - float(mb[k])) / abs(float(mb[k]))
-                              for k in mb),
-           "state_abs": max(float((x.cpu() - flat(tb.net_state)[k].cpu()).abs().max())
-                            for k, x in flat(ta.net_state).items())}
-    mu = {}
-    for name, oa, ob in (("gen", ta.gen_opt, tb.gen_opt), ("disc", ta.disc_opt, tb.disc_opt)):
-        fa, fb = flat(oa.mu), flat(ob.mu)
-        top = max(float(x.abs().max()) for x in fb.values())
-        out[f"{name}_mu_scaled"] = max(float(((fa[k].cpu() - x.cpu()).abs()
-                                              / (1e-4 * x.cpu().abs() + 1e-5 * top)).max())
-                                       for k, x in fb.items())
-        prefix = "" if name == "gen" else "discriminator/"
-        mu.update({prefix + k: x.cpu() for k, x in fb.items()})
-    fo, fa, fb = flat(old), flat(ta.params), flat(tb.params)
-    out["update_abs"] = max(
-        float(torch.where(mu[k].abs() > 1e-7,
-                          (fa[k].cpu() - fb[k].cpu()) / lr, 0.0).abs().max())
-        for k in fo)
+                              for k in mb)}
+    if state is not None:
+        fb = flat(state[1])
+        out["state_abs"] = max((_max_abs(x, fb[k]) for k, x in flat(state[0]).items()),
+                               default=0.0)
+    big = loose = 0.0
+    for name, (pa, pb, oa, ob) in pairs.items():
+        fa, fb, mua, mub = flat(pa), flat(pb), flat(oa.mu), flat(ob.mu)
+        mub = {k: x.detach().cpu() for k, x in mub.items()}
+        top = max(float(x.abs().max()) for x in mub.values())
+        out[f"{name}_mu_scaled"] = max(
+            float(((mua[k].detach().cpu() - x).abs() / (1e-4 * x.abs() + 1e-5 * top)).max())
+            for k, x in mub.items())
+        for k, m in mub.items():
+            d = (fa[k].detach().cpu().double() - fb[k].detach().cpu().double()) / lr
+            sel = m.abs() > 1e-7
+            if bool(sel.any()):
+                big = max(big, float(d[sel].abs().max()))
+            loose = max(loose, float(d.abs().max()))
+    out["update_abs"], out["update_abs_all"] = big, loose
     return out
+
+
+def joint_step_comparison(a, b):
+    """compare_train_steps's pairs, metrics and state for two (TrainState,
+    metrics) results of the joint step: the generator's partition and the
+    discriminator's, each with its own optimizer."""
+    (ta, ma), (tb, mb) = a, b
+    gen = lambda p: {k: v for k, v in p.items() if k != "discriminator"}
+    return {"pairs": {"gen": (gen(ta.params), gen(tb.params), ta.gen_opt, tb.gen_opt),
+                      "disc": (ta.params["discriminator"], tb.params["discriminator"],
+                               ta.disc_opt, tb.disc_opt)},
+            "metrics": (ma, mb), "state": (ta.net_state, tb.net_state)}
+
+
+def _max_abs(a, b):
+    return float((a.detach().float().cpu() - b.detach().float().cpu()).abs().max())
 
 
 def hgmma_count(lib):
@@ -1160,7 +1220,7 @@ def rnn_train(fa):
                            {k: tuple(x.cuda() for x in v) for k, v in tb.items()})
         torch.cuda.synchronize()
     tiny = {"flash_launches": fa.launches,
-            **compare_train_steps(tp0, on_gpu, on_cpu, targs.lr)}
+            **compare_train_steps(targs.lr, **joint_step_comparison(on_gpu, on_cpu))}
     # as phase 8: metrics 1e-4 relative, BN state 1e-5, first moments within
     # 1e-4 relative + 1e-5 of the largest, normalised updates 1e-3
     tiny["ok"] = (tiny["metrics_rel"] <= 1e-4 and tiny["state_abs"] <= 1e-5
@@ -1691,6 +1751,448 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
     }
 
 
+def nar_tiny_checks(fa):
+    """Phase 15's TINY float32 checks, card against CPU (flash on, so the
+    float32 kernel on the card): a FastSpeech student with the pitch and
+    energy adaptors (duration bias raised by NAR_DUR_BIAS): the forward
+    with teacher durations and targets and free-running (speed, pitch
+    shift, energy scale) within 1e-4, lengths equal; every duration source
+    over a TINY teacher with ctc_weight 0.3 equal; one argmax distill step
+    with every dropout at 0 (phase 8's tolerances); Synthesizer(nar_pv=)'s
+    mels within 1e-4."""
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import TINY, fastspeech as FS, unast_init
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.train import fastspeech as TF
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.steps import ZERO_DROPOUTS, zero_fixed_dropouts
+    cfg = TINY.replace(attn_impl="flash", nar_pitch=True, nar_energy=True)
+    p, s = FS.fastspeech_init(torch.Generator().manual_seed(0), cfg)
+    p["dur"]["fc"]["b"] += NAR_DUR_BIAS
+    pg, sg = tree_to(p, "cuda"), tree_to(s, "cuda")
+    rng = np.random.default_rng(15)
+    tl = torch.tensor([8, 5])
+    text = torch.from_numpy(rng.integers(3, 46, size=(2, 8))) * (torch.arange(8) < tl[:, None])
+    dur = torch.from_numpy(rng.integers(0, 5, size=(2, 8))) * (torch.arange(8) < tl[:, None])
+    f0 = torch.from_numpy(rng.uniform(5.0, 6.0, size=(2, 8)).astype(np.float32))
+    en = torch.from_numpy(rng.uniform(0.2, 0.5, size=(2, 8)).astype(np.float32))
+    ectx = nn.Ctx.eval()
+    reset_launch_counts(fa)
+    out = {}
+    for name, kw in (("teacher", dict(durations=dur, pitch_target=f0, energy_target=en,
+                                      max_len=32)),
+                     ("free", dict(max_len=64, speed=1.25, pitch_shift=1.2,
+                                   energy_scale=0.9))):
+        (a, b_, c_, d_), _ = FS.fastspeech_forward(p, s, ectx, cfg, text, tl, **kw)
+        on = {k: v.to("cuda") if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        (ag, bg, cg, dg), _ = FS.fastspeech_forward(pg, sg, ectx, cfg, text.to("cuda"),
+                                                     tl.to("cuda"), **on)
+        out[name] = {"pre": _max_abs(ag, a), "post": _max_abs(bg, b_),
+                     "log_dur": _max_abs(dg, d_),
+                     "lens_equal": bool(torch.equal(cg.cpu(), c_))}
+    forward_launches = fa.launches_f32
+
+    tcfg = TINY.replace(attn_impl="flash", ctc_weight=0.3)
+    tp, ts = unast_init(torch.Generator().manual_seed(0), tcfg)
+    ml = torch.tensor([20, 13])
+    batch = {"text": text, "text_len": tl, "mel_len": ml,
+             "mel": torch.from_numpy(rng.uniform(size=(2, 20, 80)).astype(np.float32))
+             * (torch.arange(20) < ml[:, None])[..., None],
+             "f0": torch.from_numpy(rng.uniform(80, 300, size=(2, 20)).astype(np.float32))
+             * (torch.arange(20) < ml[:, None])}
+    gbatch = {k: v.to("cuda") for k, v in batch.items()}
+    tpg, tsg = tree_to(tp, "cuda"), tree_to(ts, "cuda")
+    sources = {}
+    with torch.no_grad():
+        for source in NAR_SOURCES:
+            args = train_args(CONFIG, nar_dur_source=source)
+            a = TF.teacher_durations(source, tp, ts, tcfg, args, batch)
+            b_ = TF.teacher_durations(source, tpg, tsg, tcfg, args, gbatch)
+            sources[source] = bool(torch.equal(a, b_.cpu()))
+    out["durations_equal"] = sources
+
+    scfg = cfg.replace(**ZERO_DROPOUTS)
+    args = train_args(CONFIG, nar_dur_source="argmax", sched_type="none", lr=1e-3)
+    step = TF.make_distill_step(scfg, tcfg, args)
+    tx = TF.make_optimizer(args, TF.make_schedule(args))
+    with zero_fixed_dropouts():
+        on_cpu, m_cpu = step(TF.FSTrainState(p, s, tx.init(p), 0), tp, ts,
+                             torch.Generator().manual_seed(0), batch)
+        reset_launch_counts(fa)
+        bwd0 = fa.backward_calls
+        on_gpu, m_gpu = step(TF.FSTrainState(pg, sg, tx.init(pg), 0), tpg, tsg,
+                             torch.Generator(device="cuda").manual_seed(0), gbatch)
+        torch.cuda.synchronize()
+    out["step"] = {
+        "launches_f32": fa.launches_f32, "backward_calls": fa.backward_calls - bwd0,
+        "expected": list(TF.flash_calls_per_distill_step(scfg, tcfg, args)),
+        **compare_train_steps(
+            args.lr, {"student": (on_gpu.params, on_cpu.params, on_gpu.opt, on_cpu.opt)},
+            (m_gpu, m_cpu), (on_gpu.net_state, on_cpu.net_state))}
+
+    kw = dict(text_buckets=(8, 16), mel_buckets=(24,), max_batch=2)
+    syn_cfg = cfg.replace(ctc_weight=0.3)
+    mels = [Synthesizer(tp, ts, syn_cfg, nar_pv=(p, s), device=d, **kw).tts_mels(SENTENCES[:3])
+            for d in ("cpu", "cuda")]
+    out["synth_mels"] = max(float(np.abs(a - b_).max()) for a, b_ in zip(*mels))
+    out["synth_lens_equal"] = [len(a) for a in mels[0]] == [len(b_) for b_ in mels[1]]
+    out["forward_launches_f32"] = forward_launches
+    st = out["step"]
+    out["ok"] = (all(max(v["pre"], v["post"], v["log_dur"]) <= 1e-4 and v["lens_equal"]
+                     for v in (out["teacher"], out["free"]))
+                 and all(sources.values()) and forward_launches > 0
+                 and st["metrics_rel"] <= 1e-4 and st["state_abs"] <= 1e-5
+                 and st["student_mu_scaled"] <= 1 and st["update_abs"] <= 1e-3
+                 and st["update_abs_all"] <= 2 + 1e-3
+                 and [st["launches_f32"], st["backward_calls"]] == st["expected"]
+                 and out["synth_mels"] <= 1e-4 and out["synth_lens_equal"])
+    assert out["ok"], out
+    return out
+
+
+def fastspeech_phase(fa, flag_params, flag_state, flag_cfg, root):
+    """Phase 15: FastSpeech at flagship width (configs/
+    transformer_d_curriculum_fast.json, bf16, attn_impl='flash'). The
+    student from seed 0 with its duration bias raised by NAR_DUR_BIAS (so
+    the free-running lengths run to hundreds of frames), the teacher phase
+    4's AR weights (for 'ctc' a fresh init with ctc_weight 0.3, whose CTC
+    head it needs). Distillation on batches of phase 13's shard (B4 at
+    816 frames / 304 tokens, the config's adamw): NAR_STEP_SOURCES, one
+    step each, the first two argmax steps timed apart; each with its
+    seconds and its flash launches and backward calls against
+    train/fastspeech.py::flash_calls_per_distill_step (counts set to 0
+    just before, read just after), losses and params finite, the peak
+    memory. Then Synthesizer(nar_pv=) on the distilled student serves the
+    8 SENTENCES (tts through Griffin-Lim, then tts_mels), with its batch
+    latency and launches (one text encoder and one frame decoder); and
+    nar_tiny_checks. Returns (record, student (params, state))."""
+    from unast_tpu_torch.data.batching import BatchIterator
+    from unast_tpu_torch.data.shard import PackedShardDataset
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import fastspeech as FS, unast_init
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.train import fastspeech as TF
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.optim import tree_paths
+    from unast_tpu_torch.train.steps import seeded_generator
+    t_phase = time.perf_counter()
+    cfg = flag_cfg
+    args = train_args(CONFIG)
+    p, s = FS.fastspeech_init(torch.Generator().manual_seed(0), cfg)
+    p["dur"]["fc"]["b"] += NAR_DUR_BIAS
+    p, s = tree_to(p, "cuda"), tree_to(s, "cuda")
+    tx = TF.make_optimizer(args, TF.make_schedule(args))
+    fs = TF.FSTrainState(p, s, tx.init(p), 0)
+    ctc_cfg = cfg.replace(ctc_weight=0.3)
+    ctc_teacher = tree_to(unast_init(torch.Generator().manual_seed(0), ctc_cfg), "cuda")
+    teacher = tree_to((flag_params, flag_state), "cuda")
+    it = BatchIterator(PackedShardDataset(os.path.join(root, "device.unsh")),
+                       args.train_batch_size, args.data_text_len, args.data_mel_len,
+                       seed=args.seed + 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, source in enumerate(NAR_STEP_SOURCES):
+        sargs = train_args(CONFIG, nar_dur_source=source)
+        tcfg, (tp, ts) = ((ctc_cfg, ctc_teacher) if source == "ctc"
+                          else (cfg, teacher))
+        step = TF.make_distill_step(cfg, tcfg, sargs)
+        batch = TF.batch_to(it.next_batch(), "cuda")
+        reset_launch_counts(fa)
+        bwd0 = fa.backward_calls
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fs, m = step(fs, tp, ts, seeded_generator(2, i, "cuda"), batch)
+        torch.cuda.synchronize()
+        rec = {"source": source, "s": time.perf_counter() - t,
+               "metrics": {k: float(v) for k, v in m.items()},
+               "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
+               "backward_calls": fa.backward_calls - bwd0,
+               "expected": list(TF.flash_calls_per_distill_step(cfg, tcfg, sargs)),
+               "mel_lens": batch["mel_len"].tolist(), "text_lens": batch["text_len"].tolist()}
+        steps.append(rec)
+        assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
+        assert [rec["launches_bf16"], rec["backward_calls"]] == rec["expected"], rec
+        assert rec["launches_f32"] == 0, rec
+    train_peak = torch.cuda.max_memory_allocated()
+    nonfinite = [k for k, x in tree_paths(fs.params).items()
+                 if not bool(torch.isfinite(x).all())]
+    assert not nonfinite and fs.step == len(NAR_STEP_SOURCES), nonfinite
+
+    student = (fs.params, fs.net_state)
+    syn = Synthesizer(flag_params, flag_state, cfg, nar_pv=student, device="cuda")
+    syn.tts(SENTENCES[:1])
+    reset_launch_counts(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    wavs = syn.tts(SENTENCES)
+    torch.cuda.synchronize()
+    tts_s = time.perf_counter() - t
+    launches = [fa.launches_bf16, fa.launches_f32]
+    serve_peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    mels = syn.tts_mels(SENTENCES)
+    torch.cuda.synchronize()
+    mels_s = time.perf_counter() - t
+    for w in wavs:
+        assert w.ndim == 1 and len(w) > 0 and np.isfinite(w).all(), w.shape
+    assert all(np.isfinite(m).all() for m in mels)
+    assert min(len(m) for m in mels) >= 100, [len(m) for m in mels]
+    assert launches == [2 * cfg.num_layers, 0], launches
+    tiny = nar_tiny_checks(fa)
+    return {
+        "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,
+        "compute_dtype": cfg.compute_dtype, "dur_bias": NAR_DUR_BIAS,
+        "distill": {"batch": args.train_batch_size, "mel_len": args.data_mel_len,
+                    "text_len": args.data_text_len, "optim_type": args.optim_type,
+                    "steps": steps, "max_memory_allocated_bytes": train_peak},
+        "serve": {"requests": len(SENTENCES), "tts_batch_s": tts_s,
+                  "tts_utt_per_s": len(SENTENCES) / tts_s, "tts_mels_s": mels_s,
+                  "mel_frames": [len(m) for m in mels],
+                  "flash_launches_bf16": launches[0], "flash_launches_f32": launches[1],
+                  "max_memory_allocated_bytes": serve_peak},
+        "tiny_gpu_vs_cpu": tiny, "phase_s": time.perf_counter() - t_phase,
+    }, student
+
+
+def melgan_tiny_checks(fa):
+    """Phase 16's TINY checks, card against CPU: the MelGAN and HiFi-GAN
+    forwards at base 32 and the msd+mpd discriminators within 1e-4 of the
+    largest magnitude and mr_stft_loss within 1e-4 relative, in float32;
+    one vocoder step and one adversarial step (msd+mpd) from the same
+    weights in float64, through compare_train_steps: metrics (grad_norm
+    among them) within 1e-4 relative, first moments scaled <= 1, the
+    normalised update within 1e-3 where the CPU's first moment is above
+    1e-7 and 2 + 1e-3 anywhere; the same steps in float32: losses within
+    1e-4 relative. The float32 grad_norm is kept beside its float64 value
+    as a witness, not held: the log-magnitude term weighs a bin by 1/|X|,
+    so the few near-zero bins of a random generator's output dominate the
+    norm, and each float32 FFT's rounding moves it by parts in a thousand
+    (on the CPU, too, against float64). StreamingCtcAsr on the card fed one
+    chunk a step equal to the one-shot greedy decode of the same
+    chunk-masked model."""
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.infer.streaming import StreamingCtcAsr
+    from unast_tpu_torch.models import TINY, ctc as C, melgan as MG
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.train import melgan as TM
+    from unast_tpu_torch.train.config import parse_with_config
+    rng = np.random.default_rng(16)
+    mel = torch.from_numpy(rng.uniform(size=(2, 8, 80)).astype(np.float32))
+    n = np.arange(8 * 275)
+    wav = torch.from_numpy((0.5 * np.sin(2 * np.pi * np.array([[220.0], [330.0]]) * n / 22050)
+                            + 0.05 * rng.normal(size=(2, n.size))).astype(np.float32))
+    out = {"forward": {}}
+    gens = {}
+    for kind in ("melgan", "hifigan"):
+        gens[kind] = MG.generator_init(torch.Generator().manual_seed(0), kind, base=32)
+        a = MG.generator_forward(gens[kind], mel)
+        b = MG.generator_forward(tree_to(gens[kind], "cuda"), mel.to("cuda"))
+        out["forward"][kind] = _max_abs(b, a) / max(float(a.abs().max()), 1e-6)
+    disc = MG.adv_disc_init(torch.Generator().manual_seed(1), "msd+mpd")
+    disc_g = tree_to(disc, "cuda")
+    worst = 0.0
+    for (fa_, la), (fb, lb) in zip(MG.adv_disc_forward(disc, wav[:1, :1000]),
+                                   MG.adv_disc_forward(disc_g, wav[:1, :1000].to("cuda"))):
+        for x, y in list(zip(fa_, fb)) + [(la, lb)]:
+            worst = max(worst, _max_abs(y, x) / max(float(x.abs().max()), 1e-6))
+    out["forward"]["disc"] = worst
+    pred = MG.generator_forward(gens["melgan"], mel)
+    la, _ = TM.mr_stft_loss(pred, wav)
+    lb, _ = TM.mr_stft_loss(pred.to("cuda"), wav.to("cuda"))
+    out["mr_stft_rel"] = abs(float(lb) - float(la)) / abs(float(la))
+    args = parse_with_config(["--lr", "1e-3", "--melgan_disc", "msd+mpd"])
+    tx = TM._voc_tx(args)
+    voc, adv = TM.make_vocoder_step(args), TM.make_adversarial_step(args)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        for dtype in (torch.float32, torch.float64):
+            g = tree_to(tree_to(gens["melgan"], dtype), device)
+            d = tree_to(tree_to(disc, dtype), device)
+            m, w = mel.to(device, dtype), wav.to(device, dtype)
+            runs[device, dtype] = (voc(TM.VocTrainState(g, tx.init(g), 0), m, w),
+                                   adv(TM.AdvTrainState(g, tx.init(g), d, tx.init(d), 0), m, w))
+    (nc, mc), (ac, mac) = runs["cpu", torch.float64]
+    (ng, mg), (ag, mag) = runs["cuda", torch.float64]
+    out["voc_step"] = compare_train_steps(
+        args.lr, {"gen": (ng.params, nc.params, ng.opt, nc.opt)}, (mg, mc))
+    out["adv_step"] = compare_train_steps(
+        args.lr, {"gen": (ag.gen, ac.gen, ag.gen_opt, ac.gen_opt),
+                  "disc": (ag.disc, ac.disc, ag.disc_opt, ac.disc_opt)}, (mag, mac))
+    rel = lambda a, b, k: abs(float(a[k]) - float(b[k])) / abs(float(b[k]))
+    f32 = {dev: (runs[dev, torch.float32][0][1], runs[dev, torch.float32][1][1])
+           for dev in ("cpu", "cuda")}
+    out["f32_losses_rel"] = max(rel(f32["cuda"][i], f32["cpu"][i], k)
+                                for i in (0, 1) for k in f32["cpu"][i] if k != "grad_norm")
+    out["f32_grad_norm"] = {"card_vs_cpu_rel": rel(f32["cuda"][0], f32["cpu"][0], "grad_norm"),
+                            **{f"{dev}_vs_f64_rel": rel(f32[dev][0], mc, "grad_norm")
+                               for dev in ("cpu", "cuda")}}
+    ccfg = TINY.replace(ctc_chunk=4, ctc_left=1)
+    cp, cs = C.ctc_asr_init(torch.Generator().manual_seed(0), ccfg)
+    cmel = torch.from_numpy(rng.uniform(size=(2, 20, 80)).astype(np.float32))
+    clen = np.array([20, 13])
+    cmel *= torch.from_numpy(np.arange(20) < clen[:, None])[..., None]
+    (ids, lens), _ = C.ctc_asr_infer(cp, cs, nn.Ctx.eval(), ccfg, cmel,
+                                     torch.from_numpy(clen))
+    asr = StreamingCtcAsr(tree_to(cp, "cuda"), ccfg).reset(batch_size=2)
+    for t0 in range(0, 20, 4):
+        asr.step(cmel[:, t0:t0 + 4].numpy(), n_valid=np.clip(clen - t0, 0, 4))
+    out["stream_asr_equal"] = all(asr.emitted[i] == ids[i, :int(lens[i])].tolist()
+                                  for i in range(2))
+    out["ok"] = (all(x <= 1e-4 for x in out["forward"].values()) and out["mr_stft_rel"] <= 1e-4
+                 and out["f32_losses_rel"] <= 1e-4
+                 and all(c["metrics_rel"] <= 1e-4 and c["update_abs"] <= 1e-3
+                         and c["update_abs_all"] <= 2 + 1e-3
+                         and all(v <= 1 for k, v in c.items() if k.endswith("_mu_scaled"))
+                         for c in (out["voc_step"], out["adv_step"]))
+                 and out["stream_asr_equal"])
+    assert out["ok"], out
+    return out
+
+
+def melgan_phase(fa, flag_params, flag_state, flag_cfg, student, root):
+    """Phase 16: the neural vocoders at their published width (base 256,
+    rates 5/5/11, hop 275). Training: VOC_STEPS STFT-loss steps each of
+    MelGAN and HiFi-GAN (train/melgan.py, adamw lr 2e-4 behind the clip)
+    at B8 x 40-frame crops drawn by crop_batch through MelWavCrops from
+    phase 13's mel and wav shards, then one adversarial step (msd+mpd) on
+    the MelGAN generator; each step's seconds and the peak memory.
+    Serving: Synthesizer(nar_pv=phase 15's student, melgan_params=,
+    pcm16=True) on phase 4's flagship serving the 8 SENTENCES (batch
+    latency, launches: one text encoder and one frame decoder); the
+    chunked vocode (melgan_chunk=256) against the whole on the same float32
+    mels within 1e-5 (cuDNN may pick other algorithms per window shape)
+    and PCM16 within one step, each timed also in bf16; stream_tts's time
+    to its first chunk (after one untimed stream of the same text) against
+    the whole utterance's; melgan_tiny_checks."""
+    from unast_tpu_torch.data.shard import MelWavCrops, PackedShardDataset, WavShardDataset
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.infer.streaming import stream_tts
+    from unast_tpu_torch.models import melgan as MG
+    from unast_tpu_torch.text import raw_text_to_phoneme_ids
+    from unast_tpu_torch.train import melgan as TM
+    from unast_tpu_torch.train.config import parse_with_config
+    from unast_tpu_torch.train.optim import tree_paths
+    t_phase = time.perf_counter()
+    crops = MelWavCrops(PackedShardDataset(os.path.join(root, "device.unsh")),
+                        WavShardDataset(os.path.join(root, "device.unwv")))
+    rng = np.random.default_rng(16)
+
+    def batch():
+        mel, wav = TM.crop_batch(crops, rng, VOC_BATCH, VOC_FRAMES, 275)
+        return torch.from_numpy(mel).to("cuda"), torch.from_numpy(wav).to("cuda")
+
+    train, gens = {}, {}
+    for kind in ("melgan", "hifigan"):
+        args = parse_with_config(["--melgan_gen", kind, "--melgan_base", str(VOC_BASE),
+                                  "--lr", "2e-4", "--melgan_disc", "msd+mpd"])
+        vs = TM.init_voc_state(torch.Generator().manual_seed(0), args, device="cuda")
+        step = TM.make_vocoder_step(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"params": MG.num_params(vs.params), "step_s": [], "metrics": []}
+        for _ in range(VOC_STEPS):
+            mel, wav = batch()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vs, m = step(vs, mel, wav)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t)
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        assert all(np.isfinite(list(m.values())).all() for m in rec["metrics"]), rec
+        assert all(bool(torch.isfinite(x).all()) for x in tree_paths(vs.params).values())
+        train[kind], gens[kind] = rec, vs
+    args = parse_with_config(["--melgan_base", str(VOC_BASE), "--lr", "2e-4",
+                              "--melgan_disc", "msd+mpd"])
+    ats = TM.init_adv_state(torch.Generator().manual_seed(1), gens["melgan"], args)
+    mel, wav = batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ats, m = TM.make_adversarial_step(args)(ats, mel, wav)
+    torch.cuda.synchronize()
+    train["adversarial"] = {"disc": "msd+mpd", "disc_params": MG.num_params(ats.disc),
+                            "s": time.perf_counter() - t,
+                            "metrics": {k: float(v) for k, v in m.items()},
+                            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    assert all(np.isfinite(v) for v in train["adversarial"]["metrics"].values()), train
+    gp = gens["melgan"].params
+
+    syn = Synthesizer(flag_params, flag_state, flag_cfg, nar_pv=student,
+                      melgan_params=gp, pcm16=True, device="cuda")
+    syn.tts(SENTENCES[:1])
+    reset_launch_counts(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    wavs = syn.tts(SENTENCES)
+    torch.cuda.synchronize()
+    tts_s = time.perf_counter() - t
+    launches = [fa.launches_bf16, fa.launches_f32]
+    serve_peak = torch.cuda.max_memory_allocated()
+    for w in wavs:
+        assert w.dtype == np.int16 and w.ndim == 1 and len(w) > 0, (w.dtype, w.shape)
+    assert launches == [2 * flag_cfg.num_layers, 0], launches
+
+    post, lens, _ = syn._tts_chunk_seqs([np.asarray(raw_text_to_phoneme_ids(x), np.int64)
+                                         for x in SENTENCES])
+    tb = syn._bucket(syn.mel_buckets, int(lens.max()))
+    chunking = {"rows": post.shape[0], "frames": tb, "chunk": MELGAN_CHUNK}
+    with torch.inference_mode():
+        for dtype in (torch.float32, flag_cfg.dtype):
+            mel_b = post[:, :tb].to(dtype)
+            for pcm16 in (False, True):
+                res = {}
+                for chunk in (0, MELGAN_CHUNK):
+                    syn.melgan_chunk, syn.pcm16 = chunk, pcm16
+                    syn._melgan_vocode(mel_b)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    res[chunk] = syn._melgan_vocode(mel_b)
+                    torch.cuda.synchronize()
+                    chunking[f"{str(dtype)[6:]}_pcm16_{int(pcm16)}_chunk_{chunk}_s"] = (
+                        time.perf_counter() - t)
+                if dtype == torch.float32:
+                    err = _max_abs(res[MELGAN_CHUNK], res[0])
+                    chunking[f"max_abs_err_pcm16_{int(pcm16)}"] = err
+                    assert err <= (1.0 if pcm16 else 1e-5), chunking
+    syn.melgan_chunk, syn.pcm16 = None, True
+
+    text = SENTENCES[0]
+    for _ in stream_tts(syn, text, chunk=STREAM_CHUNK):   # cuDNN's window shapes
+        pass
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chunks = stream_tts(syn, text, chunk=STREAM_CHUNK)
+    first = next(chunks)
+    first_s = time.perf_counter() - t
+    rest = list(chunks)
+    all_s = time.perf_counter() - t
+    t = time.perf_counter()
+    whole = syn.tts([text])
+    whole_s = time.perf_counter() - t
+    streamed = np.concatenate([first] + rest)
+    assert np.isfinite(streamed).all() and len(whole[0]) > 0
+    tiny = melgan_tiny_checks(fa)
+    return {
+        "base": VOC_BASE, "rates": [5, 5, 11], "hop": 275, "crop_frames": VOC_FRAMES,
+        "batch": VOC_BATCH, "train": train,
+        "serve": {"requests": len(SENTENCES), "pcm16": True, "tts_batch_s": tts_s,
+                  "tts_utt_per_s": len(SENTENCES) / tts_s,
+                  "wav_samples": [len(w) for w in wavs],
+                  "flash_launches_bf16": launches[0], "flash_launches_f32": launches[1],
+                  "max_memory_allocated_bytes": serve_peak},
+        "chunking": chunking,
+        "stream": {"chunk": STREAM_CHUNK, "first_chunk_s": first_s, "all_chunks_s": all_s,
+                   "chunks": 1 + len(rest), "samples": len(streamed),
+                   "whole_utterance_pcm16_s": whole_s},
+        "tiny_gpu_vs_cpu": tiny, "phase_s": time.perf_counter() - t_phase,
+    }
+
+
 def _timed(fn, seconds):
     """fn, appending each call's synchronised seconds to `seconds`."""
     def run(*a, **kw):
@@ -1918,7 +2420,7 @@ def main() -> int:
     tiny_train_launches_f32 = fa.launches_f32
     tiny_train = {"launches_f32": fa.launches_f32, "launches_bf16": fa.launches_bf16,
                   "backward_calls": fa.backward_calls - before_bwd,
-                  **compare_train_steps(tp0, on_gpu_t, on_cpu_t, targs.lr)}
+                  **compare_train_steps(targs.lr, **joint_step_comparison(on_gpu_t, on_cpu_t))}
     # float32 throughout; tolerances as tests/test_torch_train.py holds the
     # CPU path to the JAX step: metrics 1e-4 relative, BN state 1e-5,
     # first moments within 1e-4 relative + 1e-5 of the largest (scaled <= 1),
@@ -1955,7 +2457,15 @@ def main() -> int:
         phase_ends.append((13, time.perf_counter()))
         ctc_run = ctc_phase(fa, params, state, cfg, data_root)
         print(json.dumps({"phase": 14, "s": ctc_run["phase_s"]}), flush=True)
-    phase_ends.append((14, time.perf_counter()))
+        phase_ends.append((14, time.perf_counter()))
+        # 15.-16. the one-pass families: FastSpeech distilled and served,
+        # then the neural vocoders trained on the shards and served behind it
+        nar_run, student = fastspeech_phase(fa, params, state, cfg, data_root)
+        print(json.dumps({"phase": 15, "s": nar_run["phase_s"]}), flush=True)
+        phase_ends.append((15, time.perf_counter()))
+        melgan_run = melgan_phase(fa, params, state, cfg, student, data_root)
+        print(json.dumps({"phase": 16, "s": melgan_run["phase_s"]}), flush=True)
+    phase_ends.append((16, time.perf_counter()))
     print(json.dumps({"phase_s": {
         f"{a + 1}" if b - a == 1 else f"{a + 1}-{b}": t1 - t0
         for (a, t0), (b, t1) in zip(phase_ends, phase_ends[1:])}}), flush=True)
@@ -2007,6 +2517,27 @@ def main() -> int:
                                   if dtype == "float32" else 0),
             "launches_ctc_tiny_counted_on":
                 "TINY ctc_logits on the card, float32, abs/chunk/rel (phase 14)"}
+        distill = nar_run["distill"]["steps"]
+        nar_tiny = nar_run["tiny_gpu_vs_cpu"]
+        one_pass_counts = {
+            "launches_nar_serve": nar_run["serve"][f"flash_{key}"],
+            "launches_nar_serve_counted_on":
+                "Synthesizer(nar_pv=) tts, 8 TTS, bf16 (phase 15)",
+            "launches_distill": sum(s_[key] for s_ in distill),
+            "bwd_calls_distill": (sum(s_["backward_calls"] for s_ in distill)
+                                  if dtype == "bfloat16" else 0),
+            "launches_distill_counted_on":
+                f"{len(distill)} distill steps ({', '.join(NAR_STEP_SOURCES)}), "
+                "B4 at 816 / 304, bf16 (phase 15)",
+            "launches_nar_melgan_serve": melgan_run["serve"][f"flash_{key}"],
+            "launches_nar_melgan_serve_counted_on":
+                "Synthesizer(nar_pv=, melgan_params=, pcm16=True), 8 TTS, bf16 (phase 16)",
+            "launches_nar_tiny": (nar_tiny["forward_launches_f32"]
+                                  + nar_tiny["step"]["launches_f32"]
+                                  if dtype == "float32" else 0),
+            "launches_nar_tiny_counted_on":
+                "TINY fastspeech_forward (2) and 1 distill step on the card, float32 "
+                "(phase 15)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",
@@ -2022,7 +2553,7 @@ def main() -> int:
                 s_["flash_launches"] for s_ in rnn_train_run["steps"]),
             "launches_rnn_counted_on": "rnn_d serve (8 TTS + 8 ASR) and 2 train steps "
                                        "(phases 10, 11): the RNN calls no attention kernel",
-            **ctc_counts,
+            **ctc_counts, **one_pass_counts,
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -2056,6 +2587,8 @@ def main() -> int:
     print(json.dumps({"vocoder": vocoder_run}))
     print(json.dumps({"data": data_run}))
     print(json.dumps({"ctc": ctc_run}))
+    print(json.dumps({"nar": nar_run}))
+    print(json.dumps({"melgan": melgan_run}))
     n = len(SENTENCES)
     print(json.dumps({"serve": {
         "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,

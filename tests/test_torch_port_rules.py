@@ -60,10 +60,7 @@ def test_synthesizer_without_device_needs_cuda():
         Synthesizer(params, state, TINY)
 
 
-@pytest.mark.parametrize("option", [
-    {"mesh": object()}, {"quantize": "int8"}, {"nar_pv": ({}, {})},
-    {"melgan_params": {}}, {"melgan_chunk": 256},
-    {"pcm16": True}])
+@pytest.mark.parametrize("option", [{"mesh": object()}, {"quantize": "int8"}])
 def test_unported_synthesizer_options_raise(option):
     params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
     with pytest.raises(NotImplementedError, match="slice"):
@@ -75,23 +72,46 @@ def _ctc_pv(cfg=TINY):
     return ctc_asr_init(torch.Generator().manual_seed(1), cfg)
 
 
-@pytest.mark.parametrize("option", ["vocoder_pv", "model_type='rnn'", "ctc_pv"])
+def _ported_option(option, cfg):
+    """The Synthesizer keywords of a ported option, at `cfg`'s widths."""
+    from unast_tpu_torch.models.fastspeech import fastspeech_init
+    from unast_tpu_torch.models.melgan import generator_init
+    gen = torch.Generator().manual_seed(1)
+    if option == "vocoder_pv":
+        return {"vocoder_pv": U.vocoder_init(gen, ModelConfig(hidden=8))}
+    if option == "ctc_pv":
+        return {"ctc_pv": _ctc_pv(cfg)}
+    if option == "nar_pv":
+        p, s = fastspeech_init(gen, cfg)
+        p["dur"]["fc"]["b"] += 2.0   # some frames from the untrained student
+        return {"nar_pv": (p, s)}
+    if option == "melgan_params":
+        return {"melgan_params": generator_init(gen, base=32)}
+    if option == "melgan_chunk":
+        return {"melgan_params": generator_init(gen, base=32), "melgan_chunk": 256}
+    if option == "pcm16":
+        return {"pcm16": True}
+    return {}
+
+
+@pytest.mark.parametrize("option", ["vocoder_pv", "model_type='rnn'", "ctc_pv",
+                                    "nar_pv", "melgan_params", "melgan_chunk",
+                                    "pcm16"])
 def test_ported_synthesizer_options_run(option):
-    """The CBHG vocoder, the RNN backbone and the CTC model, which raised
-    before their slices, serve a request (tests/test_torch_vocoder.py,
-    tests/test_torch_rnn.py and tests/test_torch_ctc.py hold them to
-    JAX)."""
+    """The CBHG vocoder, the RNN backbone, the CTC model, the FastSpeech
+    student, the neural vocoder with and without chunking, and PCM16
+    output, which raised before their slices, serve a request
+    (tests/test_torch_vocoder.py, test_torch_rnn.py, test_torch_ctc.py,
+    test_torch_fastspeech.py and test_torch_melgan.py hold them to JAX)."""
     cfg = TINY.replace(max_mel_len=8, model_type="rnn" if "rnn" in option else
                        "transformer")
     params, state = U.unast_init(torch.Generator().manual_seed(0), cfg)
-    kw = ({"vocoder_pv": U.vocoder_init(torch.Generator().manual_seed(1),
-                                        ModelConfig(hidden=8))}
-          if option == "vocoder_pv" else
-          {"ctc_pv": _ctc_pv(cfg)} if option == "ctc_pv" else {})
     syn = Synthesizer(params, state, cfg, device="cpu", text_buckets=(8,),
-                      mel_buckets=(8,), audio_params=AudioParams(n_iter=1), **kw)
+                      mel_buckets=(8,), audio_params=AudioParams(n_iter=1),
+                      **_ported_option(option, cfg))
     wav, = syn.tts(["ok"])
     assert wav.ndim == 1 and np.isfinite(wav).all()
+    assert wav.dtype == (np.int16 if option == "pcm16" else np.float32)
     ids, = syn.asr_ids([np.zeros((5, 80), np.float32)])
     assert ids.ndim == 1
 
@@ -236,6 +256,18 @@ def test_vocoder_options_run(tmp_path, monkeypatch):
     for loaded, saved in zip(seen["vocoder_pv"], vpv):
         a, b = tree_paths(loaded), tree_paths(saved)
         assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in b)
+
+
+@pytest.mark.parametrize("module", ["fastspeech", "melgan"])
+def test_one_pass_trainers_default_to_cuda(module):
+    """python -m unast_tpu_torch.train.fastspeech and .train.melgan run on
+    --device, 'cuda' by default, and raise on a host without a card."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    main = importlib.import_module(f"unast_tpu_torch.train.{module}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--synthetic", "--synthetic_size", "1"])
 
 
 @pytest.mark.parametrize("text_decode", ["spec", "ctc"])

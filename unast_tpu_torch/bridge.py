@@ -74,3 +74,37 @@ def ctc_from_jax(params, net_state):
     port's float32 torch trees on the CPU, name for name: `prenet`,
     `encoder`, `ctc_head` and, for ctc_pos='rel', `rel_pos` [nhead, S]."""
     return _to_torch(params), _to_torch(net_state)
+
+
+def fastspeech_from_jax(params, net_state):
+    """JAX (params, state) of unast_tpu/models/fastspeech.py::fastspeech_init
+    (or of unast_tpu/train/fastspeech.py's FSTrainState), leaves as numpy
+    arrays -> the port's float32 torch trees on the CPU, name for name:
+    `prenet`, `encoder`, `dur`, `decoder`, `postnet` (its frame-level
+    `mel_proj`, no `stop_proj`) and, with nar_pitch / nar_energy, `pitch`,
+    `pitch_proj`, `energy`, `energy_proj`; the state's prenet and postnet
+    BatchNorm statistics."""
+    return _to_torch(params), _to_torch(net_state)
+
+
+def load_jax_nar_pickle(path: str):
+    """The (params, net_state) of a file that unast_tpu/models/fastspeech.py::
+    save_nar_pickle wrote (a pickle of numpy trees with its format stamp),
+    read with pickle and numpy alone, as the port's torch trees; a stale
+    stamp raises ValueError and an unversioned pair warns, as
+    load_nar_pickle does."""
+    import pickle
+
+    from .models.fastspeech import check_nar_format
+    with open(path, "rb") as f:
+        obj = pickle.load(f)
+    return fastspeech_from_jax(*check_nar_format(obj, path))
+
+
+def melgan_from_jax(params):
+    """JAX params of unast_tpu/models/melgan.py (melgan_init, hifigan_init,
+    discriminator_init, mpd_init or adv_disc_init), leaves as numpy arrays
+    -> the port's float32 torch tree on the CPU, name for name, lists kept
+    as lists: `pre`, `ups`, `res` (MelGAN) or `mrf` (HiFi-GAN), `post`; a
+    discriminator's scales or periods of layers, under `msd` / `mpd`."""
+    return _to_torch(params)

@@ -1,6 +1,6 @@
 """Serving and evaluation of the port (counterpart of unast_tpu/infer):
 the Synthesizer, its HTTP front end, synthesis helpers, evaluation and
-PER."""
+PER, and streaming TTS and ASR."""
 
 from .serve import Synthesizer
 

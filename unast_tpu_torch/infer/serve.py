@@ -4,15 +4,19 @@
     wavs = syn.tts(["hello world", ...])               # list of np wavs
     texts = syn.asr([wav1, wav2])                      # list of strings
 
-Requests are padded into fixed text/mel buckets, decoded greedily
-(models/networks.py: the KV-cached transformer loops or the RNN loops),
-and vocoded with the CBHG vocoder (`vocoder_pv`) or else the mel
-pseudo-inverse lift, then batched Griffin-Lim, all on the device. ASR can
-also run through a CTC model (`ctc_pv`): one-pass greedy, prefix beam
-search over its posteriors (`ctc_beam`), or as the draft of the AR
-decoder's speculative decode (`spec`); `beam` runs the AR beam search.
-The options of the JAX Synthesizer that the port does not have yet raise
-NotImplementedError.
+Requests are padded into fixed text/mel buckets. TTS mels come from the
+AR model's greedy decode (models/networks.py: the KV-cached transformer
+loops or the RNN loops) or, with `nar_pv`, from a distilled FastSpeech
+student in one pass (models/fastspeech.py). Waveforms come from a neural
+vocoder (`melgan_params`: MelGAN or HiFi-GAN, models/melgan.py, over the
+whole bucket or in exact context windows of `melgan_chunk` frames), else
+from the CBHG vocoder's magnitudes (`vocoder_pv`) or the mel
+pseudo-inverse lift through batched Griffin-Lim, all on the device;
+`pcm16` quantises them to int16 there. ASR can also run through a CTC
+model (`ctc_pv`): one-pass greedy, prefix beam search over its posteriors
+(`ctc_beam`), or as the draft of the AR decoder's speculative decode
+(`spec`); `beam` runs the AR beam search. `mesh` and `quantize` come with
+later slices and raise NotImplementedError.
 """
 
 from typing import List, Sequence
@@ -20,11 +24,12 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .. import nn
-from ..audio import dsp, ref_dsp
+from .. import native, nn
+from ..audio import dsp
 from ..audio.params import DEFAULT as AUDIO_DEFAULT
 from ..device import resolve_device
-from ..models import ctc as CT, networks as N, unast as U
+from ..models import ctc as CT, fastspeech as FS, melgan as MG, networks as N
+from ..models import unast as U
 from ..models.config import ModelConfig
 from ..text import raw_text_to_phoneme_ids, sequence_to_text
 from ..text.symbols import symbols
@@ -53,17 +58,22 @@ class Synthesizer:
         the magnitudes then come from it instead of the pseudo-inverse
         lift. ctc_pv: optional (params, state) of a CTC model
         (models/ctc.py, the same cfg; train/ctc.py, bridge.ctc_from_jax):
-        asr_ids then decodes through it. device: None means cuda, and
-        raises when there is no CUDA device; tests pass device='cpu'."""
+        asr_ids then decodes through it. nar_pv: optional (params, state)
+        of a FastSpeech student (models/fastspeech.py, the same cfg;
+        train/fastspeech.py, bridge.fastspeech_from_jax): TTS mels then
+        come from its one pass (the AR trees still serve ASR).
+        melgan_params: optional MelGAN or HiFi-GAN generator params
+        (models/melgan.py; train/melgan.py, bridge.melgan_from_jax): it
+        then vocodes, ahead of vocoder_pv and the lift. melgan_chunk: the
+        generator runs over exact context windows of this many frames
+        (None: only when a bucket holds more than _MELGAN_AUTO_FRAMES
+        frames in all; 0: never). pcm16: waveforms are quantised to int16
+        on the device and tts() returns int16 arrays. device: None means
+        cuda, and raises when there is no CUDA device; tests pass
+        device='cpu'."""
         unported = [
             ("mesh", mesh is not None, "multi-device slice"),
             ("quantize", quantize is not None, "int8 quantization slice"),
-            ("nar_pv", nar_pv is not None, "one-pass families slice"),
-            ("melgan_params", melgan_params is not None,
-             "one-pass families slice"),
-            ("melgan_chunk", melgan_chunk is not None,
-             "one-pass families slice"),
-            ("pcm16", pcm16, "one-pass families slice"),
         ]
         for what, given, slice_name in unported:
             if given:
@@ -82,20 +92,30 @@ class Synthesizer:
         # functions would cast them at every use with the same rounding.
         self.params = nn.tree_to(nn.cast_weights(params, cfg.dtype), self.device)
         self.net_state = nn.tree_to(net_state, self.device)
-        self.ctc_pv = None
+        self.ctc_pv = self.vocoder_pv = self.nar_pv = None
         if ctc_pv is not None:
-            self.ctc_pv = (
-                nn.tree_to(nn.cast_weights(ctc_pv[0], cfg.dtype), self.device),
-                nn.tree_to(ctc_pv[1], self.device))
-        self.vocoder_pv = None
+            self.ctc_pv = self._place(ctc_pv)
         if vocoder_pv is not None:
-            self.vocoder_pv = (
-                nn.tree_to(nn.cast_weights(vocoder_pv[0], cfg.dtype), self.device),
-                nn.tree_to(vocoder_pv[1], self.device))
+            self.vocoder_pv = self._place(vocoder_pv)
+        if nar_pv is not None:
+            # kept float32: its pitch and energy conditionings take float32
+            # inputs, whose weights JAX does not round to cfg.dtype
+            self.nar_pv = nn.tree_to(tuple(nar_pv), self.device)
+        # the generator's weights stay float32 and are cast to the mel's
+        # dtype at use, as in JAX (stream_tts feeds it float32 mels)
+        self.melgan_params = (None if melgan_params is None
+                              else nn.tree_to(melgan_params, self.device))
+        self.melgan_chunk = melgan_chunk
+        self.pcm16 = bool(pcm16)
         self._lift = torch.from_numpy(
             dsp.mel_to_mag_pseudo_inverse(audio_params)).to(self.device)
         # decode steps of the last tts/asr call, one entry per batch chunk
         self.last_decode_steps: List[int] = []
+
+    def _place(self, pv):
+        """(params, state) on the device, the weights cast to cfg.dtype."""
+        return (nn.tree_to(nn.cast_weights(pv[0], self.cfg.dtype), self.device),
+                nn.tree_to(pv[1], self.device))
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str, args, **kw):
@@ -137,14 +157,34 @@ class Synthesizer:
             ids[i, :len(s)] = s
             lens[i] = len(s)
         with torch.inference_mode():
-            (_, post, _, stop_lens), _ = U.tts(
-                self.params, self.net_state, nn.Ctx.eval(), self.cfg,
+            post, stop_lens = self._tts_impl(
                 torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(lens).to(self.device), infer=True)
+                torch.from_numpy(lens).to(self.device))
         stop_lens = stop_lens.cpu().numpy()
-        r = self.cfg.reduction_factor
-        self.last_decode_steps.append(int(-(-stop_lens.max() // r)))
+        if self.nar_pv is None:
+            r = self.cfg.reduction_factor
+            self.last_decode_steps.append(int(-(-stop_lens.max() // r)))
         return post, stop_lens, n
+
+    def _tts_impl(self, ids, lens):
+        """unast_tpu/infer/serve.py::Synthesizer._tts_impl: the AR model's
+        greedy mel decode -> (post, stop_lens); with nar_pv _nar_tts_impl's
+        one pass."""
+        if self.nar_pv is not None:
+            return self._nar_tts_impl(ids, lens)
+        (_, post, _, stop_lens), _ = U.tts(
+            self.params, self.net_state, nn.Ctx.eval(), self.cfg, ids, lens,
+            infer=True)
+        return post, stop_lens
+
+    def _nar_tts_impl(self, ids, lens):
+        """unast_tpu/infer/serve.py::Synthesizer._nar_tts_impl: the
+        FastSpeech student's one pass at max_mel_len frames -> (post,
+        out_lens); out_lens counts every frame (no stop frame)."""
+        (_, post, out_lens, _), _ = FS.fastspeech_forward(
+            *self.nar_pv, nn.Ctx.eval(), self.cfg, ids, lens,
+            max_len=self.cfg.max_mel_len)
+        return post, out_lens
 
     def tts_mels(self, texts: List[str]):
         """unast_tpu/infer/serve.py::Synthesizer.tts_mels: texts -> list of
@@ -161,10 +201,11 @@ class Synthesizer:
 
     def tts(self, texts: List[str]):
         """unast_tpu/infer/serve.py::Synthesizer.tts: texts -> list of
-        waveforms (np.float32). Vocoding (CBHG vocoder or pseudo-inverse
-        lift, then Griffin-Lim) runs batched at a fixed mel bucket per
-        chunk; each waveform is then cut at its stop length and
-        silence-trimmed on the host."""
+        waveforms (np.float32; np.int16 with pcm16). Vocoding (the neural
+        vocoder, else the CBHG vocoder or pseudo-inverse lift then
+        Griffin-Lim) runs batched at a fixed mel bucket per chunk; each
+        waveform is then cut at its frame count and silence-trimmed on
+        the host."""
         return self._tts_wavs_from_seqs(
             [np.asarray(raw_text_to_phoneme_ids(t), np.int64) for t in texts])
 
@@ -200,23 +241,73 @@ class Synthesizer:
             out.append(w)
         return np.concatenate(out)
 
+    def _out(self, w: torch.Tensor) -> torch.Tensor:
+        """unast_tpu/infer/serve.py::Synthesizer's _out_op: with pcm16,
+        round(clip(w, -1, 1) * 32767) as int16 on the device, in w's
+        dtype as JAX computes it; else w."""
+        if not self.pcm16:
+            return w
+        return torch.round(torch.clamp(w, -1.0, 1.0) * 32767.0).to(torch.int16)
+
     def _vocode(self, mel_b: torch.Tensor) -> torch.Tensor:
         """unast_tpu/infer/serve.py::Synthesizer's _vocode_fn: [rows, T,
-        n_mels] -> [rows, hop*(T-1)] waveforms. With vocoder_pv the CBHG
-        vocoder (eval mode, in the mel's dtype) gives the magnitudes;
-        else the float32 lift mel_b @ lift (a bf16 mel is cast first;
-        torch does not promote bf16 @ f32 the way jnp does). Then clip to
-        [1e-8, 1] and batched Griffin-Lim."""
+        n_mels] -> waveforms, through _out. With melgan_params the
+        generator ([rows, T*hop], _melgan_vocode); else with vocoder_pv
+        the CBHG vocoder (eval mode, in the mel's dtype) gives the
+        magnitudes, or the float32 lift mel_b @ lift (a bf16 mel is cast
+        first; torch does not promote bf16 @ f32 the way jnp does), then
+        clip to [1e-8, 1] and batched Griffin-Lim ([rows, hop*(T-1)])."""
+        if self.melgan_params is not None:
+            return self._melgan_vocode(mel_b)
         if self.vocoder_pv is not None:
             mag, _ = U.vocoder(*self.vocoder_pv, nn.Ctx.eval(), mel_b)
         else:
             mag = mel_b.float() @ self._lift
-        return dsp._mag_to_wav_core(torch.clamp(mag, 1e-8, 1.0), self.audio_params)
+        return self._out(dsp._mag_to_wav_core(torch.clamp(mag, 1e-8, 1.0),
+                                              self.audio_params))
+
+    # total mel frames per vocoder call above which melgan_chunk=None
+    # chunks (unast_tpu/infer/serve.py::Synthesizer._MELGAN_AUTO_FRAMES)
+    _MELGAN_AUTO_FRAMES = 65536
+
+    def _melgan_vocode(self, mel_b: torch.Tensor) -> torch.Tensor:
+        """unast_tpu/infer/serve.py::Synthesizer._melgan_vocode: [rows, T,
+        n_mels] -> _out(wavs [rows, T*hop]). Chunked (melgan_chunk, or the
+        auto rule), every window is one uniform (chunk + 2*ctx)-frame slice
+        of mel_b, its start clamped at the bucket's edges (which only
+        widens the interior's margin), so each has >= ctx frames of context
+        or a true edge on each side and the concatenation equals the whole
+        forward. A window returns chunk*hop samples from lo_c =
+        min(lo, (win - chunk)*hop), so the final partial chunk keeps its
+        residual offset lo - lo_c for the trim. Every window is queued on
+        the device before the joined result is fetched."""
+        rows, t = mel_b.shape[0], mel_b.shape[1]
+        chunk = self.melgan_chunk
+        if chunk is None:
+            chunk = 256 if rows * t > self._MELGAN_AUTO_FRAMES else 0
+        ctx = MG.receptive_field(self.melgan_params)
+        win = chunk + 2 * ctx
+        if not chunk or t <= win:
+            return self._out(MG.generator_forward(self.melgan_params, mel_b))
+        hop = self.audio_params.hop_length
+        pieces = []
+        for t0 in range(0, t, chunk):
+            a = min(max(0, t0 - ctx), t - win)
+            lo = (t0 - a) * hop
+            lo_c = min(lo, (win - chunk) * hop)
+            wav = MG.generator_forward(self.melgan_params, mel_b[:, a:a + win])
+            block = self._out(wav[:, lo_c:lo_c + chunk * hop])
+            off = lo - lo_c
+            pieces.append(block[:, off:off + min(chunk, t - t0) * hop])
+        return torch.cat(pieces, dim=1)
 
     def _tts_wavs_from_seqs(self, seqs):
         """unast_tpu/infer/serve.py::Synthesizer._tts_wavs_from_seqs:
-        phoneme-id sequences -> trimmed waveforms, max_batch at a time."""
+        phoneme-id sequences -> waveforms, max_batch at a time, each cut at
+        its frame count and silence-trimmed on the host (native.py's trim;
+        on int16 samples with pcm16)."""
         p = self.audio_params
+        trim = native.trim_silence_i16 if self.pcm16 else native.trim_silence
         self.last_decode_steps = []
         out = []
         for start in range(0, len(seqs), self.max_batch):
@@ -226,10 +317,12 @@ class Synthesizer:
             with torch.inference_mode():
                 wavs = self._vocode(post[:, :tb]).cpu().numpy()
             for i in range(n):
-                # stop_lens counts the stop-fired frame; the cut excludes it
-                frames = int(stop_lens[i]) - 1
-                w, _ = ref_dsp.trim_silence(
-                    wavs[i, :p.hop_length * max(1, frames)], p)
+                # AR stop_lens counts the stop-fired frame, which the cut
+                # drops; NAR out_lens is the exact frame count
+                frames = int(stop_lens[i]) - (self.nar_pv is None)
+                w, _ = trim(wavs[i, :p.hop_length * max(1, frames)],
+                            frame_length=p.trim_frame_length,
+                            hop=p.trim_hop_length, top_db=p.trim_top_db)
                 out.append(w)
         return out
 
@@ -360,10 +453,9 @@ class Synthesizer:
         (cuBLAS, cuFFT plans) loaded."""
         with torch.inference_mode():
             for tb in self.text_buckets:
-                U.tts(self.params, self.net_state, nn.Ctx.eval(), self.cfg,
-                      torch.ones((1, tb), dtype=torch.long, device=self.device),
-                      torch.full((1,), tb, dtype=torch.long, device=self.device),
-                      infer=True)
+                self._tts_impl(
+                    torch.ones((1, tb), dtype=torch.long, device=self.device),
+                    torch.full((1,), tb, dtype=torch.long, device=self.device))
             asr = self._ctc_asr_impl if self.ctc_pv is not None else self._asr_impl
             for mb in self.mel_buckets:
                 asr(torch.zeros((1, mb, self.cfg.num_mels), device=self.device),

@@ -87,12 +87,12 @@ def eval_per(ts: CtcTrainState, cfg: ModelConfig, batch) -> float:
                        lens.cpu().numpy())
 
 
-def batch_to(raw, device):
-    """The step's tensors of a numpy batch (text, text_len, mel, mel_len),
-    on `device`."""
+def batch_to(raw, device, keys=("text", "text_len", "mel", "mel_len")):
+    """The step's tensors of a numpy batch (`keys`: mel and f0 float32, the
+    rest int64), on `device`."""
     return {k: torch.from_numpy(np.asarray(
-        raw[k], np.float32 if k == "mel" else np.int64)).to(device)
-        for k in ("text", "text_len", "mel", "mel_len")}
+        raw[k], np.float32 if k in ("mel", "f0") else np.int64)).to(device)
+        for k in keys}
 
 
 def load_ctc_pv(ckpt_path: str, cfg: ModelConfig, args, device=None):
