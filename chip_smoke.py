@@ -132,14 +132,39 @@ Phases (each that fails exits non-zero; nothing is caught):
      discriminators and mr_stft_loss in f32; a vocoder and an adversarial
      step in f64, and their f32 losses; StreamingCtcAsr equal to the
      one-shot greedy decode);
-  17. one `{"kernels": [...]}` line (both routes, with their launches on
+  17. the wide model, configs/wide_d1024.json at full width (d 1024, 6
+     layers, 8 heads of 128, ffn 4096, bf16, flash; phases 17-18 print
+     their seconds as they end): one joint step with its remat
+     'dots_all' and objective mix (ae 2 / cm 1 / sp 4 / d 1, the LSTM
+     discriminator, guided attention) at B8 x 816 / 304 (the config's
+     batch 32 cut to 8), its seconds, peak memory, forward launches (the
+     checkpoint recompute included) and backward calls as the code
+     implies; the sp objective alone under remat off, '', 'dots' and
+     'dots_all' (losses bitwise equal, each peak, '' below off); 8 TTS
+     (to 815 frames) and 8 ASR served with bf16 weights, then with
+     quantize='int8' (latencies, weight bytes, the served mels and the
+     teacher-forced TTS forward within 0.1 relative RMS of bf16's; along
+     bf16's greedy ASR path the int8 weights' greedy choice equal to
+     bf16's wherever bf16's margin is above 0.1); phases 3 and
+     6 hold its kernel case (B8 T815 H8 D128 on fused-QKV views) and its
+     backward at B8 T816;
+  18. the family additions at flagship width: --speech_encoder conformer
+     (8 ASR, one ae + sp step), --moe_experts 8 --moe_impl ragged (8 TTS
+     to 815 frames through the T == 1 dense decode, 8 ASR, one ae + sp
+     step with the aux metric) and the same step with --moe_impl
+     dispatch, launches as counted; TINY f32 card against CPU within
+     1e-4 (a conformer encoder in train mode, both MoE paths, a MoE stack
+     under remat 'dots_all' and under scan_layers with its gradient, the
+     quantized TTS forward);
+  19. one `{"kernels": [...]}` line (both routes, with their launches on
      the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
-     beam, CTC train, hybrid, NAR serve, distill and NAR + MelGAN serve
-     paths), a `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`,
-     an `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder":
-     ...}`, a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a
-     `{"melgan": ...}` and a `{"serve": ...}` line, and last `{"ok": true,
-     "device": ...}`.
+     beam, CTC train, hybrid, NAR serve, distill, NAR + MelGAN serve,
+     wide step and serve, and family step, serve and TINY paths), a
+     `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
+     `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`,
+     a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a `{"melgan":
+     ...}`, a `{"wide": ...}`, a `{"families": ...}` and a `{"serve":
+     ...}` line, and last `{"ok": true, "device": ...}`.
 """
 
 import json
@@ -225,6 +250,8 @@ FLASH_CASES = [
     Case("d128", bf16, 8, 300, 300, 2, 128, False, 10),
     Case("d128_cross_causal", bf16, 8, 300, 815, 2, 128, True, 23, "cross",
          lens=RAGGED),
+    # phase 17's wide encoder: d 1024 over 8 heads of 128
+    Case("wide_encoder_qkv_d128", bf16, 8, 815, 815, 8, 128, False, 47, "qkv"),
     Case("tiny_asr_encoder_f32", f32, 2, 24, 24, 2, 16, False, 37, "qkv",
          lens=[20, 11]),
     Case("tiny_tts_encoder_f32", f32, 3, 8, 8, 2, 16, False, 38, "qkv",
@@ -261,6 +288,7 @@ BWD_CASES = [
     Case("train_encoder_t816", bf16, 4, 816, 816, 4, 64, False, 42, "qkv"),
     Case("train_cross_304x816", bf16, 4, 304, 816, 4, 64, False, 43, "cross"),
     Case("train_cross_816x304", bf16, 4, 816, 304, 4, 64, False, 44, "cross"),
+    Case("wide_encoder_t816_d128", bf16, 8, 816, 816, 8, 128, False, 48, "qkv"),
     Case("tiny_train_self_f32", f32, 2, 12, 12, 2, 16, True, 45, "qkv",
          lens=[12, 5]),
     Case("tiny_train_cross_f32", f32, 2, 12, 20, 2, 16, False, 46, "cross",
@@ -303,6 +331,15 @@ VOC_BATCH = 8
 VOC_FRAMES = 40
 MELGAN_CHUNK = 256
 STREAM_CHUNK = 32
+# phase 17: configs/wide_d1024.json at full width; its batch of 32 cut to 8.
+# int8 serving: the served mels and the teacher-forced TTS forward within
+# WIDE_INT8_REL_TOL (relative RMS) of bf16's; along bf16's greedy text path
+# the int8 weights' greedy choice equal to bf16's at every step whose bf16
+# margin is above WIDE_ID_MARGIN
+WIDE_CONFIG = os.path.join(ROOT, "configs", "wide_d1024.json")
+WIDE_BATCH = 8
+WIDE_INT8_REL_TOL = 0.1
+WIDE_ID_MARGIN = 0.1
 # the train step's record_function ranges (unast_tpu_torch/train/steps.py)
 TRAIN_PARTS = ("unast/train/ae", "unast/train/cm", "unast/train/sp",
                "unast/train/gen_update", "unast/train/d", "unast/backward",
@@ -2193,6 +2230,379 @@ def melgan_phase(fa, flag_params, flag_state, flag_cfg, student, root):
     }
 
 
+def _text_logits(syn, mels, ids):
+    """The float32 logits [B, S, V] of each step of a greedy text decode
+    that follows `ids` (teacher-forced along them: the KV-cached decode
+    step of networks.text_tr_infer) with syn's weights, on the card, the
+    mels padded to the Synthesizer's bucket."""
+    from unast_tpu_torch.models import modules as M, networks as N, transformer as T
+    from unast_tpu_torch import nn
+    cfg, ectx = syn.cfg, nn.Ctx.eval()
+    n = syn._bucket(syn.mel_buckets, max(len(m) for m in mels))
+    mel = torch.zeros((len(mels), n, cfg.num_mels), dtype=cfg.dtype, device="cuda")
+    for i, m in enumerate(mels):
+        mel[i, :len(m)] = torch.from_numpy(m[:n]).to(cfg.dtype)
+    lens = torch.tensor([min(n, len(m)) for m in mels], device="cuda")
+    p = syn.params["text_m"]
+    with torch.inference_mode():
+        (enc, mask), _ = N.speech_tr_encode(syn.params["speech_m"],
+                                            syn.net_state["speech_m"], ectx, cfg,
+                                            mel, lens)
+        cache = T.init_cache(p["decoder"], enc, cfg.max_text_len, cfg.nhead)
+        bias = T.padding_bias(mask)
+        tok = torch.full((len(mels), 1), 1, dtype=torch.long, device="cuda")
+        out = []
+        for i in range(max(len(x) for x in ids)):
+            x = M.positional_encoding(ectx, M.text_embed(p["prenet"], ectx, tok, cfg),
+                                      offset=i)
+            h, cache = T.decoder_step(p["decoder"], ectx, x, i, cache, bias,
+                                      cfg.nhead, 0.0, moe_opts=cfg.moe_opts)
+            out.append(M.text_postnet(p["postnet"], ectx, h, cfg)[:, -1].float().cpu())
+            tok = torch.tensor([[int(x[i]) if i < len(x) else 0] for x in ids],
+                               device="cuda")
+    return torch.stack(out, dim=1).numpy()
+
+
+def _greedy_agreement(ref_ids, ref_logits, logits, floor):
+    """Along ref's greedy path (ref_ids, its logits ref_logits [B, S, V]),
+    another model's logits on the same prefixes: the steps whose ref
+    margin (top-1 minus top-2) is above `floor`, whether the other's
+    greedy choice equals ref's at every one of them, and the largest
+    logit difference anywhere on the path."""
+    compared, equal = 0, True
+    top2 = np.sort(ref_logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    for b, r in enumerate(ref_ids):
+        r = np.asarray(r)
+        assert np.array_equal(np.argmax(ref_logits[b, :len(r)], -1), r)
+        sel = margin[b, :len(r)] > floor
+        compared += int(sel.sum())
+        equal &= bool(np.array_equal(np.argmax(logits[b, :len(r)], -1)[sel], r[sel]))
+    return {"compared": compared, "equal": equal, "margin_floor": floor,
+            "logit_max_abs_diff": float(np.abs(logits - ref_logits).max())}
+
+
+def _asr_mels(n_req, seed):
+    """n_req uniform mels of 200-815 frames (numpy seed `seed`)."""
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0, 1, (int(n), 80)).astype(np.float32)
+            for n in rng.integers(200, 816, size=n_req)]
+
+
+def _serve_batch(syn, fa, texts=None, mels=None):
+    """One timed tts_mels (texts) or asr_ids (mels) batch, counts set to 0
+    just before and read just after. Returns (outputs, record)."""
+    reset_launch_counts(fa)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = syn.tts_mels(texts) if texts is not None else syn.asr_ids(mels)
+    torch.cuda.synchronize()
+    return out, {"s": time.perf_counter() - t, "launches_bf16": fa.launches_bf16,
+                 "launches_f32": fa.launches_f32, "batches": len(syn.last_decode_steps),
+                 "decode_steps": sum(syn.last_decode_steps)}
+
+
+def _objective_step(step_fn, ts, batches, fa, seed):
+    """One timed make_train_step call on `batches`, counts set to 0 just
+    before and read just after."""
+    reset_launch_counts(fa)
+    bwd0 = fa.backward_calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ts, m = step_fn(ts, torch.Generator(device="cuda").manual_seed(seed), batches)
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t,
+           "metrics": {k: float(v) for k, v in m.items()},
+           "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
+           "backward_calls": fa.backward_calls - bwd0,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
+    return ts, rec
+
+
+def wide_phase(fa):
+    """Phase 17: configs/wide_d1024.json at full width (d 1024, 6 layers, 8
+    heads, ffn 4096, bf16) with attn_impl='flash', random weights from
+    seed 0. One joint step with the config's remat 'dots_all' and
+    objective mix (ae 2 / cm 1 / sp 4 / d 1, the LSTM discriminator, guided
+    attention) at B WIDE_BATCH, 816 / 304, counts set to 0 just before and
+    read just after: forward launches (the checkpoint recompute included)
+    and backward calls as flash_calls_per_step counts them, the step's
+    seconds and peak memory. The sp objective's loss and backward alone on
+    that step's first sp micro-batch, four times: remat off, '', 'dots',
+    'dots_all', each from the same generator seed and with scan_layers on
+    (so remat off draws its per-layer dropout seeds as remat does): the
+    losses bitwise equal, each peak, '' below remat off. Guided attention
+    asks for the decoders' cross-attention weights, so only the encoders
+    are checkpointed (transformer.decoder, as JAX). Then the Synthesizer
+    with the stop bias lowered by 100: 8 TTS (to 815 frames) and 8 ASR
+    with the bf16 weights, then quantize='int8': latencies, the weights'
+    bytes; the int8 mels and the teacher-forced TTS forward within
+    WIDE_INT8_REL_TOL (relative RMS) of bf16's; along bf16's greedy ASR
+    path, the int8 weights' greedy choice equal to bf16's at every step
+    whose bf16 margin is above WIDE_ID_MARGIN (_greedy_agreement), and
+    the free-running int8 ids' common prefix with bf16's."""
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import ModelConfig, unast as U
+    from unast_tpu_torch.nn import quant as Q
+    from unast_tpu_torch.train import init_train_state, make_train_step
+    from unast_tpu_torch.train import steps as TS
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.optim import tree_leaves, tree_map, split_params
+    from unast_tpu_torch.text import raw_text_to_phoneme_ids
+    from unast_tpu_torch import nn
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.from_json(WIDE_CONFIG).replace(attn_impl="flash")
+    args = train_args(WIDE_CONFIG, train_batch_size=WIDE_BATCH)
+    assert cfg.remat and cfg.remat_policy == "dots_all" and cfg.head_dim == 128
+    fwd, bwd = TS.flash_calls_per_step(cfg, args)
+    ts = init_train_state(torch.Generator().manual_seed(0), cfg, args)
+    n_params = U.num_params(ts.params)
+    batches = train_batches(np.random.default_rng(0), args, cfg, WIDE_BATCH,
+                            args.data_text_len, args.data_mel_len, "cuda")
+    ts, step = _objective_step(make_train_step(cfg, args), ts, batches, fa, 0)
+    assert [step["launches_bf16"], step["backward_calls"], step["launches_f32"]] == [
+        fwd, bwd, 0], (step, fwd, bwd)
+    step.update(expected=[fwd, bwd])
+
+    # the sp objective alone under each policy
+    sp_batch = tuple(x[0] for x in batches["sp"])
+    gen_p, disc_p = split_params(ts.params)
+    policies = {}
+    for name, remat, policy in (("off", False, ""), ("''", True, ""),
+                                ("dots", True, "dots"), ("dots_all", True, "dots_all")):
+        pcfg = cfg.replace(remat=remat, remat_policy=policy, scan_layers=True)
+        live = tree_map(lambda x: x.detach().requires_grad_(True), gen_p)
+        params = dict(live, discriminator=disc_p)
+        reset_launch_counts(fa)
+        bwd0 = fa.backward_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        loss, _ = TS.sp_loss_fn(params, ts.net_state,
+                                torch.Generator(device="cuda").manual_seed(7),
+                                sp_batch, pcfg, args, 1.0)
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+        torch.cuda.synchronize()
+        policies[name] = {
+            "loss": float(loss.detach()),
+            "loss_bits": int(loss.detach().float().view(torch.int32)),
+            "s": time.perf_counter() - t,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base,
+            "launches_bf16": fa.launches_bf16, "backward_calls": fa.backward_calls - bwd0,
+            "grad_finite": all(bool(torch.isfinite(g).all()) for g in grads
+                               if g is not None)}
+        del live, params, loss, grads
+    bits = {r["loss_bits"] for r in policies.values()}
+    assert len(bits) == 1 and all(r["grad_finite"] for r in policies.values()), policies
+    assert policies["''"]["peak_bytes"] < policies["off"]["peak_bytes"], policies
+    del ts, batches, gen_p, disc_p
+    torch.cuda.empty_cache()
+
+    # serving, bf16 then int8
+    params, state = U.unast_init(torch.Generator().manual_seed(0), cfg)
+    params["speech_m"]["postnet"]["stop_proj"]["b"] -= 100.0
+    mels_in = _asr_mels(len(SENTENCES), 17)
+    seqs = [np.asarray(raw_text_to_phoneme_ids(t_), np.int64)[:64] for t_ in SENTENCES[:4]]
+    tf_text = torch.from_numpy(np.stack([np.pad(q, (0, 64 - len(q))) for q in seqs])).cuda()
+    tf_tl = torch.tensor([len(q) for q in seqs], device="cuda")
+    tf_mel = torch.rand((4, 400, cfg.num_mels), generator=torch.Generator().manual_seed(5))
+    tf_mel = tf_mel.to("cuda", cfg.dtype)
+    serve, outs = {}, {}
+    for name, quantize in (("bf16", None), ("int8", "int8")):
+        # no warm-up: the process has served since phase 4
+        syn = Synthesizer(params, state, cfg, quantize=quantize)
+        tts, rec_t = _serve_batch(syn, fa, texts=SENTENCES)
+        ids, rec_a = _serve_batch(syn, fa, mels=mels_in)
+        for rec in (rec_t, rec_a):
+            assert rec["launches_bf16"] == cfg.num_layers * rec["batches"], rec
+            assert rec["launches_f32"] == 0, rec
+        assert all(np.isfinite(m).all() and len(m) == cfg.max_mel_len for m in tts)
+        with torch.inference_mode():   # the teacher-forced TTS forward
+            (_, post, _, _), _ = U.tts(syn.params, syn.net_state, nn.Ctx.eval(), cfg,
+                                       tf_text, tf_tl, tf_mel,
+                                       torch.full((4,), 400, device="cuda"))
+        outs[name] = {"tts": tts, "ids": ids, "forward": post.float().cpu().numpy(),
+                      "logits": _text_logits(syn, mels_in, outs.get("bf16", {}).get(
+                          "ids", ids))}
+        serve[name] = {"tts": rec_t, "asr": rec_a,
+                       "param_bytes": Q.quantized_bytes(syn.params)}
+        del syn
+        torch.cuda.empty_cache()
+
+    def rel_rms(a, b):
+        a, b = np.concatenate([x.ravel() for x in a]), np.concatenate([x.ravel() for x in b])
+        return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+
+    mel_rel = rel_rms(outs["int8"]["tts"], outs["bf16"]["tts"])
+    mel_rel_50 = rel_rms([m[:50] for m in outs["int8"]["tts"]],
+                         [m[:50] for m in outs["bf16"]["tts"]])
+    fwd_rel = rel_rms([outs["int8"]["forward"]], [outs["bf16"]["forward"]])
+    agree = _greedy_agreement(outs["bf16"]["ids"], outs["bf16"]["logits"],
+                              outs["int8"]["logits"], WIDE_ID_MARGIN)
+    prefix = [int(np.argmax(np.append(np.asarray(a)[:min(len(a), len(b))]
+                                      != np.asarray(b)[:min(len(a), len(b))], True)))
+              for a, b in zip(outs["int8"]["ids"], outs["bf16"]["ids"])]
+    int8 = {"tts_mels_rel_rms": mel_rel, "tts_mels_first50_rel_rms": mel_rel_50,
+            "tf_forward_rel_rms": fwd_rel, "rel_tol": WIDE_INT8_REL_TOL,
+            "greedy_agreement": agree, "free_running_common_prefix": prefix,
+            "ids_total": sum(len(x) for x in outs["bf16"]["ids"]),
+            "bytes_ratio": serve["int8"]["param_bytes"] / serve["bf16"]["param_bytes"]}
+    assert max(fwd_rel, mel_rel) <= WIDE_INT8_REL_TOL, int8
+    assert agree["equal"] and agree["compared"] > 0, int8
+    assert int8["bytes_ratio"] < 0.6, int8
+    return {"config": os.path.relpath(WIDE_CONFIG, ROOT), "attn_impl": cfg.attn_impl,
+            "compute_dtype": cfg.compute_dtype, "d_model": cfg.e_in,
+            "layers": cfg.num_layers, "heads": cfg.nhead, "ffn": cfg.ffn_dim,
+            "params": n_params, "batch": WIDE_BATCH, "config_batch": 32,
+            "mel_len": args.data_mel_len, "text_len": args.data_text_len,
+            "remat_policy": cfg.remat_policy, "step": step,
+            "sp_policies": policies,
+            "sp_policies_note": "guided attention on: only the encoders are "
+                                "checkpointed; scan_layers on in all four",
+            "serve": serve, "int8_vs_bf16": int8,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def family_tiny_checks(fa):
+    """Phase 18's TINY float32 checks, card against CPU within 1e-4 (flash
+    on, so the float32 kernel on the card): a conformer encoder in train
+    mode (dropout 0) with its BN state; moe_ffn dispatch and ragged (top-2)
+    with the aux loss; an encoder + decoder stack with MoE layers under
+    remat 'dots_all' and under scan_layers, loss and gradient; the
+    quantized TTS forward. Counts set to 0 just before, read just after."""
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.models import TINY, conformer as C, moe as MoE
+    from unast_tpu_torch.models import transformer as T, unast as U
+    from unast_tpu_torch.nn import quant as Q, tree_to
+    from unast_tpu_torch.train.optim import tree_leaves, tree_unflatten
+    d, h, f = TINY.e_in, TINY.nhead, TINY.ffn_dim
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.standard_normal((2, 12, d)).astype(np.float32))
+    pad = torch.arange(12)[None] >= torch.tensor([12, 7])[:, None]
+    y = torch.from_numpy(rng.standard_normal((2, 9, d)).astype(np.float32))
+    ypad = torch.arange(9)[None] >= torch.tensor([9, 5])[:, None]
+    dev = lambda t: tree_to(t, "cuda")
+    errs = {}
+    reset_launch_counts(fa)
+
+    cp, cs = C.conformer_encoder_init(torch.Generator().manual_seed(0), d, h, f, 2, 15)
+    run = lambda p, s, x, pad: C.conformer_encoder(p, s, nn.Ctx(train=True), x, pad, h,
+                                                   0.0, 15, impl="flash")
+    (a, sa), (b, sb) = run(cp, cs, x, pad), run(dev(cp), dev(cs), dev(x), dev(pad))
+    errs["conformer"] = max(_max_abs(a, b), _max_abs(sa["layers"][1]["bn"]["var"],
+                                                     sb["layers"][1]["bn"]["var"]))
+    mp = MoE.moe_init(torch.Generator().manual_seed(1), d, f, 4)
+    for impl in ("dispatch", "ragged"):
+        outs = []
+        for p, xx, pp in ((mp, x, pad), (dev(mp), dev(x), dev(pad))):
+            ctx = nn.Ctx(aux_losses=[])
+            outs.append((MoE.moe_ffn(p, ctx, xx, pp, 0.0, (2, 1.25, impl, 8)),
+                         ctx.aux_losses[0]))
+        errs[f"moe_{impl}"] = max(_max_abs(outs[0][0], outs[1][0]),
+                                  _max_abs(outs[0][1], outs[1][1]))
+    g = torch.Generator().manual_seed(2)
+    stack = {"encoder": T.encoder_init(g, d, h, f, 2, moe=2),
+             "decoder": T.decoder_init(g, d, h, f, 2, moe=2)}
+    for form, kw in (("remat_dots_all", dict(remat=True, remat_policy="dots_all")),
+                     ("scan", dict(scan_layers=True))):
+        res = []
+        for p, xx, pp, yy, yp in ((stack, x, pad, y, ypad),
+                                  (dev(stack), dev(x), dev(pad), dev(y), dev(ypad))):
+            leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+            live = tree_unflatten(p, leaves)
+            ctx = nn.Ctx(aux_losses=[])
+            m = T.encoder(live["encoder"], ctx, xx, pp, h, 0.1, impl="flash",
+                          moe_opts=(2, 1.25, "ragged"), **kw)
+            o = T.decoder(live["decoder"], ctx, yy, m, yp, pp, h, 0.1, impl="flash",
+                          moe_opts=(2, 1.25, "dispatch", 8), **kw)
+            loss = (o ** 2).mean() + sum(ctx.aux_losses)
+            res.append((loss, torch.autograd.grad(loss, leaves)))
+        errs[form] = max([_max_abs(res[0][0], res[1][0])]
+                         + [_max_abs(a_, b_) for a_, b_ in zip(res[0][1], res[1][1])])
+    cfg = TINY.replace(attn_impl="flash")
+    qp, qs = U.unast_init(torch.Generator().manual_seed(0), cfg)
+    qp = Q.quantize_params(qp)
+    tl = torch.tensor([8, 5])
+    text = torch.from_numpy(rng.integers(3, 46, (2, 8))) * (torch.arange(8) < tl[:, None])
+    mel = torch.rand((2, 12, 80), generator=torch.Generator().manual_seed(3))
+    ml = torch.tensor([12, 7])
+    with torch.inference_mode():
+        (a, _, _, _), _ = U.tts(qp, qs, nn.Ctx.eval(), cfg, text, tl, mel, ml)
+        (b, _, _, _), _ = U.tts(dev(qp), dev(qs), nn.Ctx.eval(), cfg, dev(text),
+                                dev(tl), dev(mel), dev(ml))
+    errs["quantized_tts"] = _max_abs(a, b)
+    rec = {"max_abs_err": errs, "launches_f32": fa.launches_f32,
+           "launches_bf16": fa.launches_bf16, "tol": 1e-4}
+    assert max(errs.values()) <= 1e-4 and rec["launches_f32"] > 0, rec
+    assert rec["launches_bf16"] == 0, rec
+    return rec
+
+
+def families_phase(fa, flag_cfg):
+    """Phase 18: the family additions at flagship width (configs/
+    transformer_d_curriculum_fast.json: d 256, 4 layers, 4 heads, ffn 1024,
+    bf16, attn_impl='flash'), random weights from seed 0, counts set to 0
+    just before each call and read just after. --speech_encoder conformer
+    (kernel 15): 8 ASR served (its self-attention through the bf16 kernel:
+    4 launches an encoder call), one ae + sp step at the config's B4 x 816
+    / 304 (one micro-batch each). --moe_experts 8 --moe_impl ragged (the
+    README's recipe on this config): 8 TTS (stop bias lowered by 100, to
+    815 frames: the T == 1 dense-combine decode) and 8 ASR served, then
+    one ae + sp step with its aux metric; the same step with --moe_impl
+    dispatch. Each step's launches and backward calls as
+    flash_calls_per_step counts them. Then family_tiny_checks."""
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import unast as U
+    from unast_tpu_torch.train import init_train_state, make_train_step
+    from unast_tpu_torch.train import steps as TS
+    from unast_tpu_torch.train.config import train_args
+    t_phase = time.perf_counter()
+    args = train_args(CONFIG, ae_steps=1, cm_steps=0, sp_steps=1, d_steps=0)
+    batches = train_batches(np.random.default_rng(18), args, flag_cfg,
+                            args.train_batch_size, args.data_text_len,
+                            args.data_mel_len, "cuda")
+    batches = {k: batches[k] for k in ("ae", "sp")}
+    mels_in = _asr_mels(len(SENTENCES), 18)
+    out = {}
+    for name, kw in (("conformer", dict(speech_encoder="conformer")),
+                     ("moe_ragged", dict(moe_experts=8, moe_impl="ragged")),
+                     ("moe_dispatch", dict(moe_experts=8, moe_impl="dispatch"))):
+        cfg = flag_cfg.replace(**kw)
+        rec = {}
+        if name != "moe_dispatch":
+            params, state = U.unast_init(torch.Generator().manual_seed(0), cfg)
+            params["speech_m"]["postnet"]["stop_proj"]["b"] -= 100.0
+            syn = Synthesizer(params, state, cfg)
+            syn.asr_ids(mels_in[:1])
+            _, rec["asr"] = _serve_batch(syn, fa, mels=mels_in)
+            if name == "moe_ragged":
+                mels, rec["tts"] = _serve_batch(syn, fa, texts=SENTENCES)
+                assert all(np.isfinite(m).all() and len(m) == cfg.max_mel_len
+                           for m in mels)
+            for r in (rec.get("asr"), rec.get("tts")):
+                if r is not None:
+                    assert r["launches_bf16"] == cfg.num_layers * r["batches"], r
+            del syn, params, state
+        fwd, bwd = TS.flash_calls_per_step(cfg, args)
+        ts = init_train_state(torch.Generator().manual_seed(0), cfg, args)
+        _, rec["step"] = _objective_step(make_train_step(cfg, args), ts, batches, fa, 1)
+        assert [rec["step"]["launches_bf16"], rec["step"]["backward_calls"]] == [fwd, bwd], (
+            rec["step"], fwd, bwd)
+        rec["step"]["expected"] = [fwd, bwd]
+        if name.startswith("moe"):
+            assert {"ae/moe", "sp/moe"} <= set(rec["step"]["metrics"]), rec["step"]
+        out[name] = rec
+        del ts
+        torch.cuda.empty_cache()
+    out["tiny_gpu_vs_cpu"] = family_tiny_checks(fa)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _timed(fn, seconds):
     """fn, appending each call's synchronised seconds to `seconds`."""
     def run(*a, **kw):
@@ -2466,6 +2876,20 @@ def main() -> int:
         melgan_run = melgan_phase(fa, params, state, cfg, student, data_root)
         print(json.dumps({"phase": 16, "s": melgan_run["phase_s"]}), flush=True)
     phase_ends.append((16, time.perf_counter()))
+    # 17.-18. the family additions: the wide model (remat, int8 serving),
+    # then the conformer and MoE at flagship width
+    del student
+    torch.cuda.empty_cache()
+    wide_run = wide_phase(fa)
+    wide_run["kernel_case"] = next(c for c in cases
+                                   if c["case"] == "wide_encoder_qkv_d128")
+    wide_run["backward_case"] = next(c for c in bwd_cases
+                                     if c["case"] == "wide_encoder_t816_d128")
+    print(json.dumps({"phase": 17, "s": wide_run["phase_s"]}), flush=True)
+    phase_ends.append((17, time.perf_counter()))
+    families_run = families_phase(fa, cfg)
+    print(json.dumps({"phase": 18, "s": families_run["phase_s"]}), flush=True)
+    phase_ends.append((18, time.perf_counter()))
     print(json.dumps({"phase_s": {
         f"{a + 1}" if b - a == 1 else f"{a + 1}-{b}": t1 - t0
         for (a, t0), (b, t1) in zip(phase_ends, phase_ends[1:])}}), flush=True)
@@ -2538,6 +2962,37 @@ def main() -> int:
             "launches_nar_tiny_counted_on":
                 "TINY fastspeech_forward (2) and 1 distill step on the card, float32 "
                 "(phase 15)"}
+        ws = wide_run["serve"]
+        fam_steps = [families_run[k]["step"] for k in
+                     ("conformer", "moe_ragged", "moe_dispatch")]
+        fam_serve = [r for k in ("conformer", "moe_ragged")
+                     for r in (families_run[k].get("asr"), families_run[k].get("tts")) if r]
+        family_counts = {
+            "launches_wide_step": wide_run["step"][key],
+            "bwd_calls_wide_step": (wide_run["step"]["backward_calls"]
+                                    if dtype == "bfloat16" else 0),
+            "launches_wide_step_counted_on":
+                "configs/wide_d1024.json joint step, remat dots_all (the "
+                "encoders' checkpoint recompute included), B8 at 816 / 304, "
+                "bf16 (phase 17)",
+            "launches_wide_serve": sum(ws[q][x][key] for q in ("bf16", "int8")
+                                       for x in ("tts", "asr")),
+            "launches_wide_serve_counted_on":
+                "wide Synthesizer, 8 TTS + 8 ASR with bf16 weights and again "
+                "with quantize='int8', D 128 (phase 17)",
+            "launches_family_steps": sum(s_[key] for s_ in fam_steps),
+            "bwd_calls_family_steps": (sum(s_["backward_calls"] for s_ in fam_steps)
+                                       if dtype == "bfloat16" else 0),
+            "launches_family_steps_counted_on":
+                "ae + sp steps at flagship width: conformer, MoE ragged, MoE "
+                "dispatch, B4 at 816 / 304, bf16 (phase 18)",
+            "launches_family_serve": sum(r[key] for r in fam_serve),
+            "launches_family_serve_counted_on":
+                "conformer 8 ASR; MoE ragged 8 TTS + 8 ASR, bf16 (phase 18)",
+            "launches_family_tiny": families_run["tiny_gpu_vs_cpu"][key],
+            "launches_family_tiny_counted_on":
+                "TINY conformer, MoE stacks under remat and scan, quantized "
+                "TTS forward on the card, float32 (phase 18)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",
@@ -2553,7 +3008,7 @@ def main() -> int:
                 s_["flash_launches"] for s_ in rnn_train_run["steps"]),
             "launches_rnn_counted_on": "rnn_d serve (8 TTS + 8 ASR) and 2 train steps "
                                        "(phases 10, 11): the RNN calls no attention kernel",
-            **ctc_counts, **one_pass_counts,
+            **ctc_counts, **one_pass_counts, **family_counts,
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -2589,6 +3044,8 @@ def main() -> int:
     print(json.dumps({"ctc": ctc_run}))
     print(json.dumps({"nar": nar_run}))
     print(json.dumps({"melgan": melgan_run}))
+    print(json.dumps({"wide": wide_run}))
+    print(json.dumps({"families": families_run}))
     n = len(SENTENCES)
     print(json.dumps({"serve": {
         "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,

@@ -2,12 +2,14 @@
 Adafactor, evaluation, checkpoints, the training loop and its entry
 points) against the JAX package on the CPU.
 
-The data pipeline, the metrics and the parser are numpy or Python on both
-sides and run live: arrays and values exactly equal. The optimizers run
-live against optax at tests/test_torch_train.py's tolerances (1e-6
-relative, 1e-7 absolute). Evaluation and the loop read the JAX side from
-tests/goldens/torch_loop.npz (tests/torch_loop_golden.py; JAX's compiles
-take minutes): float32, SpecAugment spans at 0 on both sides, losses and
+The datasets, the metrics and the parser are numpy or Python on both
+sides and run live: arrays and values exactly equal. The batches'
+JAX side is a sha256 of each array in tests/goldens/torch_loop.npz. The
+optimizers are held to optax's updates in tests/goldens/torch_ops.npz
+(tests/torch_ops_golden.py) at tests/test_torch_train.py's tolerances
+(1e-6 relative, 1e-7 absolute). Evaluation and the loop read the JAX
+side from tests/goldens/torch_loop.npz (tests/torch_loop_golden.py;
+JAX's compiles take minutes): float32, SpecAugment spans at 0 on both sides, losses and
 metrics.jsonl values within 1e-4 relative, greedy ids, PER and d_score
 exactly equal, with the greedy margins the ids rest on asserted.
 """
@@ -18,14 +20,11 @@ import os
 
 import numpy as np
 import pytest
-import jax
-import optax
 import torch
 
-from unast_tpu.data import batching as JB, dataset as JD, splits as JSp
+from unast_tpu.data import dataset as JD, splits as JSp
 from unast_tpu.infer import metrics as JM
-from unast_tpu.models import TINY as JTINY
-from unast_tpu.train import config as JC, optim as JO, steps as JS
+from unast_tpu.train import config as JC
 
 from unast_tpu_torch import nn as tnn
 from unast_tpu_torch.data import batching as TB, dataset as TD, splits as TSp
@@ -38,6 +37,7 @@ from unast_tpu_torch.train import checkpoint as TCk, config as TC, debug
 from unast_tpu_torch.train import loop as TL, optim as TO, steps as TS
 
 import torch_loop_golden as LG
+import torch_ops_golden as OG
 import torch_train_golden as G
 
 MIN_MARGIN = 1e-3   # least gap a greedy choice may have (test_torch_serve.py)
@@ -140,41 +140,40 @@ def test_manifest_splits_and_ljspeech_match_jax(tmp_path):
         assert np.array_equal(mine[i]["f0"], ref[i]["f0"])
 
 
-def _batch_args(**kw):
-    return TC.train_args(LG.LOOP_CONFIG, train_batch_size=3, **kw)
-
-
 @pytest.mark.parametrize("buckets", [{}, {"text_buckets": [8, 16],
                                           "mel_buckets": [64, 128]}])
-def test_batches_match_jax(buckets):
+def test_batches_match_jax(golden, buckets):
     """BatchGetter.step_batches (three steps, with and without buckets),
-    _val_batches, and skip_steps landing where the skipped calls would."""
-    args = _batch_args(data_text_len=24, data_mel_len=150, eval_batch_size=4,
-                       **buckets)
-    sets = [(TD.SyntheticSpeechDataset, TB.BatchGetter),
-            (JD.SyntheticSpeechDataset, JB.BatchGetter)]
-    getters = [bg(args, ds(size=2, seed=1), ds(size=5, seed=2), ds(size=6, seed=4))
-               for ds, bg in sets]
-    for _ in range(3):
-        mine, ref = (g.step_batches(args, True) for g in getters)
-        assert mine.keys() == ref.keys() == {"ae", "cm", "sp", "d"}
-        for k in mine:
-            for a, b in zip(mine[k], ref[k]):
-                assert a.dtype == b.dtype and np.array_equal(a, b), k
-    skipped = TB.BatchGetter(args, *(TD.SyntheticSpeechDataset(size=n, seed=s)
-                                     for n, s in ((2, 1), (5, 2), (6, 4))))
+    _val_batches, and skip_steps landing where the skipped calls would,
+    against the JAX package's (tests/torch_loop_golden.py keeps each of
+    its arrays as a sha256 of dtype, shape and bytes)."""
+    assert buckets in LG.BATCH_BUCKETS
+    i = LG.BATCH_BUCKETS.index(buckets)
+    args = LG.batch_args(buckets)
+
+    def getter():
+        return TB.BatchGetter(args, *(TD.SyntheticSpeechDataset(size=n, seed=s)
+                                      for n, s in LG.GETTER_SETS))
+    g = getter()
+    for step in range(LG.BATCH_STEPS):
+        mine = g.step_batches(args, True)
+        ref = _sub(golden, f"batches/{i}/{step}/")
+        assert {k.split("/")[0] for k in ref} == set(mine) == {"ae", "cm", "sp", "d"}
+        for k, arrays in mine.items():
+            assert len(arrays) == sum(r.startswith(k + "/") for r in ref)
+            for j, a in enumerate(arrays):
+                assert LG.array_hash(a) == str(ref[f"{k}/{j}"]), (step, k, j)
+    skipped = getter()
     skipped.skip_steps(args, True, 2)
-    for a, b in zip(skipped.step_batches(args, True)["cm"], ref["cm"]):
-        assert np.array_equal(a, b)
-    # unast_tpu/train/loop.py::_val_batches, whose module imports orbax
-    # (seconds of imports); the loop's golden holds the whole eval too
-    it = JB.BatchIterator(JD.SyntheticSpeechDataset(size=6, seed=3), batch_size=3,
-                          text_len=24, mel_len=150, seed=args.seed)
-    it._reshuffle()
+    for a, b in zip(skipped.step_batches(args, True)["cm"], mine["cm"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    # unast_tpu/train/loop.py::_val_batches (the JAX loop's golden holds the
+    # whole eval too)
     val = TL._val_batches(args, TD.SyntheticSpeechDataset(size=6, seed=3))
     assert len(val) == 2 and TL._fit_eval_bs(6, 4) == 3
-    for a in val:
-        _assert_items_equal(a, it.next_batch())
+    for n, a in enumerate(val):
+        ref = {k: str(v) for k, v in _sub(golden, f"val/{n}/").items()}
+        assert LG.item_hashes(a) == ref
 
 
 def test_per_and_d_score_match_jax():
@@ -241,37 +240,32 @@ def test_unported_runtime_options_raise(monkeypatch, flags, env, match):
 @pytest.mark.parametrize("optim_type,clip,ema", [
     ("adafactor", 1.0, 0.0), ("adafactor", 1e4, 0.99), ("adamw", 1.0, 0.9)])
 def test_optimizers_with_ema_match_optax(optim_type, clip, ema):
-    """Two updates of make_optimizers' generator chain against JAX's, with
-    the global-norm clip triggered (1.0) or not (1e4): a tree with factored
-    leaves (3-D with unequal largest dims, 2-D with equal ones) and
-    unfactored ones (1-D, and 2-D with a dim under 128); the EMA too."""
-    rng = np.random.default_rng(9)
-    params = {"b": [rng.normal(size=(4,))], "c": rng.normal(size=(3, 140, 150)),
-              "d": {"w": rng.normal(size=(128, 128))}, "e": rng.normal(size=(5, 300))}
-    grads = [jax.tree_util.tree_map(lambda x: rng.normal(size=x.shape) * 2, params)
-             for _ in range(2)]
-    params, grads = jax.tree_util.tree_map(lambda x: x.astype(np.float32), (params, grads))
-    kw = dict(optim_type=optim_type, grad_clip=clip, lr=0.01, weight_decay=0.1,
-              sched_type="multistep", ema_decay=ema)
-    argv = [x for k, v in kw.items() for x in (f"--{k}", str(v))]
-    tx = JS.make_optimizers(JTINY, JC.parse_with_config(argv))[0]
-    opt = TS.make_optimizers(TINY, TC.train_args(**kw))[0]
-    jp, jstate = params, tx.init(params)
+    """Two updates of make_optimizers' generator chain against JAX's
+    (tests/torch_ops_golden.py keeps the params and the EMA after each),
+    with the global-norm clip triggered (1.0) or not (1e4): a tree with
+    factored leaves (3-D with unequal largest dims, 2-D with equal ones)
+    and unfactored ones (1-D, and 2-D with a dim under 128); the EMA too."""
+    assert (optim_type, clip, ema) in OG.EMA_CASES
+    golden = OG.load()
+    key = f"ema/{optim_type}-{clip}-{ema}"
+    params, grads = OG.ema_case()
+    opt = TS.make_optimizers(TINY, TC.train_args(
+        optim_type=optim_type, grad_clip=clip, ema_decay=ema, **OG.OPT_KW))[0]
     tp = TO.tree_map(_t, params)
     tstate = opt.init(tp)
-    update = jax.jit(tx.update)    # one compile: faster than eager op by op
-    for g in grads:
-        updates, jstate = update(g, jstate, jp)
-        jp = optax.apply_updates(jp, updates)
+    for step, g in enumerate(grads):
         t_updates, tstate = opt.update(TO.tree_map(_t, g), tstate, tp)
         tp = TO.apply_updates(tp, t_updates)
-        pairs = list(zip(TO.tree_leaves(tp), jax.tree_util.tree_leaves(jp)))
+        pairs = [(a, golden[f"{key}/{step}/params/{i}"])
+                 for i, a in enumerate(TO.tree_leaves(tp))]
         if ema:
-            pairs += zip(TO.tree_leaves(TO.find_ema(tstate)),
-                         jax.tree_util.tree_leaves(JO.find_ema(jstate)))
+            pairs += [(a, golden[f"{key}/{step}/ema/{i}"])
+                      for i, a in enumerate(TO.tree_leaves(TO.find_ema(tstate)))]
         for a, r in pairs:
-            np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-6, atol=1e-7)
+            np.testing.assert_allclose(a.numpy(), r, rtol=1e-6, atol=1e-7)
     assert (TO.find_ema(tstate) is None) == (ema == 0)
+    assert sum(k.startswith(f"{key}/1/params/") for k in golden) == len(pairs) - (
+        len(TO.tree_leaves(TO.find_ema(tstate))) if ema else 0)
 
 
 def test_ema_params_of_a_train_state():

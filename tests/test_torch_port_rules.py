@@ -62,9 +62,20 @@ def test_synthesizer_without_device_needs_cuda():
 
 @pytest.mark.parametrize("option", [{"mesh": object()}, {"quantize": "int8"}])
 def test_unported_synthesizer_options_raise(option):
+    """mesh raises NotImplementedError (the parallelism slice);
+    quantize='int8', which raised until the family slice, now serves int8
+    weights (tests/test_torch_quant.py holds it to JAX) and only another
+    quantize value raises."""
     params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
-    with pytest.raises(NotImplementedError, match="slice"):
-        Synthesizer(params, state, TINY, device="cpu", **option)
+    if "mesh" in option:
+        with pytest.raises(NotImplementedError, match="slice"):
+            Synthesizer(params, state, TINY, device="cpu", **option)
+        return
+    syn = Synthesizer(params, state, TINY, device="cpu", **option)
+    assert syn.params["speech_m"]["decoder"]["layers"][0]["lin1"]["w_q"].dtype \
+        == torch.int8
+    with pytest.raises(ValueError, match="int8"):
+        Synthesizer(params, state, TINY, device="cpu", quantize="fp8")
 
 
 def _ctc_pv(cfg=TINY):
@@ -178,9 +189,18 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     ({"moe_experts": 4}, {}, "moe_experts"),
 ])
 def test_unported_train_options_raise(cfg_kw, args_kw, match):
+    """pp > 1 raises NotImplementedError (the parallelism slice). The
+    conformer, remat, scan_layers and MoE options raised until the family
+    slice; now check_ported passes them and they make a train step
+    (tests/test_torch_remat.py runs one for each recipe)."""
     cfg = TINY.replace(use_discriminator=True, **cfg_kw)
-    with pytest.raises(NotImplementedError, match=match):
-        make_train_step(cfg, train_args(**args_kw))
+    if match == "pp":
+        with pytest.raises(NotImplementedError, match=match):
+            make_train_step(cfg, train_args(**args_kw))
+        return
+    from unast_tpu_torch.models import networks as N
+    assert N.check_ported(cfg) is None
+    assert callable(make_train_step(cfg, train_args(**args_kw)))
 
 
 @pytest.mark.parametrize("objective,args_kw", [

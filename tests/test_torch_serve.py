@@ -40,6 +40,7 @@ from unast_tpu_torch.models import networks as TN, transformer as TT
 from unast_tpu_torch.text import raw_text_to_phoneme_ids as t_text_ids
 from unast_tpu_torch.text import sequence_to_text as t_seq_to_text
 
+import torch_ops_golden as OG
 import torch_serve_golden as SG
 import torch_train_golden as G
 
@@ -117,56 +118,40 @@ def _greedy_margins(tp, cfg, memory, pad_mask, ids):
     return np.stack(gaps, axis=1)
 
 
-def test_nn_ops_match_jax():
-    rng = np.random.default_rng(1)
-    x = rng.normal(size=(2, 7, 6)).astype(np.float32)
-    lin = {"w": rng.normal(size=(6, 5)).astype(np.float32),
-           "b": rng.normal(size=(5,)).astype(np.float32)}
-    conv = {"w": rng.normal(size=(5, 6, 4)).astype(np.float32),
-            "b": rng.normal(size=(4,)).astype(np.float32)}
-    bn_p = {"scale": rng.uniform(0.5, 2, 6).astype(np.float32),
-            "bias": rng.normal(size=6).astype(np.float32)}
-    bn_s = {"mean": rng.normal(size=6).astype(np.float32),
-            "var": rng.uniform(0.5, 2, 6).astype(np.float32)}
-    ids = np.array([[0, 3, 5], [7, 0, 1]], np.int32)
-    emb = {"w": rng.normal(size=(9, 6)).astype(np.float32)}
-    jt = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+@pytest.fixture(scope="module")
+def ops_golden():
+    return OG.load()
+
+
+def test_nn_ops_match_jax(ops_golden):
+    """linear, both conv paddings, embedding, layernorm and BatchNorm in
+    eval and train mode (with its new state) against JAX's
+    (tests/torch_ops_golden.py::nn_ops), 1e-5."""
+    x, lin, conv, bn_p, bn_s, ids, emb = OG.nn_ops_case()
     tt = lambda d: {k: _t(v) for k, v in d.items()}
-    pairs = [
-        (jnn.linear(jt(lin), x), tnn.linear(tt(lin), _t(x))),
-        (jnn.conv1d(jt(conv), x, (4, 0)), tnn.conv1d(tt(conv), _t(x), (4, 0))),
-        (jnn.conv1d(jt(conv), x, 2), tnn.conv1d(tt(conv), _t(x), 2)),
-        (jnn.embedding(jt(emb), ids), tnn.embedding(tt(emb), _t(ids).long())),
-        (jnn.layernorm(jt(bn_p), x), tnn.layernorm(tt(bn_p), _t(x))),
-    ]
-    for train in (False, True):
-        yj, sj = jnn.batchnorm(jt(bn_p), jt(bn_s), x, train)
-        yt, st = tnn.batchnorm(tt(bn_p), tt(bn_s), _t(x), train)
-        pairs += [(yj, yt), (sj["mean"], st["mean"]), (sj["var"], st["var"])]
-    for a, b in pairs:
-        np.testing.assert_allclose(_np(b), np.asarray(a), atol=1e-5, rtol=1e-5)
+    got = OG.nn_ops(tnn, _t(x), tt(lin), tt(conv), tt(bn_p), tt(bn_s),
+                    _t(ids).long(), tt(emb))
+    for i, b in enumerate(got):
+        np.testing.assert_allclose(_np(b), ops_golden[f"nn_ops/{i}"],
+                                   atol=1e-5, rtol=1e-5, err_msg=str(i))
 
 
 @pytest.mark.parametrize("cross", [False, True])
-def test_mha_matches_jax(cross):
+def test_mha_matches_jax(ops_golden, cross):
     """Self-attention under a causal + padding bias, and cross-attention
-    (q alone, fused k/v) under a padding bias."""
-    params, _, tp, _ = _models()
-    jp = params["speech_m"]["decoder"]["layers"][0]["cross" if cross else "self"]
-    tpp = tp["speech_m"]["decoder"]["layers"][0]["cross" if cross else "self"]
-    rng = np.random.default_rng(6)
-    x = rng.normal(size=(2, 6, JTINY.e_in)).astype(np.float32)
-    kv = rng.normal(size=(2, 9, JTINY.e_in)).astype(np.float32) if cross else x
-    pad = np.zeros((2, kv.shape[1]), bool)
-    pad[1, -3:] = True
-    jb, tb = JT.padding_bias(pad), TT.padding_bias(_t(pad))
+    (q alone, fused k/v) under a padding bias, against JAX's
+    (tests/torch_ops_golden.py::mha_case): the biases equal, the output
+    1e-5."""
+    tp, _ = params_from_jax(OG.mha_params(), {})
+    x, kv, pad = OG.mha_case(cross)
+    tb = TT.padding_bias(_t(pad))
     if not cross:
-        jb, tb = jb + JT.causal_bias(6), tb + TT.causal_bias(6)
-    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+        tb = tb + TT.causal_bias(6)
+    np.testing.assert_array_equal(tb.numpy(), ops_golden[f"mha/{int(cross)}/bias"])
     tx = _t(x)
-    yj = JT.mha(jp, ECTX_J, x, kv, jb, JTINY.nhead, 0.0)
-    yt = TT.mha(tpp, ECTX_T, tx, _t(kv) if cross else tx, tb, JTINY.nhead, 0.0)
-    np.testing.assert_allclose(_np(yt), np.asarray(yj), atol=1e-5, rtol=1e-5)
+    yt = TT.mha(tp, ECTX_T, tx, _t(kv) if cross else tx, tb, OG.NHEAD, 0.0)
+    np.testing.assert_allclose(_np(yt), ops_golden[f"mha/{int(cross)}/out"],
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_bridge_unstacks_layer_stacks():

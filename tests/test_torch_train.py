@@ -20,7 +20,9 @@ Tolerances, float32 throughout unless said:
     tests/goldens/torch_train_step.npz (tests/torch_train_golden.py); that
     of the flash backward, the losses, the RNN encoder and discriminator,
     the decoders, the tasks and SpecAugment's draws from
-    tests/goldens/torch_train_parts.npz (tests/torch_train_parts_golden.py).
+    tests/goldens/torch_train_parts.npz (tests/torch_train_parts_golden.py);
+    that of the schedules and the optimizer updates from
+    tests/goldens/torch_ops.npz (tests/torch_ops_golden.py).
 Randomness cannot match JAX's bits; the draws are held to their
 distributions (dropout, noise_fn, SpecAugment).
 """
@@ -31,12 +33,9 @@ import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
-import optax
 import torch
 
 from unast_tpu.models import unast as JU
-from unast_tpu.train import optim as JO
-from unast_tpu.train.config import parse_with_config
 
 from unast_tpu_torch import nn as tnn
 from unast_tpu_torch.bridge import params_from_jax
@@ -49,6 +48,7 @@ from unast_tpu_torch.train import losses as TL, optim as TO, steps as TS
 from unast_tpu_torch.train.augment import specaugment
 from unast_tpu_torch.train.config import train_args
 
+import torch_ops_golden as OG
 import torch_train_golden as G
 import torch_train_parts_golden as PG
 
@@ -252,44 +252,40 @@ def test_task_matches_jax_in_eval_mode(models, parts, name):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(scope="module")
+def ops_golden():
+    return OG.load()
+
+
 @pytest.mark.parametrize("sched", ["multistep", "linear", "transformer", "none"])
-def test_schedule_matches_jax(sched):
-    argv = ["--sched_type", sched, "--lr", "0.01", "--warmup_steps", "40",
-            "--epochs", "3", "--epoch_steps", "50", "--lr_milestones", "[1, 2]"]
-    ref = JO.make_schedule(parse_with_config(argv))
-    mine = TO.make_schedule(train_args(sched_type=sched, lr=0.01, warmup_steps=40,
-                                       epochs=3, epoch_steps=50, lr_milestones=[1, 2]))
-    for step in (0, 1, 20, 39, 40, 49, 50, 99, 100, 149, 150, 400):
-        np.testing.assert_allclose(mine(step), float(ref(step)), rtol=1e-6,
-                                   err_msg=f"step {step}")
+def test_schedule_matches_jax(ops_golden, sched):
+    """make_schedule at OG.SCHEDULE_STEPS against the JAX schedule's values
+    (tests/torch_ops_golden.py), 1e-6 relative."""
+    mine = TO.make_schedule(train_args(sched_type=sched, **OG.SCHEDULE_KW))
+    ref = ops_golden[f"schedule/{sched}"]
+    for step, r in zip(OG.SCHEDULE_STEPS, ref):
+        np.testing.assert_allclose(mine(step), r, rtol=1e-6, err_msg=f"step {step}")
 
 
 @pytest.mark.parametrize("optim_type,clip", [("adamw", 1.0), ("adamw", 100.0),
                                              ("adam", 1.0)])
-def test_optimizer_update_matches_optax(optim_type, clip):
+def test_optimizer_update_matches_optax(ops_golden, optim_type, clip):
     """Two updates (bias correction at counts 1 and 2) of one tree, with
-    the global-norm clip triggered (1.0) or not (100.0)."""
-    rng = np.random.default_rng(8)
-    params = {"a": {"w": rng.normal(size=(5, 3))}, "b": [rng.normal(size=(4,))]}
-    grads = [jax.tree_util.tree_map(lambda x: rng.normal(size=x.shape) * 2, params)
-             for _ in range(2)]
-    params, grads = jax.tree_util.tree_map(lambda x: x.astype(np.float32), (params, grads))
-    argv = ["--optim_type", optim_type, "--grad_clip", str(clip), "--lr", "0.01",
-            "--weight_decay", "0.1", "--sched_type", "multistep"]
-    tx = JO.make_optimizer(parse_with_config(argv))
+    the global-norm clip triggered (1.0) or not (100.0), against optax's
+    (tests/torch_ops_golden.py keeps the params after each), 1e-6."""
+    assert (optim_type, clip) in OG.OPT_CASES
+    params, grads = OG.opt_case()
     opt = TO.make_optimizer(train_args(optim_type=optim_type, grad_clip=clip,
-                                       lr=0.01, weight_decay=0.1,
-                                       sched_type="multistep"))
-    jp, jstate = params, tx.init(params)
+                                       **OG.OPT_KW))
     tp = TO.tree_map(_t, params)
     tstate = opt.init(tp)
-    for g in grads:
-        updates, jstate = tx.update(g, jstate, jp)
-        jp = optax.apply_updates(jp, updates)
+    for step, g in enumerate(grads):
         t_updates, tstate = opt.update(TO.tree_map(_t, g), tstate, tp)
         tp = TO.apply_updates(tp, t_updates)
-        for a, r in zip(TO.tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
-            np.testing.assert_allclose(_np(a), np.asarray(r), rtol=1e-6, atol=1e-7)
+        for i, a in enumerate(TO.tree_leaves(tp)):
+            np.testing.assert_allclose(
+                _np(a), ops_golden[f"opt/{optim_type}-{clip}/{step}/params/{i}"],
+                rtol=1e-6, atol=1e-7)
     assert tstate.count == 2
 
 

@@ -17,6 +17,10 @@ match: then run this module again.
 
 Cases, all in float32 with the SpecAugment spans at 0 (eval_batch draws
 them even in eval mode, from streams the port cannot reproduce):
+  - 'batches': data/batching.py::BatchGetter.step_batches over the
+    synthetic GETTER_SETS, BATCH_STEPS steps under each of BATCH_BUCKETS,
+    and BatchIterator's first two batches of the validation set, kept as
+    sha256 hashes of each array (array_hash);
   - 'eval': unast_tpu/infer/evaluate.py::evaluate in test mode (dumps,
     d_score) at TINY with the discriminator and attn_impl='flash', on the
     weights of torch_train_golden.init_trees, over EVAL_BATCHES batches of
@@ -45,6 +49,36 @@ LOOP_CONFIG = ROOT / "configs" / "transformer_test.json"
 GOLDEN = Path(__file__).resolve().parent / "goldens" / "torch_loop.npz"
 EVAL_BATCHES, EVAL_B = 2, 2
 NO_SPEC = dict(spec_freq_mask=0, spec_time_mask=0)
+
+
+# the batch case: BatchGetter over synthetic (ae/cm, sp, d) datasets of
+# these (size, seed), BATCH_STEPS steps under each of BATCH_BUCKETS, and
+# the loop's validation batches
+GETTER_SETS = ((2, 1), (5, 2), (6, 4))
+BATCH_BUCKETS = ({}, {"text_buckets": [8, 16], "mel_buckets": [64, 128]})
+BATCH_STEPS = 3
+
+
+def batch_args(buckets):
+    """The port's flat args of the batch case under `buckets`."""
+    from unast_tpu_torch.train.config import train_args
+    return train_args(LOOP_CONFIG, train_batch_size=3, data_text_len=24,
+                      data_mel_len=150, eval_batch_size=4, **buckets)
+
+
+def array_hash(a) -> str:
+    """sha256 of an array's dtype, shape and bytes: equal hashes, equal
+    arrays of one dtype."""
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str} {a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def item_hashes(item) -> dict:
+    """{key: array_hash or repr} of a collated item dict."""
+    return {k: array_hash(v) if isinstance(v, np.ndarray) else repr(v)
+            for k, v in item.items()}
 
 
 def loop_argv(**flags):
@@ -121,6 +155,21 @@ def freeze():
     import torch_train_golden as G
 
     out = {"source_hash": np.array(source_hash())}
+    from unast_tpu.data import batching as JB, dataset as JD
+    for i, buckets in enumerate(BATCH_BUCKETS):
+        args = batch_args(buckets)
+        getter = JB.BatchGetter(args, *(JD.SyntheticSpeechDataset(size=n, seed=s_)
+                                        for n, s_ in GETTER_SETS))
+        for step in range(BATCH_STEPS):
+            for k, arrays in getter.step_batches(args, True).items():
+                for j, a in enumerate(arrays):
+                    out[f"batches/{i}/{step}/{k}/{j}"] = np.array(array_hash(a))
+    it = JB.BatchIterator(JD.SyntheticSpeechDataset(size=6, seed=3), batch_size=3,
+                          text_len=24, mel_len=150, seed=batch_args({}).seed)
+    it._reshuffle()
+    for n in range(2):
+        for k, v in item_hashes(it.next_batch()).items():
+            out[f"val/{n}/{k}"] = np.array(v)
     params, state = jax.tree_util.tree_map(jnp.asarray, G.init_trees())
     out["eval/init_hash"] = np.array(G.init_hash(params))
     cfg = TINY.replace(use_discriminator=True, attn_impl="flash", **NO_SPEC)

@@ -3,7 +3,10 @@
 The port keeps the JAX tree's names and layouts (linear `w` [in, out], conv
 `w` [k, in, out]), so the map is name for name. The caller hands the trees
 over as numpy arrays (`np.asarray` of each leaf); the port never imports
-JAX.
+JAX. Floating leaves come across as float32; integer leaves keep their
+dtype, so a tree of the JAX package's nn/quant.py::quantize_params keeps
+its int8 `{name}_q` beside float32 `{name}_scale`. Only a `layers` stack
+is unstacked; an MoE layer's expert stacks [E, ...] stay stacked.
 """
 
 import numpy as np
@@ -18,7 +21,10 @@ def _to_torch(tree):
         return out
     if isinstance(tree, (list, tuple)):
         return [_to_torch(v) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32))
+    a = np.asarray(tree)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(a.copy())   # int8 weights stay int8
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def _unstack(stacked):

@@ -15,8 +15,9 @@ pseudo-inverse lift through batched Griffin-Lim, all on the device;
 `pcm16` quantises them to int16 there. ASR can also run through a CTC
 model (`ctc_pv`): one-pass greedy, prefix beam search over its posteriors
 (`ctc_beam`), or as the draft of the AR decoder's speculative decode
-(`spec`); `beam` runs the AR beam search. `mesh` and `quantize` come with
-later slices and raise NotImplementedError.
+(`spec`); `beam` runs the AR beam search. `quantize='int8'` serves int8
+weight-only copies of the weights (nn/quant.py), dequantized at every use.
+`mesh` comes with a later slice and raises NotImplementedError.
 """
 
 from typing import List, Sequence
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import native, nn
+from ..nn import quant as Q
 from ..audio import dsp
 from ..audio.params import DEFAULT as AUDIO_DEFAULT
 from ..device import resolve_device
@@ -33,12 +35,6 @@ from ..models import unast as U
 from ..models.config import ModelConfig
 from ..text import raw_text_to_phoneme_ids, sequence_to_text
 from ..text.symbols import symbols
-
-
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"Synthesizer {what} is not in the serving slice of the port; it "
-        f"comes with the {slice_name} (ROADMAP.md queue 1)")
 
 
 class Synthesizer:
@@ -68,16 +64,29 @@ class Synthesizer:
         generator runs over exact context windows of this many frames
         (None: only when a bucket holds more than _MELGAN_AUTO_FRAMES
         frames in all; 0: never). pcm16: waveforms are quantised to int16
-        on the device and tts() returns int16 arrays. device: None means
+        on the device and tts() returns int16 arrays. quantize: None, or
+        'int8' to quantize params, vocoder_pv's and nar_pv's params
+        (nn/quant.py::quantize_params; any other value raises ValueError);
+        the int8 leaves stay int8 on the device and nn.weight dequantizes
+        them in cfg.dtype at every use. device: None means
         cuda, and raises when there is no CUDA device; tests pass
         device='cpu'."""
-        unported = [
-            ("mesh", mesh is not None, "multi-device slice"),
-            ("quantize", quantize is not None, "int8 quantization slice"),
-        ]
-        for what, given, slice_name in unported:
-            if given:
-                _not_ported(what, slice_name)
+        if mesh is not None:
+            raise NotImplementedError(
+                "Synthesizer mesh is not in the serving slice of the port; "
+                "it comes with the multi-device slice (ROADMAP.md queue 1 "
+                "item 7b)")
+        if quantize is not None:
+            # int8 weight-only (nn/quant.py), as JAX: the AR params, the
+            # CBHG vocoder's and the FastSpeech student's, nothing else
+            if quantize != "int8":
+                raise ValueError(f"quantize must be 'int8' or None, got "
+                                 f"{quantize!r}")
+            params = Q.quantize_params(params)
+            if vocoder_pv is not None:
+                vocoder_pv = (Q.quantize_params(vocoder_pv[0]), vocoder_pv[1])
+            if nar_pv is not None:
+                nar_pv = (Q.quantize_params(nar_pv[0]), nar_pv[1])
         self.cfg = cfg
         self.device = resolve_device(device)
         self.audio_params = audio_params

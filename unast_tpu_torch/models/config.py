@@ -2,7 +2,7 @@
 
 The fields and defaults are the JAX package's, so one flat config JSON
 (`configs/*.json`) builds the same model on either side. `dtype` answers
-with a torch dtype. MoE options (`moe_opts`) come with a later slice.
+with a torch dtype.
 """
 
 import dataclasses
@@ -100,6 +100,13 @@ class ModelConfig:
         """Activation dtype. Params stay float32; the nn apply functions cast
         weights to the activation dtype, and softmax/norms run in float32."""
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    @property
+    def moe_opts(self):
+        """models/moe.py::MoeOpts of the config's routing options."""
+        from .moe import MoeOpts
+        return MoeOpts(self.moe_top_k, self.moe_capacity_factor,
+                       self.moe_impl, self.moe_group_size)
 
     @property
     def enc_out_dim(self) -> int:

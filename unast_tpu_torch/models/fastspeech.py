@@ -229,7 +229,8 @@ def _encode(p, s, ctx: nn.Ctx, cfg: ModelConfig, text, pad_mask):
     x, prenet_s = M.text_prenet_convs(p["prenet"], s["prenet"], ctx, x, cfg)
     x = M.positional_encoding(ctx, x)
     h = T.encoder(p["encoder"], ctx, x, pad_mask, cfg.nhead, cfg.e_drop,
-                  impl=cfg.attn_impl)
+                  impl=cfg.attn_impl, scan_layers=cfg.scan_layers,
+                  remat=cfg.remat)
     return h, prenet_s
 
 
@@ -310,7 +311,8 @@ def fastspeech_forward(p, s, ctx: nn.Ctx, cfg: ModelConfig, text, text_lens,
     frames = M.positional_encoding(ctx, frames, scale=False)
     frame_pad = ~M.lens_to_mask(out_lens, max_len)
     d = T.encoder(p["decoder"], ctx, frames, frame_pad, cfg.nhead,
-                  cfg.d_drop, impl=cfg.attn_impl)
+                  cfg.d_drop, impl=cfg.attn_impl,
+                  scan_layers=cfg.scan_layers, remat=cfg.remat)
 
     pre = nn.linear(p["postnet"]["mel_proj"], d)
     resid, postnet_s = M.speech_postnet(p["postnet"], s["postnet"], ctx,

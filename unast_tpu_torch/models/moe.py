@@ -1,0 +1,244 @@
+"""Mixture-of-Experts FFN, mirroring `unast_tpu/models/moe.py`.
+
+A Switch/GShard sparse FFN that replaces the dense transformer FFN when
+ModelConfig.moe_experts > 0. Two paths with the same routing
+(ModelConfig.moe_impl):
+
+  - 'dispatch': GShard grouped one-hot dispatch. Tokens are routed in
+    groups of S (moe_group_size; auto: the largest divisor of the token
+    count <= 4096) with per-group capacity C = ceil(top_k * S / E *
+    capacity_factor); tokens past capacity fall through the residual.
+  - 'ragged': dropless. The flat top-k assignments are sorted by expert
+    (a stable sort), and each projection is one matmul per expert over
+    its contiguous run of tokens (JAX's lax.ragged_dot, which is XLA,
+    not Pallas). The runs' lengths are read on the host: one sync per
+    MoE layer.
+
+Router: a float32 softmax over E experts, top-k in {1, 2} with the lower
+index first on a tie (lax.top_k's order; torch.topk leaves ties
+unspecified, so the top-k here is k rounds of argmax); top-1 keeps the
+raw probability as its gate, top-k > 1 normalizes the selected gates.
+The Switch load-balance loss E * sum_e f_e * P_e over the valid tokens is
+appended to ctx.aux_losses when the ctx collects. A T == 1 input (the
+KV-cached decode step) runs every expert and combines them by the gates,
+exactly, with no capacity and no aux loss.
+
+A bf16 product here is torch's bf16 matmul, which accumulates in float32
+and rounds once, as JAX's preferred_element_type=f32 then astype does.
+"""
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import nn
+
+
+class MoeOpts(NamedTuple):
+    """unast_tpu/models/moe.py::MoeOpts: routing options
+    (ModelConfig.moe_opts); a plain tuple prefix of the fields works too."""
+
+    top_k: int = 1
+    capacity_factor: float = 1.25
+    impl: str = "dispatch"
+    group_size: int = 0
+
+
+def moe_init(gen: torch.Generator, d_model: int, ffn_dim: int, n_experts: int):
+    """unast_tpu/models/moe.py::moe_init: the router [D, E] (no bias) and
+    the expert-stacked FFN weights lin1 {w [E, D, F], b [E, F]} and lin2
+    {w [E, F, D], b [E, D]}, each expert initialized like the dense FFN."""
+    router = nn.linear_init(gen, d_model, n_experts, bias=False,
+                            torch_default=True)
+
+    def stack(ps):
+        return {k: torch.stack([p[k] for p in ps]) for k in ps[0]}
+
+    lin1 = stack([nn.linear_init(gen, d_model, ffn_dim, torch_default=True)
+                  for _ in range(n_experts)])
+    lin2 = stack([nn.linear_init(gen, ffn_dim, d_model, torch_default=True)
+                  for _ in range(n_experts)])
+    return {"router": router, "lin1": lin1, "lin2": lin2}
+
+
+def _router_probs(p, x):
+    """unast_tpu/models/moe.py::_router_probs: x [..., D] -> float32 probs
+    [..., E]."""
+    logits = x @ nn.weight(p["router"], x.dtype)
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def _top_k(probs, k: int):
+    """lax.top_k over the last axis with its tie order (the lower index
+    first): k rounds of argmax, which returns the first maximum."""
+    vals, idx = [], []
+    rest = probs
+    for _ in range(k):
+        i = torch.argmax(rest, dim=-1, keepdim=True)
+        vals.append(torch.gather(probs, -1, i))
+        idx.append(i)
+        rest = rest.scatter(-1, i, float("-inf"))
+    return torch.cat(vals, dim=-1), torch.cat(idx, dim=-1)
+
+
+def _expert_ffn(p, ctx: nn.Ctx, h, dropout_p: float):
+    """unast_tpu/models/moe.py::_expert_ffn: h [..., E, C, D] dispatched
+    tokens -> the same shape, through each expert's relu FFN."""
+    w1 = nn.weight(p["lin1"], h.dtype)
+    b1 = p["lin1"]["b"].to(h.dtype)
+    y = torch.relu(torch.einsum("...ecd,edf->...ecf", h, w1) + b1[..., None, :])
+    y = nn.dropout(ctx, y, dropout_p)
+    w2 = nn.weight(p["lin2"], h.dtype)
+    b2 = p["lin2"]["b"].to(h.dtype)
+    return torch.einsum("...ecf,efd->...ecd", y, w2) + b2[..., None, :]
+
+
+def _top1_round(remaining, valid, counts, capacity: int):
+    """unast_tpu/models/moe.py::_top1_round: one top-1 routing round over
+    `remaining` [G, S, E] probs with per-group capacity. Returns (chosen
+    one-hot before the drop, gate [G, S] after it, dispatch [G, S, E, C],
+    the updated counts [G, E])."""
+    e = remaining.shape[-1]
+    idx = torch.argmax(remaining, dim=-1)
+    gate = remaining.amax(dim=-1) * valid
+    onehot = F.one_hot(idx, e).float() * valid[..., None]
+    # a token's slot: the tokens given to its expert earlier in the group,
+    # plus those of earlier rounds
+    pos = torch.cumsum(onehot, dim=1) - onehot + counts[:, None, :]
+    pos_tok = (pos * onehot).sum(dim=-1)
+    keep = (pos_tok < capacity) & (gate > 0)
+    kept = onehot * keep[..., None].float()
+    # one_hot of a slot past capacity is all zeros, as jax.nn.one_hot gives
+    slot = (pos_tok.long()[..., None]
+            == torch.arange(capacity, device=pos_tok.device)).float()
+    dispatch = kept[..., None] * slot[..., None, :]
+    return onehot, gate * keep.float(), dispatch, counts + kept.sum(dim=1)
+
+
+def _auto_group(n: int, group_size: int) -> int:
+    """unast_tpu/models/moe.py::_auto_group: the largest divisor of n that
+    is at most the requested group size (4096 when 0)."""
+    s = min(n, group_size if group_size > 0 else 4096)
+    while n % s:
+        s -= 1
+    return s
+
+
+def moe_ffn(p, ctx: nn.Ctx, x, pad_mask, dropout_p: float, opts=MoeOpts()):
+    """unast_tpu/models/moe.py::moe_ffn: the sparse FFN over x [B, T, D];
+    pad_mask bool [B, T] True = PAD (PAD tokens take no capacity and do
+    not count toward the aux loss) or None. T == 1 runs the exact
+    dense-combine path; otherwise the dispatch or ragged path per
+    opts.impl. Appends the load-balance loss to ctx.aux_losses when it is
+    a list."""
+    opts = MoeOpts(*opts)
+    if x.shape[1] == 1:
+        return _moe_dense(p, ctx, x, dropout_p, opts.top_k)
+    b, t, d = x.shape
+    n = b * t
+    xf = x.reshape(n, d)
+    probs = _router_probs(p, xf)                       # [N, E] float32
+    valid = (torch.ones((n,), device=x.device) if pad_mask is None
+             else (~pad_mask).reshape(n).float())
+    if opts.impl == "ragged":
+        out, top1_assign = _moe_ragged(p, ctx, xf, probs, valid, dropout_p,
+                                       opts.top_k)
+    else:
+        out, top1_assign = _moe_dispatch(p, ctx, xf, probs, valid, dropout_p,
+                                         opts)
+    if ctx.aux_losses is not None:
+        n_valid = torch.clamp(valid.sum(), min=1.0)
+        e = probs.shape[-1]
+        frac = top1_assign.sum(dim=0) / n_valid                   # f_e
+        mean_prob = (probs * valid[:, None]).sum(dim=0) / n_valid
+        ctx.aux_losses.append(e * (frac * mean_prob).sum())
+    return out.reshape(b, t, d)
+
+
+def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
+                  opts: MoeOpts):
+    """unast_tpu/models/moe.py::_moe_dispatch: GShard grouped one-hot
+    dispatch. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E])."""
+    n, d = xf.shape
+    e = probs.shape[-1]
+    s = _auto_group(n, opts.group_size)
+    g = n // s
+    cap = max(1, int(math.ceil(opts.top_k * s / e * opts.capacity_factor)))
+    remaining = (probs * valid[:, None]).reshape(g, s, e)
+    valid_g = valid.reshape(g, s)
+    counts = torch.zeros((g, e), device=xf.device)
+    rounds = []
+    top1_assign = None
+    for _ in range(opts.top_k):
+        onehot, gate, disp, counts = _top1_round(remaining, valid_g, counts,
+                                                 cap)
+        if top1_assign is None:
+            top1_assign = onehot.reshape(n, e)
+        rounds.append((gate, disp))
+        remaining = remaining * (1.0 - onehot)
+    if opts.top_k > 1:  # normalize the selected gates; top-1 keeps the prob
+        denom = sum(gt for gt, _ in rounds) + 1e-9
+        rounds = [(gt / denom, disp) for gt, disp in rounds]
+    combine = sum(gt[..., None, None] * disp for gt, disp in rounds)
+    dispatch = sum(disp for _, disp in rounds)
+    xg = xf.reshape(g, s, d)
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xf.dtype), xg)
+    expert_out = _expert_ffn(p, ctx, expert_in, dropout_p)
+    out = torch.einsum("gsec,gecd->gsd", combine.to(xf.dtype), expert_out)
+    return out.reshape(n, d), top1_assign
+
+
+def _moe_ragged(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
+                top_k: int):
+    """unast_tpu/models/moe.py::_moe_ragged: the dropless path. The [N*K]
+    assignments sorted by expert (stably, as jnp.argsort) give contiguous
+    runs; each projection is one matmul per expert over its run, and the
+    gated outputs add back per token. PAD tokens keep a real expert with
+    gate 0. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E])."""
+    n, d = xf.shape
+    e = probs.shape[-1]
+    vals, idx = _top_k(probs, top_k)                   # [N, K]
+    if top_k > 1:
+        vals = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
+    vals = vals * valid[:, None]
+    flat_e = idx.reshape(-1)
+    flat_g = vals.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    tok = order // top_k                               # source token ids
+    xs = xf[tok]                                       # [N*K, D]
+    sizes = torch.bincount(flat_e, minlength=e).tolist()   # one host sync
+    w1 = nn.weight(p["lin1"], xs.dtype)
+    b1 = p["lin1"]["b"].to(xs.dtype)
+    w2 = nn.weight(p["lin2"], xs.dtype)
+    b2 = p["lin2"]["b"].to(xs.dtype)
+    runs = [(ei, a, a + m) for ei, (a, m) in
+            enumerate(zip([sum(sizes[:i]) for i in range(e)], sizes)) if m]
+    h = torch.cat([torch.relu(xs[a:z] @ w1[ei] + b1[ei]) for ei, a, z in runs])
+    h = nn.dropout(ctx, h, dropout_p)
+    y = torch.cat([h[a:z] @ w2[ei] + b2[ei] for ei, a, z in runs])
+    y = y * flat_g[order, None].to(y.dtype)
+    out = torch.zeros_like(xf).index_add(0, tok, y)
+    top1_assign = F.one_hot(idx[:, 0], e).float() * valid[:, None]
+    return out, top1_assign
+
+
+def _moe_dense(p, ctx: nn.Ctx, x, dropout_p: float, top_k: int):
+    """unast_tpu/models/moe.py::_moe_dense: the exact no-drop path of a
+    single decode step: every expert on every token, combined by the
+    top-k gates. x: [B, 1, D]."""
+    probs = _router_probs(p, x)                        # [B, T, E] float32
+    e = probs.shape[-1]
+    vals, idx = _top_k(probs, top_k)
+    if top_k > 1:
+        vals = vals / (vals.sum(dim=-1, keepdim=True) + 1e-9)
+    gates = (F.one_hot(idx, e).float() * vals[..., None]).sum(dim=-2)
+    w1 = nn.weight(p["lin1"], x.dtype)
+    b1 = p["lin1"]["b"].to(x.dtype)
+    h = torch.relu(torch.einsum("btd,edf->btef", x, w1) + b1[None, None])
+    h = nn.dropout(ctx, h, dropout_p)
+    w2 = nn.weight(p["lin2"], x.dtype)
+    b2 = p["lin2"]["b"].to(x.dtype)
+    y = torch.einsum("btef,efd->bted", h, w2) + b2[None, None]
+    return torch.einsum("bte,bted->btd", gates.to(x.dtype), y)

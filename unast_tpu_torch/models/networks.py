@@ -12,8 +12,11 @@ per step to read the stop flags. Fixed [B, max_len(+1), ...] buffers, the
 go-frame, the reduction_factor grouping and the stop bookkeeping are the
 JAX package's. Under a train-mode Ctx (the cm objective's pseudo-pair
 decodes) every step draws fresh dropout masks from the Ctx's one
-generator, as JAX folds the step index into its key (_fold_ctx). The
-conformer encoder comes with a later slice.
+generator, as JAX folds the step index into its key (_fold_ctx). With
+speech_encoder='conformer' the speech side encodes through
+models/conformer.py, its BN state under state["encoder"]. Every stack
+takes the config's moe_experts / moe_opts, scan_layers, remat and
+remat_policy as JAX passes them.
 
 The RNN text decoder reads its gold inputs through the text prenet's
 CAUSAL convs (once over the sequence), and its greedy decode evaluates the
@@ -37,19 +40,18 @@ from . import transformer as T
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise on a configuration the port does not run yet."""
-    later = {
-        "speech_encoder='conformer'": cfg.speech_encoder != "transformer",
-        "moe_experts > 0": cfg.moe_experts > 0,
-        "pp > 1": cfg.pp > 1,
-        "scan_layers": cfg.scan_layers,
-        "remat": cfg.remat,
-    }
-    off = [name for name, on in later.items() if on]
-    if off:
+    """Raise on a configuration the port does not run yet: pipeline stages
+    (pp > 1) come with the parallelism slice."""
+    if cfg.pp > 1:
         raise NotImplementedError(
-            f"{', '.join(off)}: not in the port yet; these come with later "
-            "slices (ROADMAP.md queue 1)")
+            "pp > 1: not in the port yet; pipeline stages come with the "
+            "parallelism slice (ROADMAP.md queue 1 item 7b)")
+
+
+def _stack_kw(cfg: ModelConfig):
+    """The stacking and MoE options every transformer stack takes."""
+    return dict(scan_layers=cfg.scan_layers, remat=cfg.remat,
+                remat_policy=cfg.remat_policy, moe_opts=cfg.moe_opts)
 
 
 # ===========================================================================
@@ -64,9 +66,9 @@ def text_transformer_init(gen: torch.Generator, cfg: ModelConfig):
     params = {
         "prenet": prenet_p,
         "encoder": T.encoder_init(gen, cfg.e_in, cfg.nhead, cfg.ffn_dim,
-                                  cfg.num_layers),
+                                  cfg.num_layers, moe=cfg.moe_experts),
         "decoder": T.decoder_init(gen, cfg.e_in, cfg.nhead, cfg.ffn_dim,
-                                  cfg.num_layers),
+                                  cfg.num_layers, moe=cfg.moe_experts),
         "postnet": M.text_postnet_init(gen, cfg),
     }
     return params, {"prenet": prenet_s}
@@ -84,7 +86,7 @@ def text_tr_encode(p, s, ctx, cfg: ModelConfig, ids, lens, noise_in=False):
     x, prenet_s = M.text_prenet_convs(p["prenet"], s["prenet"], ctx, x, cfg)
     x = M.positional_encoding(ctx, x)
     memory = T.encoder(p["encoder"], ctx, x, pad_mask, cfg.nhead, cfg.e_drop,
-                       impl=cfg.attn_impl)
+                       impl=cfg.attn_impl, **_stack_kw(cfg))
     return (memory, pad_mask), {"prenet": prenet_s}
 
 
@@ -102,7 +104,7 @@ def text_tr_decode_sequence(p, ctx, cfg: ModelConfig, tgt, tgt_lens,
     x = M.positional_encoding(ctx, x)
     h = T.decoder(p["decoder"], ctx, x, memory, tgt_pad_mask, mem_pad_mask,
                   cfg.nhead, cfg.d_drop, impl=cfg.attn_impl,
-                  cross_weights_out=cross_weights_out)
+                  cross_weights_out=cross_weights_out, **_stack_kw(cfg))
     return M.text_postnet(p["postnet"], ctx, h, cfg)
 
 
@@ -125,7 +127,8 @@ def text_tr_infer(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
         x = M.text_embed(p["prenet"], ctx, tokens[:, i:i + 1], cfg)
         x = M.positional_encoding(ctx, x, offset=i)
         h, cache = T.decoder_step(p["decoder"], ctx, x, i, cache, mem_bias,
-                                  cfg.nhead, cfg.d_drop)
+                                  cfg.nhead, cfg.d_drop,
+                                  moe_opts=cfg.moe_opts)
         logits = M.text_postnet(p["postnet"], ctx, h, cfg)
         choice = torch.argmax(logits[:, -1], dim=-1)
         tokens[:, i + 1] = choice
@@ -230,7 +233,8 @@ def text_tr_beam_search(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
         x = M.text_embed(p["prenet"], ctx, tokens[:, i:i + 1], cfg)
         x = M.positional_encoding(ctx, x, offset=i)
         h, cache = T.decoder_step(p["decoder"], ctx, x, i, cache, mem_bias,
-                                  cfg.nhead, cfg.d_drop)
+                                  cfg.nhead, cfg.d_drop,
+                                  moe_opts=cfg.moe_opts)
         logits = M.text_postnet(p["postnet"], ctx, h, cfg)[:, -1]
         logp = torch.log_softmax(logits.float(), dim=-1)
         # frozen beams: only the EOS continuation, no score change
@@ -271,13 +275,26 @@ text_tr_beam_search.steps = 0   # decode steps run, in all calls
 
 
 def speech_transformer_init(gen: torch.Generator, cfg: ModelConfig):
-    """unast_tpu/models/networks.py::speech_transformer_init (transformer
-    speech encoder) -> (params, state)."""
+    """unast_tpu/models/networks.py::speech_transformer_init -> (params,
+    state). speech_encoder='conformer' builds models/conformer.py's
+    encoder, whose BN state is state["encoder"]."""
     check_ported(cfg)
     prenet = M.speech_prenet_init(gen, cfg)
-    enc = T.encoder_init(gen, cfg.e_in, cfg.nhead, cfg.ffn_dim, cfg.num_layers)
-    dec = T.decoder_init(gen, cfg.e_in, cfg.nhead, cfg.ffn_dim, cfg.num_layers)
+    enc_s = None
+    if cfg.speech_encoder == "conformer":
+        from . import conformer as C
+        enc, enc_s = C.conformer_encoder_init(
+            gen, cfg.e_in, cfg.nhead, cfg.ffn_dim, cfg.num_layers,
+            cfg.conformer_kernel)
+    else:
+        enc = T.encoder_init(gen, cfg.e_in, cfg.nhead, cfg.ffn_dim,
+                             cfg.num_layers, moe=cfg.moe_experts)
+    dec = T.decoder_init(gen, cfg.e_in, cfg.nhead, cfg.ffn_dim, cfg.num_layers,
+                         moe=cfg.moe_experts)
     postnet_p, postnet_s = M.speech_postnet_init(gen, cfg)
+    state = {"postnet": postnet_s}
+    if enc_s is not None:
+        state["encoder"] = enc_s
     params = {"prenet": prenet, "encoder": enc, "decoder": dec,
               "postnet": postnet_p}
     if cfg.ctc_weight > 0:
@@ -286,25 +303,40 @@ def speech_transformer_init(gen: torch.Generator, cfg: ModelConfig):
         from .config import VOCAB_SIZE
         params["ctc_head"] = nn.linear_init(gen, cfg.e_in, VOCAB_SIZE + 1,
                                             torch_default=True)
-    return params, {"postnet": postnet_s}
+    return params, state
 
 
 def speech_tr_encode(p, s, ctx, cfg: ModelConfig, mel, lens, noise_in=False,
                      extra_bias=None, add_pe=True):
-    """unast_tpu/models/networks.py::speech_tr_encode (transformer encoder).
-    mel: [B, T, num_mels]; noise_in: the denoising AE's noise on the
-    frames; extra_bias: an additive attention bias for every layer
-    (transformer.encoder; the CTC encoder's chunk mask and relative bias);
-    add_pe=False skips the absolute sinusoid PE (the relative-position CTC
-    encoder). Returns ((memory, pad_mask), state)."""
+    """unast_tpu/models/networks.py::speech_tr_encode. mel: [B, T,
+    num_mels]; noise_in: the denoising AE's noise on the frames;
+    extra_bias: an additive attention bias for every layer
+    (transformer.encoder; the CTC encoder's chunk mask and relative bias),
+    which needs the transformer encoder (ValueError with the conformer,
+    whose depthwise conv is not causal); add_pe=False skips the absolute
+    sinusoid PE (the relative-position CTC encoder). Returns ((memory,
+    pad_mask), state); the conformer's BN state is its "encoder"."""
     check_ported(cfg)
     pad_mask = ~M.lens_to_mask(lens, mel.shape[1])
     x = M.noise_fn(ctx, mel, cfg.noise_mask_p) if noise_in else mel
     x = M.speech_prenet(p["prenet"], ctx, x, cfg)
     if add_pe:
         x = M.positional_encoding(ctx, x)
+    if cfg.speech_encoder == "conformer":
+        if extra_bias is not None:
+            raise ValueError(
+                "chunk-masked (streaming) encoding requires the transformer "
+                "speech encoder: the conformer's depthwise conv is non-causal")
+        from . import conformer as C
+        memory, enc_s = C.conformer_encoder(
+            p["encoder"], s["encoder"], ctx, x, pad_mask, cfg.nhead,
+            cfg.e_drop, cfg.conformer_kernel, impl=cfg.attn_impl,
+            scan_layers=cfg.scan_layers, remat=cfg.remat,
+            remat_policy=cfg.remat_policy)
+        return (memory, pad_mask), dict(s, encoder=enc_s)
     memory = T.encoder(p["encoder"], ctx, x, pad_mask, cfg.nhead, cfg.e_drop,
-                       impl=cfg.attn_impl, extra_bias=extra_bias)
+                       impl=cfg.attn_impl, extra_bias=extra_bias,
+                       **_stack_kw(cfg))
     return (memory, pad_mask), s
 
 
@@ -328,7 +360,7 @@ def speech_tr_decode_sequence(p, s, ctx, cfg: ModelConfig, tgt, tgt_lens,
     x = M.positional_encoding(ctx, x)
     h = T.decoder(p["decoder"], ctx, x, memory, tgt_pad_mask, mem_pad_mask,
                   cfg.nhead, cfg.d_drop, impl=cfg.attn_impl,
-                  cross_weights_out=cross_weights_out)
+                  cross_weights_out=cross_weights_out, **_stack_kw(cfg))
     pre, stop = M.speech_mel_and_stop(p["postnet"], h)
     pre = pre.reshape(b, t, cfg.num_mels)
     resid, postnet_s = M.speech_postnet(p["postnet"], s["postnet"], ctx, pre, cfg)
@@ -364,7 +396,8 @@ def speech_tr_infer(p, s, ctx, cfg: ModelConfig, memory, mem_pad_mask,
         x = M.speech_prenet(p["prenet"], ctx, cur, cfg)
         x = M.positional_encoding(ctx, x, offset=g)
         h, cache = T.decoder_step(p["decoder"], ctx, x, g, cache, mem_bias,
-                                  cfg.nhead, cfg.d_drop)
+                                  cfg.nhead, cfg.d_drop,
+                                  moe_opts=cfg.moe_opts)
         mel_t, stop_t = M.speech_mel_and_stop(p["postnet"], h)
         frames[:, g * r + 1:g * r + 1 + r] = mel_t.reshape(b, r, cfg.num_mels)
         stops[:, g * r:g * r + r] = stop_t.reshape(b, r)

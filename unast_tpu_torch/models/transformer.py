@@ -4,13 +4,25 @@ unrolled path.
 
 Batch-first [B, T, D] throughout; masks are additive float32 biases;
 softmax and layernorm run in float32 whatever the activation dtype.
-`scan_layers`, `remat`, pipeline stages and MoE come with later slices.
+A layer's FFN is the MoE FFN (models/moe.py) when it carries "moe".
+
+`scan_layers` is the same loop over the same per-layer params, each layer
+with its own generator seeded from one draw of the ctx (JAX's
+fold_in(base, li) of _layer_ctx). `remat` wraps each layer in
+torch.utils.checkpoint (non-reentrant) with those per-layer generators, so
+the recompute draws the same dropout masks; `remat_policy` picks what a
+layer saves (_ckpt). MoE aux losses of a scanned or checkpointed layer are
+its output and reach the outer ctx once (_take_aux). Pipeline stages come
+with a later slice.
 """
 
+import functools
 import math
 from typing import List, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import nn
 from ..ops.attention import flash_attention
@@ -45,7 +57,7 @@ def _split_heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
 def _fused_proj(ps, x: torch.Tensor) -> List[torch.Tensor]:
     """unast_tpu/models/transformer.py::_fused_proj: several same-input
     [D, D] projections as one wide matmul, split back (views)."""
-    w = torch.cat([p["w"].to(x.dtype) for p in ps], dim=1)
+    w = torch.cat([nn.weight(p, x.dtype) for p in ps], dim=1)
     b = torch.cat([p["b"] for p in ps])
     y = x @ w + b.to(x.dtype)
     return list(torch.split(y, y.shape[-1] // len(ps), dim=-1))
@@ -135,51 +147,158 @@ def chunk_bias(t: int, chunk: int, left_chunks: int, device=None) -> torch.Tenso
 
 
 def encoder_layer_init(gen: torch.Generator, d_model: int, nhead: int,
-                       ffn_dim: int):
-    """unast_tpu/models/transformer.py::encoder_layer_init (dense FFN)."""
-    return {
+                       ffn_dim: int, moe: int = 0):
+    """unast_tpu/models/transformer.py::encoder_layer_init; moe > 0 gives
+    the layer an MoE FFN of that many experts."""
+    p = {
         "attn": mha_init(gen, d_model, nhead),
         "ln1": nn.layernorm_init(d_model),
         "ln2": nn.layernorm_init(d_model),
-        "lin1": nn.linear_init(gen, d_model, ffn_dim, torch_default=True),
-        "lin2": nn.linear_init(gen, ffn_dim, d_model, torch_default=True),
     }
+    p.update(_ffn_init(gen, d_model, ffn_dim, moe))
+    return p
+
+
+def _ffn_init(gen: torch.Generator, d_model: int, ffn_dim: int, moe: int):
+    """A layer's FFN params: an MoE FFN of `moe` experts, else the dense
+    lin1 / lin2 pair."""
+    if moe > 0:
+        from . import moe as MoE
+        return {"moe": MoE.moe_init(gen, d_model, ffn_dim, moe)}
+    return {"lin1": nn.linear_init(gen, d_model, ffn_dim, torch_default=True),
+            "lin2": nn.linear_init(gen, ffn_dim, d_model, torch_default=True)}
 
 
 def encoder_init(gen: torch.Generator, d_model: int, nhead: int, ffn_dim: int,
-                 nlayers: int):
+                 nlayers: int, moe: int = 0):
     """unast_tpu/models/transformer.py::encoder_init."""
-    return {"layers": [encoder_layer_init(gen, d_model, nhead, ffn_dim)
+    return {"layers": [encoder_layer_init(gen, d_model, nhead, ffn_dim, moe)
                        for _ in range(nlayers)]}
 
 
-def _ffn(p, ctx: nn.Ctx, x, dropout_p: float):
-    """unast_tpu/models/transformer.py::_ffn (dense FFN only)."""
+def _ffn(p, ctx: nn.Ctx, x, dropout_p: float, pad_mask=None,
+         moe_opts=(1, 1.25)):
+    """unast_tpu/models/transformer.py::_ffn: the dense relu FFN, or the
+    MoE FFN when the layer carries expert params."""
     if "moe" in p:
-        raise NotImplementedError("MoE FFN layers come with a later slice")
+        from . import moe as MoE
+        return MoE.moe_ffn(p["moe"], ctx, x, pad_mask, dropout_p,
+                           opts=moe_opts)
     h = nn.dropout(ctx, torch.relu(nn.linear(p["lin1"], x)), dropout_p)
     return nn.linear(p["lin2"], h)
 
 
+def _has_moe(p) -> bool:
+    """unast_tpu/models/transformer.py::_has_moe."""
+    return "moe" in p["layers"][0]
+
+
+def _take_aux(inner: nn.Ctx, device) -> torch.Tensor:
+    """unast_tpu/models/transformer.py::_take_aux: the sum of the aux losses
+    an inner-layer ctx collected (0 when none). A scanned or checkpointed
+    layer returns it as an output, so that the outer ctx gets it once and
+    a recompute does not append it again."""
+    if inner.aux_losses:
+        return sum(inner.aux_losses)
+    return torch.zeros((), device=device)
+
+
+# aten ops whose outputs a policy saves (JAX's checkpoint policies):
+# 'dots' the unbatched products (dots_with_no_batch_dims_saveable),
+# 'dots_all' the batched ones too (dots_saveable).
+_SAVED_OPS = {"dots": ("mm", "addmm"),
+              "dots_all": ("mm", "addmm", "bmm", "baddbmm")}
+
+
+def _ckpt(fn, policy: str = ""):
+    """unast_tpu/models/transformer.py::_ckpt: fn under
+    torch.utils.checkpoint (non-reentrant). policy '' saves nothing in the
+    layer; 'dots' saves the outputs of aten.mm and aten.addmm; 'dots_all'
+    also those of aten.bmm and aten.baddbmm (the attention products), by
+    create_selective_checkpoint_contexts. The flash kernel is no aten op,
+    so it runs again in the recompute, as JAX recomputes a pallas_call.
+    With gradients off there is nothing to recompute and fn runs plainly."""
+    if policy:
+        ops = [getattr(torch.ops.aten, n).default for n in _SAVED_OPS[policy]]
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, ops)}
+    else:
+        kw = {}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _stack_seed(ctx: nn.Ctx):
+    """One draw of the ctx's generator, the base of a scanned or
+    checkpointed stack's per-layer generators (JAX's rng_base =
+    ctx.next_rng()); None when nothing will draw (eval mode or no
+    generator)."""
+    if not ctx.train or ctx.generator is None:
+        return None
+    g = ctx.next_rng()
+    return int(torch.randint(0, 2 ** 62, (1,), generator=g,
+                             device=g.device).item())
+
+
+def _layer_ctx(seed, train: bool, li: int, device, collect: bool = False):
+    """unast_tpu/models/transformer.py::_layer_ctx: layer li's ctx, its
+    generator seeded from (seed, li) (nn.fold_generator, JAX's fold_in);
+    collect gives it its own aux list (see _take_aux)."""
+    gen = None if seed is None else nn.fold_generator(seed, li, device)
+    return nn.Ctx(generator=gen, train=train,
+                  aux_losses=[] if collect else None)
+
+
+def _run_layers(ctx: nn.Ctx, layers, x, layer_fn, collect: bool, remat: bool,
+                remat_policy: str):
+    """The scanned or checkpointed stack: layer_fn(lp, inner_ctx, x) over
+    `layers`, each layer with its _layer_ctx, under _ckpt when remat. The
+    per-layer aux sums reach ctx.aux_losses once when collect."""
+    seed = _stack_seed(ctx)
+
+    def one(lp, li, x):
+        inner = _layer_ctx(seed, ctx.train, li, x.device, collect=collect)
+        return layer_fn(lp, inner, x), _take_aux(inner, x.device)
+
+    if remat:
+        one = _ckpt(one, remat_policy)
+    aux = torch.zeros((), device=x.device)
+    for li, lp in enumerate(layers):
+        x, a = one(lp, li, x)
+        aux = aux + a
+    if collect:
+        ctx.aux_losses.append(aux)
+    return x
+
+
 def encoder_layer(p, ctx: nn.Ctx, x, bias, nhead: int, dropout_p: float,
-                  impl: str = "xla", kv_lens=None):
+                  impl: str = "xla", kv_lens=None, pad_mask=None,
+                  moe_opts=(1, 1.25)):
     """unast_tpu/models/transformer.py::encoder_layer (post-LN)."""
     a = mha(p["attn"], ctx, x, x, bias, nhead, dropout_p,
             impl=impl, kv_lens=kv_lens)
     x = nn.layernorm(p["ln1"], x + nn.dropout(ctx, a, dropout_p))
-    f = _ffn(p, ctx, x, dropout_p)
+    f = _ffn(p, ctx, x, dropout_p, pad_mask=pad_mask, moe_opts=moe_opts)
     return nn.layernorm(p["ln2"], x + nn.dropout(ctx, f, dropout_p))
 
 
 def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
-            impl: str = "xla", extra_bias=None):
-    """unast_tpu/models/transformer.py::encoder, unrolled path. x: [B, T, D],
-    pad_mask: bool [B, T] True = PAD. impl='flash' passes the per-row
-    valid lengths (kv_lens) to the kernel instead of the bias.
-    extra_bias: an additive [1|B, 1|H, T, T] bias summed with the padding
-    bias in every layer (chunk_bias, the CTC encoder's relative bias); it
-    needs impl='xla' (ValueError otherwise: the kernel takes only kv_lens
-    and causal, as JAX asserts)."""
+            impl: str = "xla", scan_layers: bool = False,
+            remat: bool = False, moe_opts=(1, 1.25), remat_policy: str = "",
+            extra_bias=None):
+    """unast_tpu/models/transformer.py::encoder. x: [B, T, D], pad_mask:
+    bool [B, T] True = PAD. impl='flash' passes the per-row valid lengths
+    (kv_lens) to the kernel instead of the bias. extra_bias: an additive
+    [1|B, 1|H, T, T] bias summed with the padding bias in every layer
+    (chunk_bias, the CTC encoder's relative bias); it needs impl='xla'
+    (ValueError otherwise: the kernel takes only kv_lens and causal, as
+    JAX asserts). scan_layers / remat / remat_policy: see the module
+    docstring; moe_opts: models/moe.py::MoeOpts for MoE layers."""
     if extra_bias is not None and impl == "flash":
         raise ValueError("extra_bias requires the xla attention path")
     bias = padding_bias(pad_mask) if impl != "flash" else None
@@ -187,9 +306,15 @@ def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
         bias = bias + extra_bias
     kv_lens = ((~pad_mask).sum(dim=1, dtype=torch.int32)
                if impl == "flash" else None)
+    layer = functools.partial(encoder_layer, bias=bias, nhead=nhead,
+                              dropout_p=dropout_p, impl=impl, kv_lens=kv_lens,
+                              pad_mask=pad_mask, moe_opts=moe_opts)
+    if scan_layers or remat:
+        collect = ctx.aux_losses is not None and _has_moe(p)
+        return _run_layers(ctx, p["layers"], x, layer, collect, remat,
+                           remat_policy)
     for lp in p["layers"]:
-        x = encoder_layer(lp, ctx, x, bias, nhead, dropout_p,
-                          impl=impl, kv_lens=kv_lens)
+        x = layer(lp, ctx, x)
     return x
 
 
@@ -199,51 +324,56 @@ def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
 
 
 def decoder_layer_init(gen: torch.Generator, d_model: int, nhead: int,
-                       ffn_dim: int):
-    """unast_tpu/models/transformer.py::decoder_layer_init (dense FFN)."""
-    return {
+                       ffn_dim: int, moe: int = 0):
+    """unast_tpu/models/transformer.py::decoder_layer_init; moe > 0 gives
+    the layer an MoE FFN of that many experts."""
+    p = {
         "self": mha_init(gen, d_model, nhead),
         "cross": mha_init(gen, d_model, nhead),
         "ln1": nn.layernorm_init(d_model),
         "ln2": nn.layernorm_init(d_model),
         "ln3": nn.layernorm_init(d_model),
-        "lin1": nn.linear_init(gen, d_model, ffn_dim, torch_default=True),
-        "lin2": nn.linear_init(gen, ffn_dim, d_model, torch_default=True),
     }
+    p.update(_ffn_init(gen, d_model, ffn_dim, moe))
+    return p
 
 
 def decoder_init(gen: torch.Generator, d_model: int, nhead: int, ffn_dim: int,
-                 nlayers: int):
+                 nlayers: int, moe: int = 0):
     """unast_tpu/models/transformer.py::decoder_init."""
-    return {"layers": [decoder_layer_init(gen, d_model, nhead, ffn_dim)
+    return {"layers": [decoder_layer_init(gen, d_model, nhead, ffn_dim, moe)
                        for _ in range(nlayers)]}
 
 
 def decoder_layer(p, ctx: nn.Ctx, x, memory, self_bias, cross_bias,
                   nhead: int, dropout_p: float, impl: str = "xla",
-                  tgt_lens=None, mem_lens=None, cross_weights_out=None):
-    """unast_tpu/models/transformer.py::decoder_layer (post-LN, dense FFN):
-    causal self-attention, cross-attention over memory, FFN."""
+                  tgt_lens=None, mem_lens=None, cross_weights_out=None,
+                  pad_mask=None, moe_opts=(1, 1.25)):
+    """unast_tpu/models/transformer.py::decoder_layer (post-LN): causal
+    self-attention, cross-attention over memory, FFN."""
     a = mha(p["self"], ctx, x, x, self_bias, nhead, dropout_p,
             impl=impl, kv_lens=tgt_lens, causal=True)
     x = nn.layernorm(p["ln1"], x + nn.dropout(ctx, a, dropout_p))
     a = mha(p["cross"], ctx, x, memory, cross_bias, nhead, dropout_p,
             impl=impl, kv_lens=mem_lens, weights_out=cross_weights_out)
     x = nn.layernorm(p["ln2"], x + nn.dropout(ctx, a, dropout_p))
-    f = _ffn(p, ctx, x, dropout_p)
+    f = _ffn(p, ctx, x, dropout_p, pad_mask=pad_mask, moe_opts=moe_opts)
     return nn.layernorm(p["ln3"], x + nn.dropout(ctx, f, dropout_p))
 
 
 def decoder(p, ctx: nn.Ctx, x, memory, tgt_pad_mask, mem_pad_mask,
             nhead: int, dropout_p: float, impl: str = "xla",
-            cross_weights_out=None):
-    """unast_tpu/models/transformer.py::decoder, the unrolled path:
-    teacher-forced parallel decode. x: [B, Tt, D], memory: [B, Ts, D],
-    pad masks bool True = PAD. impl='flash' passes the target and memory
-    valid lengths to the kernel (causal self-attention); if
-    `cross_weights_out` is a list, each layer's float32 cross-attention
-    probabilities [B, H, Tt, Ts] are appended (that attention then runs
-    through attention_core)."""
+            scan_layers: bool = False, cross_weights_out=None,
+            remat: bool = False, moe_opts=(1, 1.25), remat_policy: str = ""):
+    """unast_tpu/models/transformer.py::decoder: teacher-forced parallel
+    decode. x: [B, Tt, D], memory: [B, Ts, D], pad masks bool True = PAD.
+    impl='flash' passes the target and memory valid lengths to the kernel
+    (causal self-attention); if `cross_weights_out` is a list, each
+    layer's float32 cross-attention probabilities [B, H, Tt, Ts] are
+    appended (that attention then runs through attention_core), and the
+    stack is not rematerialised, as in JAX (the guided-attention loss
+    needs the probabilities saved). scan_layers / remat / remat_policy /
+    moe_opts: as in encoder."""
     t = x.shape[1]
     self_bias = causal_bias(t, x.device) + padding_bias(tgt_pad_mask)
     cross_bias = padding_bias(mem_pad_mask)
@@ -251,11 +381,19 @@ def decoder(p, ctx: nn.Ctx, x, memory, tgt_pad_mask, mem_pad_mask,
     if impl == "flash":
         tgt_lens = (~tgt_pad_mask).sum(dim=1, dtype=torch.int32)
         mem_lens = (~mem_pad_mask).sum(dim=1, dtype=torch.int32)
+    remat = remat and cross_weights_out is None
+    layer = functools.partial(decoder_layer, memory=memory,
+                              self_bias=self_bias, cross_bias=cross_bias,
+                              nhead=nhead, dropout_p=dropout_p, impl=impl,
+                              tgt_lens=tgt_lens, mem_lens=mem_lens,
+                              cross_weights_out=cross_weights_out,
+                              pad_mask=tgt_pad_mask, moe_opts=moe_opts)
+    if scan_layers or remat:
+        collect = ctx.aux_losses is not None and _has_moe(p)
+        return _run_layers(ctx, p["layers"], x, layer, collect, remat,
+                           remat_policy)
     for lp in p["layers"]:
-        x = decoder_layer(lp, ctx, x, memory, self_bias, cross_bias, nhead,
-                          dropout_p, impl=impl, tgt_lens=tgt_lens,
-                          mem_lens=mem_lens,
-                          cross_weights_out=cross_weights_out)
+        x = layer(lp, ctx, x)
     return x
 
 
@@ -290,7 +428,7 @@ def init_cache(p, memory: torch.Tensor, max_len: int, nhead: int) -> DecodeCache
 
 
 def decoder_step(p, ctx: nn.Ctx, x, pos: int, cache: DecodeCache, mem_bias,
-                 nhead: int, dropout_p: float):
+                 nhead: int, dropout_p: float, moe_opts=(1, 1.25)):
     """unast_tpu/models/transformer.py::decoder_step, unrolled path. One
     decode step of x [B, 1, D] at position `pos` (a Python int). Writes this
     step's K/V into the cache IN PLACE and returns (y [B, 1, D], cache).
@@ -298,7 +436,9 @@ def decoder_step(p, ctx: nn.Ctx, x, pos: int, cache: DecodeCache, mem_bias,
     Self-attention reads cache positions [0, pos] only. JAX attends over
     the whole max_len buffer with -1e9 on the positions past `pos`; those
     carry weight exp(-1e9 - m) = 0 exactly in float32, so the result is
-    the same up to the order of the sums."""
+    the same up to the order of the sums. JAX's scan_layers form of the
+    step is the same loop. An MoE layer's FFN takes the exact dense
+    path here (T == 1)."""
     for li, lp in enumerate(p["layers"]):
         q, k_t, v_t = (_split_heads(y, nhead) for y in _fused_proj(
             [lp["self"]["q"], lp["self"]["k"], lp["self"]["v"]], x))
@@ -316,6 +456,6 @@ def decoder_step(p, ctx: nn.Ctx, x, pos: int, cache: DecodeCache, mem_bias,
         a = nn.linear(lp["cross"]["out"], a.reshape(b_, t_, h_ * dh_))
         x = nn.layernorm(lp["ln2"], x + nn.dropout(ctx, a, dropout_p))
 
-        f = _ffn(lp, ctx, x, dropout_p)
+        f = _ffn(lp, ctx, x, dropout_p, moe_opts=moe_opts)
         x = nn.layernorm(lp["ln3"], x + nn.dropout(ctx, f, dropout_p))
     return x, cache

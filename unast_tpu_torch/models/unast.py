@@ -1,6 +1,6 @@
 """UNAST facade of the port: init, the six task methods, the LSTM
-discriminator and the CBHG vocoder, mirroring `unast_tpu/models/unast.py`.
-The MLP discriminator comes with a later slice.
+discriminator (and the MLP one) and the CBHG vocoder, mirroring
+`unast_tpu/models/unast.py`.
 
 All tasks are functions (params, state, ctx, cfg, batch) -> (outputs,
 new_state). The cross-modal tasks make their greedy pseudo-pairs under
@@ -32,6 +32,16 @@ def unast_init(gen: torch.Generator, cfg: ModelConfig):
             gen, cfg.enc_out_dim, cfg.disc_hid, cfg.disc_bidirectional,
             cfg.disc_num_layers)
     return params, {"text_m": text_s, "speech_m": speech_s}
+
+
+def num_params(params) -> int:
+    """unast_tpu/models/unast.py::num_params: the element count of every
+    leaf of the tree."""
+    if isinstance(params, dict):
+        return sum(num_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(num_params(v) for v in params)
+    return params.numel()
 
 
 def _merge(state, **updates):
@@ -84,14 +94,25 @@ def speech_ae(params, state, ctx, cfg: ModelConfig, mel, mel_len,
     return (pre, post, stop), new_state
 
 
+def _pseudo_encode_grad(ctx: nn.Ctx, moe_encoder: bool = True):
+    """The grad mode of a cross-modal task's pseudo-pair encode: off, as
+    JAX's stop_gradient over the pseudo-pair makes it, unless the ctx
+    collects MoE aux losses and the encoder has MoE layers (not the
+    conformer). JAX's encode appends those with their gradient (only its
+    outputs are stopped), so the port keeps it then."""
+    return torch.set_grad_enabled(torch.is_grad_enabled() and moe_encoder
+                                  and ctx.aux_losses is not None)
+
+
 def cm_text_in(params, state, ctx, cfg: ModelConfig, text, text_len,
                ret_enc_hid=False, infer_mel_len=None):
     """unast_tpu/models/unast.py::cm_text_in, back-translation with text in:
     a no-grad greedy TTS makes pseudo-speech (its BN state discarded), then
     speech encode -> text decode with gradients."""
-    with torch.no_grad():
+    with _pseudo_encode_grad(ctx):
         (t_enc, t_mask), _ = N.text_encode(params["text_m"], state["text_m"],
                                            ctx, cfg, text, text_len)
+    with torch.no_grad():
         (_, post_pred, _, pred_lens), _ = N.speech_infer(
             params["speech_m"], state["speech_m"], ctx, cfg, t_enc, t_mask,
             max_len=infer_mel_len)
@@ -130,10 +151,11 @@ def cm_speech_in(params, state, ctx: nn.Ctx, cfg: ModelConfig, mel, mel_len,
     equal to the eval-mode greedy transcript; 'ctc': the CTC head's
     greedy output itself (_cm_ctc_draft). 'spec' and 'ctc' need
     cfg.ctc_weight > 0 and the transformer backbone (ValueError)."""
-    with torch.no_grad():
+    with _pseudo_encode_grad(ctx, cfg.speech_encoder != "conformer"):
         (s_enc, s_mask), _ = N.speech_encode(params["speech_m"],
                                              state["speech_m"], ctx, cfg,
                                              mel, mel_len)
+    with torch.no_grad():
         if text_decode != "ar":
             if cfg.ctc_weight <= 0 or cfg.model_type != "transformer":
                 raise ValueError(
@@ -214,6 +236,24 @@ def asr(params, state, ctx, cfg: ModelConfig, text=None, text_len=None,
 # ---------------------------------------------------------------------------
 # LSTM discriminator
 # ---------------------------------------------------------------------------
+
+
+def mlp_discriminator_init(gen: torch.Generator, enc_dim: int,
+                           hidden: int = 1024):
+    """unast_tpu/models/unast.py::mlp_discriminator_init: the Lample-style
+    3 x hidden LeakyReLU(0.2) MLP, fc1..fc4 (torch-default Linear init)."""
+    dims = [(enc_dim, hidden), (hidden, hidden), (hidden, hidden), (hidden, 1)]
+    return {f"fc{i + 1}": nn.linear_init(gen, a, b, torch_default=True)
+            for i, (a, b) in enumerate(dims)}
+
+
+def mlp_discriminator(p, ctx: nn.Ctx, x, dropout_p=0.2, slope=0.2):
+    """unast_tpu/models/unast.py::mlp_discriminator: x [..., enc_dim] ->
+    logits [...]."""
+    for name in ("fc1", "fc2", "fc3"):
+        x = nn.dropout(ctx, torch.nn.functional.leaky_relu(
+            nn.linear(p[name], x), slope), dropout_p)
+    return nn.linear(p["fc4"], x).squeeze(-1)
 
 
 def lstm_discriminator_init(gen: torch.Generator, d_in: int, hidden: int,

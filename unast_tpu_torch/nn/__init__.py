@@ -1,7 +1,9 @@
 """Functional NN core of the port (counterpart of unast_tpu/nn)."""
 
+from . import quant
 from .core import (
     Ctx,
+    fold_generator,
     calculate_gain,
     xavier_uniform,
     torch_linear_uniform,
@@ -28,7 +30,7 @@ from .core import (
 )
 
 __all__ = [
-    "Ctx", "calculate_gain", "xavier_uniform", "torch_linear_uniform",
+    "quant", "Ctx", "fold_generator", "calculate_gain", "xavier_uniform", "torch_linear_uniform",
     "linear_init", "weight", "linear", "conv1d_init", "conv1d", "embedding_init",
     "embedding", "batchnorm_init", "batchnorm", "layernorm_init",
     "layernorm", "dropout", "lstm_cell_init", "lstm_gates_in", "lstm_cell",

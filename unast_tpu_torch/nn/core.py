@@ -13,6 +13,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -23,10 +24,15 @@ class Ctx:
     one stream of draws of a train-mode forward: every stochastic op takes
     its draws from it (next_rng), on the device of the activations, so it
     advances op by op as JAX's fold-in counter does. Its bits differ from
-    JAX's. Eval mode needs none."""
+    JAX's. Eval mode needs none.
+
+    `aux_losses`: None, or a list the caller sets (train/steps.py does for
+    MoE configs); layers append auxiliary scalar losses to it (the MoE
+    load-balance term) and the objective sums them."""
 
     generator: Optional[torch.Generator] = None
     train: bool = False
+    aux_losses: Optional[list] = None
 
     def next_rng(self) -> torch.Generator:
         """unast_tpu/nn/core.py::Ctx.next_rng: the generator a stochastic
@@ -38,6 +44,14 @@ class Ctx:
     @staticmethod
     def eval() -> "Ctx":
         return Ctx(generator=None, train=False)
+
+
+def fold_generator(seed: int, index: int, device) -> torch.Generator:
+    """A torch.Generator on `device` seeded from the pair (seed, index)
+    through numpy's SeedSequence: the counterpart of
+    jax.random.fold_in(key(seed), index)."""
+    state = np.random.SeedSequence([seed, index]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +154,14 @@ def layernorm_init(c: int):
 
 
 def weight(p, dtype: torch.dtype, name: str = "w") -> torch.Tensor:
-    """unast_tpu/nn/core.py::weight: the weight `name` of p in `dtype`. The
-    int8 weight-only form ({name}_q + {name}_scale) comes with the int8
-    quantization slice and raises."""
-    if name + "_q" in p:
-        raise NotImplementedError(
-            f"int8 weight {name}_q: nn/quant.py comes with a later slice of "
-            "the port (ROADMAP.md queue 1 item 6)")
-    return p[name].to(dtype)
+    """unast_tpu/nn/core.py::weight: the weight `name` of p in `dtype`. An
+    int8 weight-only leaf (nn/quant.py: {name}_q int8 + {name}_scale per
+    output channel) is dequantized in `dtype`, as JAX does: the scale is
+    rounded to `dtype` before the product."""
+    q = p.get(name + "_q")
+    if q is None:
+        return p[name].to(dtype)
+    return q.to(dtype) * p[name + "_scale"].to(dtype)
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -172,7 +186,11 @@ def conv1d(p, x: torch.Tensor, padding) -> torch.Tensor:
 
 
 def embedding(p, ids: torch.Tensor) -> torch.Tensor:
-    """unast_tpu/nn/core.py::embedding (row gather)."""
+    """unast_tpu/nn/core.py::embedding (row gather). An int8 table takes
+    its int8 rows first, then scales them in float32."""
+    q = p.get("w_q")
+    if q is not None:
+        return q[ids].float() * p["w_scale"]
     return p["w"][ids]
 
 

@@ -341,7 +341,7 @@ def apply_runtime_flags(args):
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: the port runs on one device; parallelism "
-            "comes with a later slice (ROADMAP.md queue 1 item 7)")
+            "comes with a later slice (ROADMAP.md queue 1 item 7b)")
 
 
 def train_args(path=None, **overrides) -> argparse.Namespace:

@@ -57,6 +57,15 @@ def speech_loss(gold_mel, stop_label, pred_mel, post_pred_mel, mel_len,
     return pred_loss + post_loss + stop_loss
 
 
+def soft_cross_entropy(logits, soft_targets, size_average: bool = True):
+    """unast_tpu/train/losses.py::soft_cross_entropy: cross-entropy against
+    soft targets over axis 1, in float32; the mean over the rest, or the
+    sum."""
+    logp = torch.log_softmax(logits.float(), dim=1)
+    per = (-soft_targets.float() * logp).sum(dim=1)
+    return per.mean() if size_average else per.sum()
+
+
 def discriminator_loss(output, target):
     """unast_tpu/train/losses.py::discriminator_loss (BCE with logits)."""
     return bce_with_logits(output, target)

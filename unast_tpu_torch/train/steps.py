@@ -33,7 +33,6 @@ import contextlib
 import functools
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -95,14 +94,28 @@ def flash_calls_per_step(cfg: ModelConfig, args, spec_rounds: int = 0):
     'spec' a no-grad decoder's self- and cross-attention for each of the
     step's `spec_rounds` verify rounds (their count depends on the data:
     networks.text_tr_spec_infer.rounds); a d micro-batch two no-grad
-    encoders. The RNN backbone calls no attention kernel: (0, 0)."""
+    encoders. With MoE layers (cfg.moe_experts > 0) cm's pseudo-pair
+    encoders keep their gradients (unast._pseudo_encode_grad), so each
+    has a backward too, the conformer speech encoder's excepted. With
+    cfg.remat every checkpointed layer with gradients runs its forward
+    again in the backward: every attention with a backward call, except
+    the decoders' of ae and sp under guided attention, which are not
+    checkpointed (transformer.decoder). A conformer layer has one
+    attention, as an encoder layer has. The RNN backbone calls no
+    attention kernel: (0, 0)."""
     if cfg.model_type != "transformer":
         return 0, 0
-    tf = 4 if _ga_cfg(cfg, args)[0] else 6
+    ga = _ga_cfg(cfg, args)[0]
+    tf = 4 if ga else 6
     sp = tf + (1 if cfg.ctc_weight > 0 else 0)
     fwd = (args.ae_steps * tf + args.cm_steps * 8 + args.sp_steps * sp
            + 2 * spec_rounds)
-    bwd = args.ae_steps * tf + args.cm_steps * 6 + args.sp_steps * sp
+    cm_bwd = 6
+    if cfg.moe_experts > 0:
+        cm_bwd += 1 + (cfg.speech_encoder != "conformer")
+    bwd = args.ae_steps * tf + args.cm_steps * cm_bwd + args.sp_steps * sp
+    if cfg.remat:
+        fwd += bwd - (2 * (args.ae_steps + args.sp_steps) if ga else 0)
     if cfg.use_discriminator:
         fwd += args.d_steps * 2
     return cfg.num_layers * fwd, cfg.num_layers * bwd
@@ -220,18 +233,32 @@ def _gold(batch):
 
 def seeded_generator(seed: int, index: int, device) -> torch.Generator:
     """A torch.Generator on `device` seeded from the pair (seed, index)
-    through numpy's SeedSequence: the counterpart of
+    (nn.fold_generator): the counterpart of
     jax.random.fold_in(PRNGKey(seed), index), by which the loop gives step
     `index` its draws, so a resumed run draws what an unbroken one would."""
-    state = np.random.SeedSequence([seed, index]).generate_state(1)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+    return nn.fold_generator(seed, index, device)
 
 
-def _obj_ctx(gen, args) -> nn.Ctx:
+def _obj_ctx(gen, args, cfg: ModelConfig = None) -> nn.Ctx:
     """unast_tpu/train/steps.py::_obj_ctx: train mode (dropout, DAE noise,
-    SpecAugment, batch BN statistics) unless args.objective_eval_mode."""
+    SpecAugment, batch BN statistics) unless args.objective_eval_mode; for
+    an MoE config (cfg.moe_experts > 0) the ctx collects the layers'
+    load-balance losses, which _moe_aux folds into the objective."""
+    collect = cfg is not None and cfg.moe_experts > 0
     return nn.Ctx(generator=gen,
-                  train=not getattr(args, "objective_eval_mode", False))
+                  train=not getattr(args, "objective_eval_mode", False),
+                  aux_losses=[] if collect else None)
+
+
+def _moe_aux(ctx: nn.Ctx, args, aux: dict):
+    """unast_tpu/train/steps.py::_moe_aux: moe_aux_weight (default 0.01)
+    times the sum of the MoE load-balance losses collected on `ctx`, the
+    raw sum recorded as aux 'moe'; 0 when none were collected."""
+    if not ctx.aux_losses:
+        return 0.0
+    raw = sum(ctx.aux_losses)
+    aux["moe"] = raw
+    return float(getattr(args, "moe_aux_weight", 0.01) or 0.0) * raw
 
 
 def _ga_cfg(cfg: ModelConfig, args):
@@ -249,7 +276,7 @@ def _ga_loss(ws, q_len, k_len, sigma):
 def ae_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
     """unast_tpu/train/steps.py::ae_loss_fn, the denoising AE objective."""
     text, mel, text_len, mel_len, gold_stop = _gold(batch)
-    ctx = _obj_ctx(gen, args)
+    ctx = _obj_ctx(gen, args, cfg)
     ga_on, ga_w, ga_sigma = _ga_cfg(cfg, args)
     t_ws = [] if ga_on else None
     s_ws = [] if ga_on else None
@@ -279,8 +306,9 @@ def ae_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
         ga = ga_w * (_ga_loss(t_ws, text_len, text_len, ga_sigma)
                      + _ga_loss(s_ws, s_q, mel_len, ga_sigma))
         aux["ga_ae"] = ga
+    moe = _moe_aux(ctx, args, aux)
     aux.update(t_ae=t_ae, s_ae=s_ae)
-    return (t_ae + s_ae + d_loss + ga) * scale, (aux, st)
+    return (t_ae + s_ae + d_loss + ga + moe) * scale, (aux, st)
 
 
 def sp_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
@@ -288,7 +316,7 @@ def sp_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
     SpecAugment on the ASR input; with cfg.ctc_weight > 0 the hybrid
     CTC/attention loss on the speech encoder's output (aux 'ctc_sp')."""
     text, mel, text_len, mel_len, gold_stop = _gold(batch)
-    ctx = _obj_ctx(gen, args)
+    ctx = _obj_ctx(gen, args, cfg)
     ga_on, ga_w, ga_sigma = _ga_cfg(cfg, args)
     tts_ws = [] if ga_on else None
     asr_ws = [] if ga_on else None
@@ -334,15 +362,16 @@ def sp_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
         ctc_logits = nn.linear(params["speech_m"]["ctc_head"], mem).float()
         ctc = cfg.ctc_weight * CT.ctc_loss(ctc_logits, pad, text, text_len)
         aux["ctc_sp"] = ctc
+    moe = _moe_aux(ctx, args, aux)
     aux.update(tts=tts_l, asr=asr_l)
-    return (tts_l + asr_l + d_loss + ga + ctc) * scale, (aux, st)
+    return (tts_l + asr_l + d_loss + ga + moe + ctc) * scale, (aux, st)
 
 
 def cm_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
     """unast_tpu/train/steps.py::cm_loss_fn, the back-translation objective:
     the greedy pseudo-pair decodes run inside the step, without grad."""
     text, mel, text_len, mel_len, gold_stop = _gold(batch)
-    ctx = _obj_ctx(gen, args)
+    ctx = _obj_ctx(gen, args, cfg)
     infer_mel = getattr(args, "cm_infer_mel_len", None) or cfg.max_mel_len
     infer_text = getattr(args, "cm_infer_text_len", None) or cfg.max_text_len
     td = getattr(args, "cm_text_decode", "ar") or "ar"
@@ -366,8 +395,9 @@ def cm_loss_fn(params, net_state, gen, batch, cfg: ModelConfig, args, scale):
     s_cm = L.speech_loss(mel, gold_stop, pre, post, mel_len, stop,
                          args.s_eos_weight)
     t_cm = L.text_loss(text, logits, args.t_eos_weight)
+    moe = _moe_aux(ctx, args, aux)
     aux.update(s_cm=s_cm, t_cm=t_cm)
-    return (s_cm + t_cm + d_loss) * scale, (aux, st)
+    return (s_cm + t_cm + d_loss + moe) * scale, (aux, st)
 
 
 def disc_loss_fn(disc_params, gen_params, net_state, gen, batch,
