@@ -156,15 +156,38 @@ Phases (each that fails exits non-zero; nothing is caught):
      1e-4 (a conformer encoder in train mode, both MoE paths, a MoE stack
      under remat 'dots_all' and under scan_layers with its gradient, the
      quantized TTS forward);
-  19. one `{"kernels": [...]}` line (both routes, with their launches on
+  19. the serving export and the checkpoint migration at flagship width:
+     export_synthesizer of phase 15's student, phase 16's MelGAN and phase
+     14's CTC model at batch 8, text 304, mel 816, the bundle loaded back
+     in this process and each program called on the card (nar_tts 8 bf16
+     launches, ctc_asr 4, vocode 0; each exported graph holds those
+     unast::flash_attention_fwd nodes) against the eager functions
+     (1e-5 of the largest, ids equal), the export's seconds, the bundle's
+     bytes, each call's seconds, the registered operator's dispatch cost
+     against a direct call; the flagship trees and phase 12's CBHG vocoder
+     through export_state_dict / import_state_dict bit-equal, and the two
+     compat CLIs round-tripping the flagship checkpoint;
+  20. data parallelism on the one card: a dp = 2 world of two processes
+     (this script with --dp-worker) under gloo sharing the H100 (NCCL
+     refuses two ranks on one device; the device line still says count 1),
+     each joined, a failing rank failing the phase: at TINY f32 one dp
+     step per ZeRO level 0, 1 and 3 against the single-process step
+     (phase 8's tolerances) and Synthesizer(mesh=) against the
+     single-process one; at flagship width one bf16 joint step with zero=1
+     and one with zero=3, each rank's launches and backward calls as
+     flash_calls_per_step counts them, its peak memory and optimizer
+     bytes, the step's seconds;
+  then one `{"kernels": [...]}` line (both routes, with their launches on
      the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
      beam, CTC train, hybrid, NAR serve, distill, NAR + MelGAN serve,
-     wide step and serve, and family step, serve and TINY paths), a
+     wide step and serve, family step, serve and TINY, export and dp
+     paths), a
      `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
      `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`,
      a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a `{"melgan":
-     ...}`, a `{"wide": ...}`, a `{"families": ...}` and a `{"serve":
-     ...}` line, and last `{"ok": true, "device": ...}`.
+     ...}`, a `{"wide": ...}`, a `{"families": ...}`, an `{"export":
+     ...}`, a `{"dp": ...}` and a `{"serve": ...}` line, and last
+     `{"ok": true, "device": ...}`.
 """
 
 import json
@@ -891,9 +914,9 @@ class LoopProbe:
         L = self.loop
         self.saved = (L.make_train_step, L.evaluate, L.save_ckp)
         make = L.make_train_step
-        L.make_train_step = lambda cfg, args: self._wrap(
+        L.make_train_step = lambda cfg, args, **kw: self._wrap(
             "step" if args.ae_steps or args.cm_steps else "warm_start_step",
-            make(cfg, args))
+            make(cfg, args, **kw))
         L.evaluate = self._wrap("eval", L.evaluate)
         L.save_ckp = self._wrap("save", L.save_ckp)
         return self
@@ -1390,7 +1413,7 @@ def vocoder_phase(fa, flag_params, flag_state, flag_cfg):
         "serve_max_memory_allocated_bytes": serve_peak,
         "wav_samples": [len(w) for w in wavs], "tiny_gpu_vs_cpu": tiny,
         "phase_s": time.perf_counter() - t_phase,
-    }
+    }, (params, vstate)
 
 
 def _run_cli(module, argv):
@@ -1785,7 +1808,7 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
         "serve": {"requests": len(mels), "mel_lens": [len(m) for m in mels], **serve},
         "hybrid_step": hybrid, "tiny_gpu_vs_cpu": tiny, "ctc_check_gate": gate,
         "phase_s": time.perf_counter() - t_phase,
-    }
+    }, (ts.params, ts.net_state)
 
 
 def nar_tiny_checks(fa):
@@ -2227,7 +2250,7 @@ def melgan_phase(fa, flag_params, flag_state, flag_cfg, student, root):
                    "chunks": 1 + len(rest), "samples": len(streamed),
                    "whole_utterance_pcm16_s": whole_s},
         "tiny_gpu_vs_cpu": tiny, "phase_s": time.perf_counter() - t_phase,
-    }
+    }, gp
 
 
 def _text_logits(syn, mels, ids):
@@ -2603,6 +2626,331 @@ def families_phase(fa, flag_cfg):
     return out
 
 
+def dispatch_cost(fa, iters: int = 400, tries: int = 3):
+    """Host microseconds a call of the flash forward takes through the
+    registered operator (torch.ops.unast.flash_attention_fwd, what
+    flash_attention and the exported programs call) and through
+    ops/attention.py::_forward directly, on a bf16 serving shape (B8 T815
+    H4 D64, no gradient): each the mean over `iters` back-to-back calls,
+    synchronised at the end, the least of `tries` alternating rounds; the
+    difference is what the dispatcher adds."""
+    from unast_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (torch.randn((8, 815, 4, 64), generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    lens = torch.full((8,), 815, device="cuda")
+    calls = {"operator": lambda: A.flash_attention_fwd(q, k, v, lens, False),
+             "direct": lambda: A._forward(q, k, v, lens, False)}
+    best = {name: float("inf") for name in calls}
+    with torch.no_grad():
+        for fn in calls.values():
+            fn()
+        for _ in range(tries):
+            for name, fn in calls.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                best[name] = min(best[name], 1e6 * (time.perf_counter() - t) / iters)
+    reset_launch_counts(fa)
+    return {"shape": "B8 T815 H4 D64 bf16", "iters": iters,
+            "operator_us": best["operator"], "direct_us": best["direct"],
+            "dispatch_us": best["operator"] - best["direct"]}
+
+
+def export_phase(fa, flag_params, flag_state, flag_cfg, ctc_pv, student, melgan_params,
+                 vocoder_pv):
+    """Phase 19: the serving export and the checkpoint migration at flagship
+    width. infer/export.py::export_synthesizer of a Synthesizer over phase
+    4's AR model, phase 15's FastSpeech student, phase 14's CTC model and
+    phase 16's MelGAN generator at batch 8 and the largest buckets (text
+    304, mel 816); load_bundle of it in this process; each program called
+    on the card on the 8 SENTENCES (nar_tts), on the float32 mels the
+    exported nar_tts made for them (ctc_asr, vocode), counts set to 0 just
+    before each call and read just after (nar_tts: a text encoder and a
+    frame decoder, 2 x num_layers bf16 launches; ctc_asr: one encoder;
+    vocode: none), each held to the eager function the Synthesizer runs on
+    the same inputs (mels and waveforms within 1e-5 of the largest, ids
+    and lengths equal); the export's seconds, the bundle's bytes, each
+    call's seconds; the operator's dispatch cost (dispatch_cost); then
+    compat: export_state_dict -> import_state_dict of the flagship trees
+    and of phase 12's CBHG vocoder bit-equal, and the two CLIs (the main()
+    of python -m unast_tpu_torch.compat.torch_import / torch_export, in
+    this process) round trip the flagship checkpoint through torch.save
+    files bit for bit."""
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.compat import torch_export as CE, torch_import as CI
+    from unast_tpu_torch.infer.export import export_synthesizer, load_bundle
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import melgan as MG
+    from unast_tpu_torch.text import raw_text_to_phoneme_ids
+    from unast_tpu_torch.train.optim import tree_paths
+    t_phase = time.perf_counter()
+    cfg = flag_cfg
+    syn = Synthesizer(flag_params, flag_state, cfg, nar_pv=student,
+                      melgan_params=melgan_params, ctc_pv=ctc_pv)
+    out = {"batch": 8, "text_bucket": 304, "mel_bucket": 816}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve_bundle.zip")
+        t = time.perf_counter()
+        export_synthesizer(syn, path, batch=8, mel_bucket=816, text_bucket=304)
+        out["export_s"] = time.perf_counter() - t
+        out["bundle_bytes"] = os.path.getsize(path)
+        t = time.perf_counter()
+        b = load_bundle(path)
+        out["load_s"] = time.perf_counter() - t
+    assert b.names() == ["ctc_asr", "nar_tts", "vocode"], b.names()
+    out["graph_flash_nodes"] = {
+        name: sum(n.target is torch.ops.unast.flash_attention_fwd.default
+                  for n in b.programs[name].graph.nodes) for name in b.names()}
+    weights = {k: nn.tree_to(w, "cuda") for k, w in b.weights.items()}
+    ids = torch.zeros((8, 304), dtype=torch.long)
+    lens = torch.zeros((8,), dtype=torch.long)
+    for i, s in enumerate(SENTENCES):
+        seq = raw_text_to_phoneme_ids(s)[:304]
+        ids[i, :len(seq)] = torch.tensor(seq)
+        lens[i] = len(seq)
+    ids, lens = ids.cuda(), lens.cuda()
+    calls = {}
+
+    def run(name, *args):
+        reset_launch_counts(fa)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = b.call(name, weights[{"nar_tts": "nar", "ctc_asr": "ctc",
+                                    "vocode": "melgan"}[name]], *args)
+        torch.cuda.synchronize()
+        calls[name] = {"s": time.perf_counter() - t,
+                       "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32}
+        return res
+
+    run("nar_tts", ids, lens)                   # the first call loads the module
+    post, out_lens = run("nar_tts", ids, lens)
+    mel = post.float()[:, :816]
+    mel = torch.nn.functional.pad(mel, (0, 0, 0, 816 - mel.shape[1]))
+    mel_len = torch.clamp(out_lens, 1, 816)
+    run("ctc_asr", mel, mel_len)
+    asr_ids, asr_lens = run("ctc_asr", mel, mel_len)
+    run("vocode", mel)
+    wav = run("vocode", mel)
+    with torch.inference_mode():
+        e_post, e_lens = syn._nar_tts_impl(ids, lens)
+        e_ids, e_lens2 = syn._ctc_asr_impl(mel, mel_len)
+        e_wav = MG.generator_forward(syn.melgan_params, mel)
+    rel = lambda a, e: float((a.float() - e.float()).abs().max() / e.float().abs().max())
+    out["nar_tts"] = {"post_rel_err": rel(post, e_post),
+                      "out_lens_equal": bool(torch.equal(out_lens, e_lens)),
+                      "frames": out_lens.tolist()}
+    out["ctc_asr"] = {"ids_equal": bool(torch.equal(asr_ids, e_ids)),
+                      "lens_equal": bool(torch.equal(asr_lens, e_lens2)),
+                      "lens": asr_lens.tolist()}
+    out["vocode"] = {"wav_rel_err": rel(wav, e_wav), "samples": wav.shape[1]}
+    out["calls"] = calls
+    n = cfg.num_layers
+    assert out["graph_flash_nodes"] == {"nar_tts": 2 * n, "ctc_asr": n, "vocode": 0}, out
+    assert [calls[k]["launches_bf16"] for k in ("nar_tts", "ctc_asr", "vocode")] == \
+        [2 * n, n, 0], calls
+    assert all(calls[k]["launches_f32"] == 0 for k in calls), calls
+    assert out["nar_tts"]["post_rel_err"] <= 1e-5 and out["nar_tts"]["out_lens_equal"], out
+    assert out["ctc_asr"]["ids_equal"] and out["ctc_asr"]["lens_equal"], out
+    assert out["vocode"]["wav_rel_err"] <= 1e-5, out
+    assert min(out["nar_tts"]["frames"]) >= 100, out
+    out["dispatch"] = dispatch_cost(fa)
+
+    # compat: the reference layout of the flagship trees and the vocoder
+    cpu = lambda t: nn.tree_to(t, "cpu")
+
+    def equal(a, b):
+        fa_, fb_ = tree_paths(a), tree_paths(b)
+        return fa_.keys() == fb_.keys() and all(torch.equal(fa_[k], fb_[k]) for k in fa_)
+
+    t = time.perf_counter()
+    fp, fs = cpu(flag_params), cpu(flag_state)
+    sd = CE.export_state_dict(fp, fs)
+    compat = {"keys": len(sd),
+              "flagship_equal": equal(CI.import_state_dict(sd, cfg), (fp, fs))}
+    vp, vs = cpu(vocoder_pv[0]), cpu(vocoder_pv[1])
+    compat["vocoder_equal"] = equal(
+        CI.import_vocoder_state_dict(CE.export_vocoder_state_dict(vp, vs)), (vp, vs))
+    with tempfile.TemporaryDirectory() as tmp:
+        CE.export_checkpoint(fp, fs, os.path.join(tmp, "ref.ckpt"), epoch=2)
+        flags = ["--config", CONFIG, "--device", "cpu"]
+        CI.main([os.path.join(tmp, "ref.ckpt"), os.path.join(tmp, "ours"), *flags])
+        CE.main([os.path.join(tmp, "ours", "model_most_recent.ckpt"),
+                 os.path.join(tmp, "back.ckpt"), *flags])
+        ref = torch.load(os.path.join(tmp, "ref.ckpt"), weights_only=False)["state_dict"]
+        back = torch.load(os.path.join(tmp, "back.ckpt"), weights_only=False)["state_dict"]
+        compat["cli_equal"] = ref.keys() == back.keys() and all(
+            torch.equal(ref[k], back[k]) for k in ref)
+    compat["s"] = time.perf_counter() - t
+    out["compat"] = compat
+    assert compat["flagship_equal"] and compat["vocoder_equal"] and compat["cli_equal"], compat
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+DP_RANKS = 2
+
+
+def dp_worker(rank: int, port: str, out_dir: str) -> int:
+    """One rank of phase 20's world (`python3 chip_smoke.py --dp-worker RANK
+    PORT OUT_DIR`). NCCL refuses two ranks on one device, so the two ranks
+    share the one card under gloo, which moves the collectives' tensors
+    through the host. Writes OUT_DIR/rank<RANK>.json; raises (exit 1) on
+    any failed check."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from unast_tpu_torch.infer.serve import Synthesizer
+    from unast_tpu_torch.models import TINY, ModelConfig, unast_init
+    from unast_tpu_torch.nn import tree_to
+    from unast_tpu_torch.ops import attention
+    from unast_tpu_torch.parallel.mesh import (batch_shardings, make_mesh,
+                                               shard_train_step, state_bytes)
+    from unast_tpu_torch.train import init_train_state, make_train_step, train_state
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.steps import (ZERO_DROPOUTS, flash_calls_per_step,
+                                             seeded_generator, zero_fixed_dropouts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = make_mesh(DP_RANKS)
+    fa = attention.flash_attention
+    out = {"rank": rank}
+    # (a) TINY, float32, every dropout at 0: one dp step per ZeRO level
+    # against the single-process step on the whole batch, on the card
+    tiny_t = TINY.replace(use_discriminator=True, attn_impl="flash", **ZERO_DROPOUTS)
+    targs = train_args(CONFIG, sp_steps=2)
+    tp0, ts0 = unast_init(torch.Generator().manual_seed(0), tiny_t)
+    tb = train_batches(np.random.default_rng(1), targs, tiny_t, 4, 12, 20, "cuda")
+    tiny = {}
+    with zero_fixed_dropouts():
+        single = make_train_step(tiny_t, targs)(
+            train_state(tree_to(tp0, "cuda"), tree_to(ts0, "cuda"), tiny_t, targs),
+            torch.Generator(device="cuda").manual_seed(0), tb)
+        for zero in (0, 1, 3):
+            ts = train_state(tree_to(tp0, "cuda"), tree_to(ts0, "cuda"), tiny_t, targs)
+            step, placed = shard_train_step(make_train_step(tiny_t, targs), mesh, ts,
+                                            zero=zero)
+            new, m = step(placed, seeded_generator(0, rank, "cuda"),
+                          batch_shardings(mesh, tb))
+            whole = step.dp.whole(new) if zero else new
+            c = compare_train_steps(targs.lr, **joint_step_comparison((whole, m), single))
+            c["ok"] = (c["metrics_rel"] <= 1e-4 and c["state_abs"] <= 1e-5
+                       and c["gen_mu_scaled"] <= 1 and c["disc_mu_scaled"] <= 1
+                       and c["update_abs"] <= 1e-3)
+            tiny[f"zero{zero}"] = c
+    assert all(c["ok"] for c in tiny.values()), tiny
+    # Synthesizer(mesh=) against the single-process one (3 requests, padded
+    # to 4), TINY float32 on the card
+    tcfg = TINY.replace(attn_impl="flash")
+    sp_, ss_ = unast_init(torch.Generator().manual_seed(3), tcfg)
+    kw = dict(text_buckets=(16,), mel_buckets=(24,), max_batch=4, device="cuda")
+    rng = np.random.default_rng(5)
+    mels = [rng.uniform(0, 1, (n, 80)).astype(np.float32) for n in (24, 17, 9)]
+    texts = ["hello world", "hi", "ok then"]
+    one, dps = Synthesizer(sp_, ss_, tcfg, **kw), Synthesizer(sp_, ss_, tcfg, mesh=mesh, **kw)
+    mel_err = max(float(np.abs(a - b).max()) for a, b in
+                  zip(dps.tts_mels(texts), one.tts_mels(texts)))
+    ids_equal = all(np.array_equal(a, b) for a, b in zip(dps.asr_ids(mels), one.asr_ids(mels)))
+    tiny["synthesizer_mesh"] = {"tts_mels_max_abs_err": mel_err, "asr_ids_equal": ids_equal}
+    assert mel_err <= 1e-5 and ids_equal, tiny["synthesizer_mesh"]
+    out["tiny"] = tiny
+    # (b) the flagship joint step, bf16, ZeRO-1 then ZeRO-3, each rank 2 of
+    # the 4 rows of the config's batch
+    cfg = ModelConfig.from_json(CONFIG).replace(attn_impl="flash")
+    args = train_args(CONFIG)
+    fwd, bwd = flash_calls_per_step(cfg, args)
+    batches = batch_shardings(mesh, train_batches(
+        np.random.default_rng(0), args, cfg, args.train_batch_size,
+        args.data_text_len, args.data_mel_len, "cuda"))
+    flag = {}
+    for zero in DP_FLAGSHIP_ZEROS:
+        ts = init_train_state(torch.Generator().manual_seed(0), cfg, args, "cuda")
+        whole_bytes = state_bytes(ts.gen_opt) + state_bytes(ts.disc_opt)
+        step, placed = shard_train_step(make_train_step(cfg, args), mesh, ts, zero=zero)
+        del ts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts(fa)
+        bwd0 = fa.backward_calls
+        dist.barrier()
+        t = time.perf_counter()
+        new, m = step(placed, seeded_generator(0, rank, "cuda"), batches)
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t, "rows": args.train_batch_size // DP_RANKS,
+               "flash_launches_bf16": fa.launches_bf16, "flash_launches_f32": fa.launches_f32,
+               "backward_calls": fa.backward_calls - bwd0,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "opt_state_bytes": state_bytes(new.gen_opt) + state_bytes(new.disc_opt),
+               "opt_state_bytes_whole": whole_bytes,
+               "metrics": {k: float(v) for k, v in m.items()}}
+        assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
+        assert (rec["flash_launches_bf16"], rec["flash_launches_f32"],
+                rec["backward_calls"]) == (fwd, 0, bwd), (rec, fwd, bwd)
+        assert rec["opt_state_bytes"] < 0.6 * whole_bytes, rec
+        flag[f"zero{zero}"] = rec
+        del new, placed, step
+        torch.cuda.empty_cache()
+    out["flagship"] = flag
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+DP_FLAGSHIP_ZEROS = (1, 3)
+
+
+def dp_phase():
+    """Phase 20: data parallelism on the one card. A dp = 2 world of two
+    processes (`dp_worker`) under gloo, both ranks on the one H100
+    (NCCL refuses two ranks on one device), each joined and its exit code
+    propagated: (a) at TINY in float32 with every dropout at 0, one dp
+    step per ZeRO level 0, 1 and 3 against the single-process step on the
+    whole batch on the card (phase 8's tolerances), and Synthesizer(mesh=)
+    TTS mels and ASR ids against the single-process Synthesizer; (b) at
+    flagship width in bf16, one joint step with zero=1 and one with
+    zero=3 (each rank 2 of the config's 4 rows): each rank's flash
+    launches and backward calls (flash_calls_per_step: the counts do not
+    depend on the rows), its peak memory, the bytes of its optimizer
+    state against the whole state's, the step's seconds."""
+    import socket
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                   str(r), port, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(DP_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [(r, p.returncode, log[-3000:]) for r, (p, log)
+               in enumerate(zip(procs, logs)) if p.returncode != 0]
+        if bad:
+            raise SystemExit(f"phase 20: a dp rank failed: {bad}")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return {"ranks": DP_RANKS, "backend": "gloo", "device": "one card, shared",
+            "per_rank": ranks, "phase_s": time.perf_counter() - t_phase}
+
+
 def _timed(fn, seconds):
     """fn, appending each call's synchronised seconds to `seconds`."""
     def run(*a, **kw):
@@ -2856,7 +3204,7 @@ def main() -> int:
     print(json.dumps({"phase": 10, "s": rnn_serve_run["phase_s"]}), flush=True)
     rnn_train_run = rnn_train(fa)
     print(json.dumps({"phase": 11, "s": rnn_train_run["phase_s"]}), flush=True)
-    vocoder_run = vocoder_phase(fa, params, state, cfg)
+    vocoder_run, vocoder_pv = vocoder_phase(fa, params, state, cfg)
     print(json.dumps({"phase": 12, "s": vocoder_run["phase_s"]}), flush=True)
     phase_ends.append((12, time.perf_counter()))
     # 13.-14. data prepared on the card into shards, then the CTC family
@@ -2865,7 +3213,7 @@ def main() -> int:
         data_run = data_phase(data_root)
         print(json.dumps({"phase": 13, "s": data_run["phase_s"]}), flush=True)
         phase_ends.append((13, time.perf_counter()))
-        ctc_run = ctc_phase(fa, params, state, cfg, data_root)
+        ctc_run, ctc_pv = ctc_phase(fa, params, state, cfg, data_root)
         print(json.dumps({"phase": 14, "s": ctc_run["phase_s"]}), flush=True)
         phase_ends.append((14, time.perf_counter()))
         # 15.-16. the one-pass families: FastSpeech distilled and served,
@@ -2873,12 +3221,13 @@ def main() -> int:
         nar_run, student = fastspeech_phase(fa, params, state, cfg, data_root)
         print(json.dumps({"phase": 15, "s": nar_run["phase_s"]}), flush=True)
         phase_ends.append((15, time.perf_counter()))
-        melgan_run = melgan_phase(fa, params, state, cfg, student, data_root)
+        melgan_run, melgan_params = melgan_phase(fa, params, state, cfg, student,
+                                                 data_root)
         print(json.dumps({"phase": 16, "s": melgan_run["phase_s"]}), flush=True)
     phase_ends.append((16, time.perf_counter()))
     # 17.-18. the family additions: the wide model (remat, int8 serving),
-    # then the conformer and MoE at flagship width
-    del student
+    # then the conformer and MoE at flagship width (phases 15, 16, 14 and
+    # 12's models stay for phase 19)
     torch.cuda.empty_cache()
     wide_run = wide_phase(fa)
     wide_run["kernel_case"] = next(c for c in cases
@@ -2890,6 +3239,18 @@ def main() -> int:
     families_run = families_phase(fa, cfg)
     print(json.dumps({"phase": 18, "s": families_run["phase_s"]}), flush=True)
     phase_ends.append((18, time.perf_counter()))
+    # 19. the serving export of the one-pass models and the checkpoint
+    # migration, at flagship width
+    export_run = export_phase(fa, params, state, cfg, ctc_pv, student, melgan_params,
+                              vocoder_pv)
+    print(json.dumps({"phase": 19, "s": export_run["phase_s"]}), flush=True)
+    phase_ends.append((19, time.perf_counter()))
+    # 20. data parallelism: a 2-rank world sharing the one card
+    del student, ctc_pv, melgan_params, vocoder_pv
+    torch.cuda.empty_cache()
+    dp_run = dp_phase()
+    print(json.dumps({"phase": 20, "s": dp_run["phase_s"]}), flush=True)
+    phase_ends.append((20, time.perf_counter()))
     print(json.dumps({"phase_s": {
         f"{a + 1}" if b - a == 1 else f"{a + 1}-{b}": t1 - t0
         for (a, t0), (b, t1) in zip(phase_ends, phase_ends[1:])}}), flush=True)
@@ -2993,6 +3354,22 @@ def main() -> int:
             "launches_family_tiny_counted_on":
                 "TINY conformer, MoE stacks under remat and scan, quantized "
                 "TTS forward on the card, float32 (phase 18)"}
+        ex_calls = export_run["calls"]
+        dp_flag = [r["flagship"][f"zero{z}"] for r in dp_run["per_rank"]
+                   for z in DP_FLAGSHIP_ZEROS]
+        slice10_counts = {
+            "launches_export": sum(c[key] for c in ex_calls.values()),
+            "launches_export_counted_on":
+                "the exported nar_tts, ctc_asr and vocode programs of "
+                "export_synthesizer, one call each at B8, text 304 / mel 816 "
+                "(the last of two calls), bf16 (phase 19)",
+            "launches_dp_flagship": sum(r[f"flash_{key}"] for r in dp_flag),
+            "bwd_calls_dp_flagship": (sum(r["backward_calls"] for r in dp_flag)
+                                      if dtype == "bfloat16" else 0),
+            "launches_dp_flagship_counted_on":
+                f"dp = 2 joint steps at flagship width, zero {DP_FLAGSHIP_ZEROS}, "
+                "each rank 2 of 4 rows, both ranks' counts, bf16 (phase 20; "
+                "the TINY float32 dp checks are not counted)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",
@@ -3008,7 +3385,7 @@ def main() -> int:
                 s_["flash_launches"] for s_ in rnn_train_run["steps"]),
             "launches_rnn_counted_on": "rnn_d serve (8 TTS + 8 ASR) and 2 train steps "
                                        "(phases 10, 11): the RNN calls no attention kernel",
-            **ctc_counts, **one_pass_counts, **family_counts,
+            **ctc_counts, **one_pass_counts, **family_counts, **slice10_counts,
             **{key: main_case[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_device_ms",
@@ -3046,6 +3423,8 @@ def main() -> int:
     print(json.dumps({"melgan": melgan_run}))
     print(json.dumps({"wide": wide_run}))
     print(json.dumps({"families": families_run}))
+    print(json.dumps({"export": export_run}))
+    print(json.dumps({"dp": dp_run}))
     n = len(SENTENCES)
     print(json.dumps({"serve": {
         "config": os.path.relpath(CONFIG, ROOT), "attn_impl": cfg.attn_impl,
@@ -3074,4 +3453,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -90,24 +90,18 @@ def _assert_items_equal(a, b):
 @pytest.mark.parametrize("kw", [{}, {"timbre": "formant", "pitch_jitter": 0.2,
                                      "gain_jitter": 0.3, "jitter_variants": 2}])
 def test_synthetic_dataset_matches_jax(kw):
-    mine, ref = TD.SyntheticSpeechDataset(size=3, seed=4, **kw), \
-        JD.SyntheticSpeechDataset(size=3, seed=4, **kw)
-    assert len(mine) == len(ref)
-    for i in (0, 1, 2, 0):
-        _assert_items_equal(mine[i], ref[i])
-    ids = np.array([5, 17, 40, 3], np.int32)
-    wav, durs = TD.synth_audio(ids, 22050, np.random.default_rng(1),
-                               dur_jitter=0.3, return_durs=True)
-    rwav, rdurs = JD.synth_audio(ids, 22050, np.random.default_rng(1),
-                                 dur_jitter=0.3, return_durs=True)
-    assert np.array_equal(wav, rwav) and np.array_equal(durs, rdurs)
-    out = TD.add_realism(wav, np.random.default_rng(2), 22050, return_offsets=True)
-    ref = JD.add_realism(wav, np.random.default_rng(2), 22050, return_offsets=True)
-    assert np.array_equal(out[0], ref[0]) and out[1] == ref[1]
-    mine = TD.SyntheticSpeechDataset(size=1, include_f0=True)[0]
-    ref = JD.SyntheticSpeechDataset(size=1, include_f0=True)[0]
-    _assert_items_equal(mine, ref)
-    assert np.array_equal(mine["f0"], ref["f0"]) and (mine["f0"] > 0).any()
+    """SyntheticSpeechDataset's items (and, for the default kw, synth_audio,
+    add_realism and an include_f0 item) equal the JAX package's, whose
+    digests tests/goldens/torch_ops.npz keeps (OG.dataset_case)."""
+    i = OG.DATASET_KW.index(kw)
+    ref = {k[len(f"dataset/{i}/"):]: str(v) for k, v in OG.load().items()
+           if k.startswith(f"dataset/{i}/")}
+    mine = OG.dataset_case(TD, i)
+    assert mine.keys() == ref.keys() and len(mine) > 3 * 4
+    for k, v in mine.items():
+        assert OG.digest(v) == ref[k], k
+    if i == 0:
+        assert (mine["f0_item/f0"] > 0).any()
 
 
 def test_manifest_splits_and_ljspeech_match_jax(tmp_path):
@@ -219,17 +213,30 @@ def test_parser_matches_jax():
 
 
 @pytest.mark.parametrize("flags,env,match", [
-    (["--dp", "2"], {}, "--dp 2"), (["--tp", "2"], {}, "--tp 2"),
+    (["--dp", "2"], {"WORLD_SIZE": "2"}, "--dp 2"), (["--tp", "2"], {}, "--tp 2"),
     (["--sp", "2"], {}, "--sp 2"), (["--ep", "4"], {}, "--ep 4"),
     (["--zero", "1"], {}, "--zero 1"),
     ([], {"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, "multihost"),
     ([], {"WORLD_SIZE": "2"}, "multihost"),
 ])
 def test_unported_runtime_options_raise(monkeypatch, flags, env, match):
+    """--tp, --sp and --ep above 1 raise NotImplementedError naming the next
+    slice (item 7c). --dp, --zero and a multi-process launch, which raised
+    until the data-parallel slice, are taken: --dp 2 under a 2-process
+    launch (WORLD_SIZE 2) and --zero 1 pass; a launch whose world is not
+    --dp, and a JAX launcher's coordinator, raise ValueError
+    (tests/test_torch_parallel.py runs the 2-rank step)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        TC.apply_runtime_flags(TC.parse_with_config(flags))
+    args = TC.parse_with_config(flags)
+    if match in ("--dp 2", "--zero 1"):
+        assert TC.apply_runtime_flags(args) is None
+    elif match == "multihost":
+        with pytest.raises(ValueError, match=match):
+            TC.apply_runtime_flags(args)
+    else:
+        with pytest.raises(NotImplementedError, match=f"{match}.*7c"):
+            TC.apply_runtime_flags(args)
 
 
 # ---------------------------------------------------------------------------

@@ -60,16 +60,32 @@ def test_synthesizer_without_device_needs_cuda():
         Synthesizer(params, state, TINY)
 
 
-@pytest.mark.parametrize("option", [{"mesh": object()}, {"quantize": "int8"}])
+@pytest.mark.parametrize("option", [{"mesh": "dp1"}, {"quantize": "int8"}])
 def test_unported_synthesizer_options_raise(option):
-    """mesh raises NotImplementedError (the parallelism slice);
-    quantize='int8', which raised until the family slice, now serves int8
-    weights (tests/test_torch_quant.py holds it to JAX) and only another
-    quantize value raises."""
+    """mesh, which raised until the data-parallel slice, now serves: over a
+    one-rank gloo dp mesh the Synthesizer gives the single-process ids
+    (tests/test_torch_parallel.py holds two ranks to it), and a max_batch
+    that does not divide over dp raises ValueError. quantize='int8', which
+    raised until the family slice, serves int8 weights
+    (tests/test_torch_quant.py holds it to JAX) and only another quantize
+    value raises."""
     params, state = U.unast_init(torch.Generator().manual_seed(0), TINY)
     if "mesh" in option:
-        with pytest.raises(NotImplementedError, match="slice"):
-            Synthesizer(params, state, TINY, device="cpu", **option)
+        import torch.distributed as dist
+        from unast_tpu_torch.parallel.mesh import make_mesh
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+        try:
+            mels = [np.random.default_rng(0).uniform(0, 1, (9, 80)).astype(np.float32)]
+            one = Synthesizer(params, state, TINY, device="cpu").asr_ids(mels)
+            syn = Synthesizer(params, state, TINY, device="cpu", mesh=make_mesh(1))
+            assert [x.tolist() for x in syn.asr_ids(mels)] == [x.tolist() for x in one]
+        finally:
+            dist.destroy_process_group()
         return
     syn = Synthesizer(params, state, TINY, device="cpu", **option)
     assert syn.params["speech_m"]["decoder"]["layers"][0]["lin1"]["w_q"].dtype \
@@ -157,18 +173,26 @@ def _calls(tree):
 
 
 def test_flash_wrapper_never_falls_back_on_cuda():
-    """flash_attention goes through its autograd.Function, whose forward is
-    `_forward`, the code that chooses kernel or plain: the plain version is
-    reached only under `_forward`'s `cpu` branch, and no `try` surrounds
-    the launch."""
-    trees = {fn: ast.parse(inspect.getsource(fn)) for fn in (
-        attention.flash_attention, attention._FlashAttention, attention._forward)}
+    """flash_attention calls the registered operator
+    unast::flash_attention_fwd, whose one implementation, for every device
+    (CompositeExplicitAutograd), is `_forward`, the code that chooses
+    kernel or plain: the plain version is reached only under `_forward`'s
+    `cpu` branch, no `try` surrounds the launch, and the operator's
+    autograd formula is the plain backward. A meta tensor takes the fake
+    implementation (what torch.export traces); `_forward` raises for it."""
+    fns = (attention.flash_attention, attention._backward, attention._forward)
+    trees = {fn: ast.parse(inspect.getsource(fn)) for fn in fns}
     for tree in trees.values():
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    assert "apply" in _calls(trees[attention.flash_attention])
-    assert "_forward" in _calls(trees[attention._FlashAttention])
-    for fn in (attention.flash_attention, attention._FlashAttention):
+    assert "flash_attention_fwd" in _calls(trees[attention.flash_attention])
+    assert "flash_attention_bwd_plain" in _calls(trees[attention._backward])
+    for fn in fns[:2]:
         assert "flash_attention_plain" not in _calls(trees[fn])
+    impls = [ast.unparse(n) for n in ast.walk(ast.parse(inspect.getsource(attention)))
+             if isinstance(n, ast.Call) and ast.unparse(n.func) == "_LIB.impl"]
+    assert impls == ["_LIB.impl('flash_attention_fwd', lambda *a: _forward(*a), "
+                     "'CompositeExplicitAutograd')"]
+    assert attention.flash_attention_fwd is torch.ops.unast.flash_attention_fwd.default
     fn = trees[attention._forward].body[0]
     plain_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
                    and getattr(n.func, "id", None) == "flash_attention_plain"]
@@ -177,8 +201,10 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     assert isinstance(first, ast.If) and "cpu" in ast.unparse(first.test)
     assert plain_calls[0] in list(ast.walk(first))
     q = torch.empty((1, 4, 1, 16), device="meta")
+    o = attention.flash_attention(q, q, q)
+    assert o.device.type == "meta" and o.shape == q.shape and o.is_contiguous()
     with pytest.raises(ValueError):
-        attention.flash_attention(q, q, q)
+        attention._forward(q, q, q, None, False)
 
 
 @pytest.mark.parametrize("cfg_kw,args_kw,match", [
@@ -189,13 +215,14 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     ({"moe_experts": 4}, {}, "moe_experts"),
 ])
 def test_unported_train_options_raise(cfg_kw, args_kw, match):
-    """pp > 1 raises NotImplementedError (the parallelism slice). The
+    """pp > 1 raises NotImplementedError naming the next slice (item 7c,
+    the model-parallel axes). The
     conformer, remat, scan_layers and MoE options raised until the family
     slice; now check_ported passes them and they make a train step
     (tests/test_torch_remat.py runs one for each recipe)."""
     cfg = TINY.replace(use_discriminator=True, **cfg_kw)
     if match == "pp":
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match="pp.*7c"):
             make_train_step(cfg, train_args(**args_kw))
         return
     from unast_tpu_torch.models import networks as N

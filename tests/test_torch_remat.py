@@ -20,8 +20,10 @@ import pytest
 import torch
 
 from unast_tpu_torch import nn as tnn
+from unast_tpu_torch import models as TG
 from unast_tpu_torch.bridge import _to_torch
 from unast_tpu_torch.models import networks as TN, transformer as TT
+from unast_tpu_torch.ops import attention
 from unast_tpu_torch.ops.attention import flash_attention
 from unast_tpu_torch.train import steps as TS
 from unast_tpu_torch.train.config import model_config_from_args, train_args
@@ -151,8 +153,11 @@ def test_config_recipe_takes_a_joint_step(recipe):
     """The port's args from the recipe's config (and flags), only the widths,
     depth and decode caps cut to TINY's (the config's remat policy, dtype,
     guided attention and discriminator kept): one joint step of
-    make_train_step on the CPU, finite metrics, flash backward calls as
-    flash_calls_per_step counts them; the MoE recipe reports its aux."""
+    make_train_step on the CPU, finite metrics, flash forwards (the
+    registered operator's, counted where its CPU implementation runs the
+    plain version; under remat the checkpoint recompute included) and
+    backward calls as flash_calls_per_step counts them; the MoE recipe
+    reports its aux."""
     path, flags = RECIPES[recipe]
     args = train_args(G.ROOT / path, **flags, **TINY_WIDTHS)
     cfg = model_config_from_args(args)
@@ -164,13 +169,51 @@ def test_config_recipe_takes_a_joint_step(recipe):
     ts = TS.init_train_state(torch.Generator().manual_seed(0), cfg, args,
                              device="cpu")
     before = flash_attention.backward_calls
-    new, metrics = TS.make_train_step(cfg, args)(
-        ts, torch.Generator().manual_seed(1), _batches())
-    calls = TS.flash_calls_per_step(cfg, args)[1]
-    assert (flash_attention.backward_calls - before
-            == (calls if cfg.attn_impl == "flash" else 0))
+    forwards = []
+    plain = attention.flash_attention_plain
+    attention.flash_attention_plain = lambda *a: forwards.append(1) or plain(*a)
+    try:
+        new, metrics = TS.make_train_step(cfg, args)(
+            ts, torch.Generator().manual_seed(1), _batches())
+    finally:
+        attention.flash_attention_plain = plain
+    fwd, bwd = TS.flash_calls_per_step(cfg, args)
+    flash = cfg.attn_impl == "flash"
+    assert (flash_attention.backward_calls - before, len(forwards)) == (
+        (bwd, fwd) if flash else (0, 0))
     assert new.step == 1
     assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
     assert ("sp/moe" in metrics) == (recipe == "moe_ragged")
     if recipe == "conformer":
         assert set(new.net_state["speech_m"]) == {"postnet", "encoder"}
+
+
+def test_flash_operator_keeps_launch_and_recompute_counts():
+    """The registered operator changes no count: a TINY flash train step
+    under remat 'dots_all' (whose checkpoint policy saves only aten
+    mm/addmm/bmm/baddbmm outputs, so the operator is recomputed) runs the
+    forwards and backwards flash_calls_per_step predicts, the recompute
+    included; on this CPU host the operator's implementation runs the
+    plain version once a forward, so the forwards are counted there."""
+    cfg = TG.TINY.replace(attn_impl="flash", remat=True,
+                          remat_policy="dots_all", use_discriminator=True)
+    args = train_args(G.CONFIG, ae_steps=1, cm_steps=0, sp_steps=1, d_steps=1,
+                      objective_eval_mode=True)
+    fwd, bwd = TS.flash_calls_per_step(cfg, args)
+    params, state = TG.unast_init(torch.Generator().manual_seed(0), cfg)
+    ts = TS.train_state(params, state, cfg, args)
+    rng = np.random.default_rng(0)
+    batch = tuple(x[None] for x in (
+        torch.from_numpy(rng.integers(3, 46, (2, 6))), torch.rand(2, 8, 80),
+        torch.tensor([6, 4]), torch.tensor([8, 5])))
+    seen = []
+    plain = attention.flash_attention_plain
+    attention.flash_attention_plain = lambda *a: seen.append(1) or plain(*a)
+    before = flash_attention.backward_calls
+    try:
+        TS.make_train_step(cfg, args)(ts, torch.Generator().manual_seed(1),
+                                      {"ae": batch, "sp": batch, "d": batch})
+    finally:
+        attention.flash_attention_plain = plain
+    assert (len(seen), flash_attention.backward_calls - before) == (fwd, bwd)
+    assert cfg.remat and fwd > bwd + 2 * cfg.num_layers   # the recompute ran

@@ -26,10 +26,7 @@ import functools
 
 import numpy as np
 import pytest
-import jax
 import torch
-
-from unast_tpu.models import TINY as JTINY, unast as JU
 
 from unast_tpu_torch import nn as tnn
 from unast_tpu_torch.audio.params import AudioParams as TAudioParams
@@ -38,9 +35,10 @@ from unast_tpu_torch.infer.serve import Synthesizer
 from unast_tpu_torch.models import TINY, modules as TM, networks as TN
 from unast_tpu_torch.models import rnn as TR, unast as TU
 from unast_tpu_torch.ops.attention import flash_attention
-from unast_tpu_torch.train import steps as TS
+from unast_tpu_torch.train import optim as TO, steps as TS
 from unast_tpu_torch.train.config import train_args
 
+import torch_ops_golden as OG
 import torch_rnn_golden as RG
 import torch_serve_golden as SG
 import torch_train_golden as G
@@ -278,14 +276,18 @@ def test_task_matches_jax_in_eval_mode(golden, attn, name):
 
 def test_bridge_carries_the_rnn_trees():
     """params_from_jax carries a JAX unast_init tree of the RNN backbone
-    (encoders, decoder cells, attention, proj, discriminator) name for
-    name and value for value, with the port's init's names and shapes."""
-    for attn in ("lsa", "luong"):
-        cfg = JTINY.replace(**RG.model_overrides(attn))
-        shapes = jax.eval_shape(lambda k: JU.unast_init(k, cfg), jax.random.PRNGKey(0))
+    (encoders, decoder cells, attention, proj, discriminator; its shapes
+    from JAX's init, kept in tests/goldens/torch_ops.npz) name for name
+    and value for value, with the port's init's names and shapes."""
+    ops_golden = OG.load()
+    for attn in OG.RNN_ATTNS:
+        # JAX's init shapes (tests/goldens/torch_ops.npz)
+        pre = f"rnn_shapes/{attn}/"
+        shapes = SG.unflatten({k[len(pre):]: np.empty(tuple(v)) for k, v in
+                               ops_golden.items() if k.startswith(pre)})
         rng = np.random.default_rng(15)
-        jp, js = jax.tree_util.tree_map(
-            lambda x: rng.normal(size=x.shape).astype(np.float32), shapes)
+        jp, js = (TO.tree_map(lambda x: rng.normal(size=x.shape).astype(np.float32),
+                              shapes[k]) for k in (0, 1))
         ref = G.flatten({"p": jp, "s": js})
         tp, ts = params_from_jax(jp, js)
         mine = G.flatten({"p": tp, "s": ts})

@@ -21,12 +21,8 @@ import functools
 import numpy as np
 import pytest
 import jax
-import jax.numpy as jnp
 import torch
 
-from unast_tpu import nn as jnn
-from unast_tpu.audio import dsp as jdsp
-from unast_tpu.models import TINY as JTINY, transformer as JT
 from unast_tpu.text import raw_text_to_phoneme_ids as j_text_ids
 from unast_tpu.text import sequence_to_text as j_seq_to_text
 
@@ -44,7 +40,6 @@ import torch_ops_golden as OG
 import torch_serve_golden as SG
 import torch_train_golden as G
 
-ECTX_J = jnn.Ctx.eval()
 ECTX_T = tnn.Ctx.eval()
 MIN_MARGIN = 1e-3   # least top-1 / top-2 logit gap a greedy choice may have
 
@@ -154,19 +149,19 @@ def test_mha_matches_jax(ops_golden, cross):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_bridge_unstacks_layer_stacks():
-    """A layer list stacked over a leading [L] axis (transformer.py::
-    _stack_layers, as scan_layers builds it) comes out as the same list."""
-    params, state, tp, _ = _models()
-    stacked = jax.tree_util.tree_map(np.asarray, params)
-    enc = stacked["text_m"]["encoder"]
-    enc["layers"] = jax.tree_util.tree_map(np.asarray,
-                                           JT._stack_layers(enc["layers"]))
-    got, _ = params_from_jax(stacked, jax.tree_util.tree_map(np.asarray, state))
-    want = tp["text_m"]["encoder"]["layers"]
-    assert len(got["text_m"]["encoder"]["layers"]) == len(want)
-    for a, b in zip(jax.tree_util.tree_leaves(got["text_m"]["encoder"]["layers"]),
-                    jax.tree_util.tree_leaves(want)):
+def test_bridge_unstacks_layer_stacks(ops_golden):
+    """A layer list stacked over a leading [L] axis (JAX's transformer.py::
+    _stack_layers, as scan_layers builds it; tests/goldens/torch_ops.npz
+    keeps its stack of OG.encoder_params()) comes out as the same list."""
+    layers = OG.encoder_params()["layers"]
+    stacked = SG.unflatten({k[len("stack/"):]: v for k, v in ops_golden.items()
+                            if k.startswith("stack/")})
+    assert set(stacked) == set(layers[0])
+    got, _ = params_from_jax({"text_m": {"encoder": {"layers": stacked}}}, {})
+    want, _ = params_from_jax({"text_m": {"encoder": {"layers": layers}}}, {})
+    got, want = got["text_m"]["encoder"]["layers"], want["text_m"]["encoder"]["layers"]
+    assert len(got) == len(want) == len(layers)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
         assert torch.equal(a, b)
 
 
@@ -186,34 +181,22 @@ def test_encoders_match_jax(serve_golden, impl):
                                rtol=1e-5)
 
 
-def test_decoder_step_matches_jax():
-    params, _, tp, _ = _models()
-    rng = np.random.default_rng(2)
-    d, h, max_len, pos = JTINY.e_in, JTINY.nhead, 10, 4
-    memory = rng.normal(size=(2, 7, d)).astype(np.float32)
-    pad = np.array([[False] * 7, [False] * 4 + [True] * 3])
-    x = rng.normal(size=(2, 1, d)).astype(np.float32)
-    jp, tdec = params["speech_m"]["decoder"], tp["speech_m"]["decoder"]
-    prior = rng.normal(size=(JTINY.num_layers, 2, max_len, h, d // h))
-    prior = prior.astype(np.float32)
-
-    @jax.jit
-    def jax_step(jp, memory, prior, x):
-        jc = JT.init_cache(jp, memory, max_len, h)
-        jc = jc._replace(self_k=prior, self_v=-prior)
-        return JT.decoder_step(jp, ECTX_J, x, jnp.int32(pos), jc,
-                               JT.padding_bias(pad), h, 0.0)
-
-    yj, jc = jax_step(jp, memory, prior, x)
-    tc = TT.init_cache(tdec, _t(memory), max_len, h)
+def test_decoder_step_matches_jax(ops_golden):
+    """One KV-cached decoder_step from a filled cache against JAX's jitted
+    step (tests/goldens/torch_ops.npz, OG.decoder_step_case): output and
+    the self and cross caches within 1e-5."""
+    tdec, _ = params_from_jax(OG.decoder_params(), {})
+    memory, pad, x, prior = OG.decoder_step_case()
+    h = OG.NHEAD
+    tc = TT.init_cache(tdec, _t(memory), OG.DEC_MAX_LEN, h)
     tc.self_k.copy_(_t(prior))
     tc.self_v.copy_(_t(-prior))
-    yt, tc = TT.decoder_step(tdec, ECTX_T, _t(x), pos, tc,
+    yt, tc = TT.decoder_step(tdec, ECTX_T, _t(x), OG.DEC_POS, tc,
                              TT.padding_bias(_t(pad)), h, 0.0)
-    np.testing.assert_allclose(_np(yt), np.asarray(yj), atol=1e-5, rtol=1e-5)
-    for a, b in ((jc.self_k, tc.self_k), (jc.self_v, tc.self_v),
-                 (jc.cross_k, tc.cross_k)):
-        np.testing.assert_allclose(_np(b), np.asarray(a), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(yt), ops_golden["dec_step/y"], atol=1e-5, rtol=1e-5)
+    for name in ("self_k", "self_v", "cross_k"):
+        np.testing.assert_allclose(_np(getattr(tc, name)), ops_golden[f"dec_step/{name}"],
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("stop_bias", SG.GREEDY_STOP_BIASES)
@@ -287,13 +270,12 @@ def test_synthesizer_matches_jax(serve_golden):
         assert np.array_equal(serve_golden[f"asr_ids/{i}"], np.asarray(b))
 
 
-def test_wav_to_mel_matches_jax():
-    rng = np.random.default_rng(5)
-    t = np.arange(30000) / 22050.0
-    wav = (0.4 * np.sin(2 * np.pi * 220 * t) * (t > 0.2)
-           + 0.01 * rng.normal(size=t.shape)).astype(np.float32)
-    jmel, jmag, jn = jdsp.wav_to_mel_mag(wav)
-    tmel, tmag, tn = tdsp.wav_to_mel_mag(wav, device="cpu")
+def test_wav_to_mel_matches_jax(ops_golden):
+    """wav_to_mel_mag of OG.wav_case() against JAX's (tests/goldens/
+    torch_ops.npz), 5e-4."""
+    jmel, jmag = ops_golden["wav_to_mel/mel"], ops_golden["wav_to_mel/mag"]
+    jn = int(ops_golden["wav_to_mel/n"])
+    tmel, tmag, tn = tdsp.wav_to_mel_mag(OG.wav_case(), device="cpu")
     assert jn == tn and tmel.shape == jmel.shape
     np.testing.assert_allclose(_np(tmel), np.asarray(jmel), atol=5e-4)
     np.testing.assert_allclose(_np(tmag), np.asarray(jmag), atol=5e-4)

@@ -35,8 +35,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from unast_tpu.models import unast as JU
-
 from unast_tpu_torch import nn as tnn
 from unast_tpu_torch.bridge import params_from_jax
 from unast_tpu_torch.models import TINY, modules as TM, networks as TN
@@ -49,6 +47,7 @@ from unast_tpu_torch.train.augment import specaugment
 from unast_tpu_torch.train.config import train_args
 
 import torch_ops_golden as OG
+import torch_serve_golden as SG
 import torch_train_golden as G
 import torch_train_parts_golden as PG
 
@@ -294,15 +293,14 @@ def test_optimizer_update_matches_optax(ops_golden, optim_type, clip):
 # ---------------------------------------------------------------------------
 
 
-def test_bridge_carries_the_discriminator():
+def test_bridge_carries_the_discriminator(ops_golden):
     """params_from_jax carries a JAX-initialised discriminator tree name for
-    name."""
-    shapes = jax.eval_shape(
-        lambda key: JU.lstm_discriminator_init(key, 32, 16, True, 2),
-        jax.random.PRNGKey(4))
+    name (its shapes from JAX's lstm_discriminator_init, kept in
+    tests/goldens/torch_ops.npz)."""
+    shapes = SG.unflatten({k[len("disc_shapes/"):]: np.empty(tuple(v))
+                           for k, v in ops_golden.items() if k.startswith("disc_shapes/")})
     rng = np.random.default_rng(4)
-    jd = jax.tree_util.tree_map(
-        lambda x: rng.normal(size=x.shape).astype(np.float32), shapes)
+    jd = TO.tree_map(lambda x: rng.normal(size=x.shape).astype(np.float32), shapes)
     ref = G.flatten({"discriminator": jd})
     mine = G.flatten(params_from_jax({"discriminator": jd}, {})[0])
     assert mine.keys() == ref.keys()

@@ -22,10 +22,7 @@ import functools
 
 import numpy as np
 import pytest
-import jax
 import torch
-
-from unast_tpu.models import unast as JU
 
 from unast_tpu_torch import nn as tnn
 from unast_tpu_torch.audio import dsp as tdsp
@@ -36,8 +33,10 @@ from unast_tpu_torch.infer import vocoder as TV
 from unast_tpu_torch.infer.serve import Synthesizer
 from unast_tpu_torch.models import TINY, modules as TM, unast as TU
 from unast_tpu_torch.train.config import parse_with_config
+from unast_tpu_torch.train import optim as TO
 from unast_tpu_torch.train.optim import make_optimizer, tree_paths
 
+import torch_ops_golden as OG
 import torch_serve_golden as SG
 import torch_train_golden as G
 import torch_vocoder_golden as VG
@@ -187,14 +186,15 @@ def test_synthesize_text_with_vocoder_matches_jax(golden):
 
 
 def test_bridge_carries_the_vocoder_tree():
-    """vocoder_from_jax carries a JAX vocoder_init tree name for name and
+    """vocoder_from_jax carries a JAX vocoder_init tree (its shapes from
+    JAX's init, kept in tests/goldens/torch_ops.npz) name for name and
     value for value, with the port's names and shapes."""
-    shapes = jax.eval_shape(
-        lambda k: JU.vocoder_init(k, JU.ModelConfig(hidden=VG.HIDDEN), VG.N_FFT),
-        jax.random.PRNGKey(0))
+    shapes = SG.unflatten({k[len("vocoder_shapes/"):]: np.empty(tuple(v))
+                           for k, v in OG.load().items()
+                           if k.startswith("vocoder_shapes/")})
     rng = np.random.default_rng(5)
-    jp, js = jax.tree_util.tree_map(lambda x: rng.normal(size=x.shape).astype(np.float32),
-                                    shapes)
+    jp, js = (TO.tree_map(lambda x: rng.normal(size=x.shape).astype(np.float32), t)
+              for t in shapes)
     ref = G.flatten({"p": jp, "s": js})
     tp, ts = vocoder_from_jax(jp, js)
     mine = G.flatten({"p": tp, "s": ts})

@@ -22,6 +22,19 @@ make_schedule under each of SCHEDULES at SCHEDULE_STEPS; make_optimizer
 (OPT_CASES) and steps.py's make_optimizers' generator chain (EMA_CASES):
 two updates of opt_case's or ema_case's tree, the params after each (and
 the EMA).
+
+Also the JAX sides that tests/test_torch_serve.py, test_torch_rnn.py,
+test_torch_train.py and test_torch_loop.py ran live before: one jitted
+transformer.decoder_step on decoder_params() (the port's decoder_init at
+TINY, torch seed 8) from a filled cache (decoder_step_case, numpy seed
+2); transformer._stack_layers of encoder_params() (torch seed 9); the
+shapes of unast_init's trees for the RNN backbone under each decoder
+attention of tests/torch_rnn_golden.py, of lstm_discriminator_init(32,
+16, bidirectional, 2 layers) and of the CBHG vocoder_init at
+tests/torch_vocoder_golden.py's widths; audio/dsp.py's wav_to_mel_mag of
+wav_case(); and, as array_hash digests, the items of data/dataset.py's
+SyntheticSpeechDataset under DATASET_KW, synth_audio, add_realism and an
+include_f0 item (dataset_case).
 """
 
 import hashlib
@@ -44,6 +57,10 @@ OPT_CASES = (("adamw", 1.0), ("adamw", 100.0), ("adam", 1.0))
 OPT_KW = dict(lr=0.01, weight_decay=0.1, sched_type="multistep")
 # (optim_type, grad_clip, ema_decay)
 EMA_CASES = (("adafactor", 1.0, 0.0), ("adafactor", 1e4, 0.99), ("adamw", 1.0, 0.9))
+DEC_MAX_LEN, DEC_POS = 10, 4
+RNN_ATTNS = ("lsa", "luong")
+DATASET_KW = ({}, {"timbre": "formant", "pitch_jitter": 0.2, "gain_jitter": 0.3,
+                   "jitter_variants": 2})
 
 
 def nn_ops_case():
@@ -103,6 +120,103 @@ def mha_case(cross: bool):
     return x, kv, pad
 
 
+def _np_tree(t):
+    if isinstance(t, dict):
+        return {k: _np_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_np_tree(v) for v in t]
+    return t.numpy()
+
+
+def decoder_params():
+    """The port's decoder_init at TINY's widths (2 layers), torch seed 8,
+    as numpy."""
+    import torch
+    from unast_tpu_torch.models.transformer import decoder_init
+    return _np_tree(decoder_init(torch.Generator().manual_seed(8), D_MODEL, NHEAD,
+                                 2 * D_MODEL, 2))
+
+
+def encoder_params():
+    """The port's encoder_init at TINY's widths (2 layers), torch seed 9,
+    as numpy."""
+    import torch
+    from unast_tpu_torch.models.transformer import encoder_init
+    return _np_tree(encoder_init(torch.Generator().manual_seed(9), D_MODEL, NHEAD,
+                                 2 * D_MODEL, 2))
+
+
+def decoder_step_case():
+    """(memory [2, 7, D], its padding [2, 7], the step's input x [2, 1, D],
+    the self-attention cache's prior contents [L, 2, max_len, H, D/H]),
+    numpy seed 2; the step runs at position DEC_POS of DEC_MAX_LEN with
+    the cache's v holding -prior."""
+    rng = np.random.default_rng(2)
+    memory = rng.normal(size=(2, 7, D_MODEL)).astype(np.float32)
+    pad = np.array([[False] * 7, [False] * 4 + [True] * 3])
+    x = rng.normal(size=(2, 1, D_MODEL)).astype(np.float32)
+    prior = rng.normal(size=(2, 2, DEC_MAX_LEN, NHEAD, D_MODEL // NHEAD))
+    return memory, pad, x, prior.astype(np.float32)
+
+
+def wav_case():
+    """A 30000-sample wav: a 220 Hz tone from 0.2 s on, plus noise (numpy
+    seed 5)."""
+    rng = np.random.default_rng(5)
+    t = np.arange(30000) / 22050.0
+    return (0.4 * np.sin(2 * np.pi * 220 * t) * (t > 0.2)
+            + 0.01 * rng.normal(size=t.shape)).astype(np.float32)
+
+
+def dataset_case(D, kw_index: int):
+    """{name: array or scalar} of data/dataset.py module D (either
+    package's): SyntheticSpeechDataset(size=3, seed=4, **DATASET_KW[i])'s
+    items 0, 1, 2; with i = 0 also synth_audio and add_realism on fixed
+    ids and seeds and SyntheticSpeechDataset(size=1, include_f0=True)[0]."""
+    out = {}
+    ds = D.SyntheticSpeechDataset(size=3, seed=4, **DATASET_KW[kw_index])
+    out["len"] = len(ds)
+    for i in range(3):
+        for k, v in ds[i].items():
+            out[f"item/{i}/{k}"] = v
+    if kw_index == 0:
+        ids = np.array([5, 17, 40, 3], np.int32)
+        wav, durs = D.synth_audio(ids, 22050, np.random.default_rng(1),
+                                  dur_jitter=0.3, return_durs=True)
+        out["synth/wav"], out["synth/durs"] = wav, durs
+        real, offsets = D.add_realism(wav, np.random.default_rng(2), 22050,
+                                      return_offsets=True)
+        out["realism/wav"], out["realism/offsets"] = real, np.asarray(offsets)
+        for k, v in D.SyntheticSpeechDataset(size=1, include_f0=True)[0].items():
+            out[f"f0_item/{k}"] = v
+    return out
+
+
+def _shape_paths(tree, prefix=""):
+    """{path: shape} of a tree of dicts, lists and tuples of shaped leaves
+    (jax.eval_shape's), paths as tree_paths joins them."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix.rstrip("/"): tuple(tree.shape)}
+    out = {}
+    for k, v in items:
+        out.update(_shape_paths(v, f"{prefix}{k}/"))
+    return out
+
+
+def digest(v) -> str:
+    """A digest of an array (dtype, shape and bytes) or of a scalar's repr."""
+    if isinstance(v, np.ndarray):
+        a = np.ascontiguousarray(v)
+        h = hashlib.sha256(f"{a.dtype.str} {a.shape}".encode())
+        h.update(a.tobytes())
+        return h.hexdigest()
+    return f"{type(v).__name__} {v!r}"
+
+
 def argv(**kw):
     """A JAX command line of --key value flags."""
     return [x for k, v in kw.items() for x in (f"--{k}", str(v))]
@@ -137,12 +251,17 @@ def ema_case():
 
 
 def source_hash() -> str:
-    """sha256 over the JAX package's sources, this module and the versions
-    of the libraries that make the JAX side's numbers (read from the
+    """sha256 over the JAX package's sources, this module, the RNN and
+    vocoder golden modules whose configs it takes, and the versions of the
+    libraries that
+    make the JAX side's numbers (read from the
     installed distributions, which costs no import)."""
     from importlib.metadata import version
     h = hashlib.sha256()
-    for f in sorted((ROOT / "unast_tpu").rglob("*.py")) + [Path(__file__)]:
+    here = Path(__file__).resolve().parent
+    for f in (sorted((ROOT / "unast_tpu").rglob("*.py"))
+              + [Path(__file__), here / "torch_rnn_golden.py",
+                 here / "torch_vocoder_golden.py"]):
         h.update(str(f.relative_to(ROOT)).encode())
         h.update(f.read_bytes())
     for lib in ("jax", "jaxlib", "optax", "numpy"):
@@ -159,6 +278,10 @@ def load():
         "`JAX_PLATFORMS=cpu python tests/torch_ops_golden.py`")
     assert str(z["init_hash"]) == G.init_hash(mha_params()), (
         "the port's mha_init changed; run the golden module again")
+    assert str(z["dec_init_hash"]) == G.init_hash(
+        {"dec": decoder_params(), "enc": encoder_params()}), (
+        "the port's decoder_init or encoder_init changed; run the golden "
+        "module again")
     return {k: z[k] for k in z.files}
 
 
@@ -172,7 +295,51 @@ def freeze():
 
     J = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
     out = {"source_hash": np.array(source_hash()),
-           "init_hash": np.array(G.init_hash(mha_params()))}
+           "init_hash": np.array(G.init_hash(mha_params())),
+           "dec_init_hash": np.array(G.init_hash(
+               {"dec": decoder_params(), "enc": encoder_params()}))}
+    jd = jax.tree_util.tree_map(jnp.asarray, decoder_params())
+    memory, pad, x, prior = decoder_step_case()
+
+    @jax.jit
+    def jax_step(jd, memory, prior, x):
+        jc = T.init_cache(jd, memory, DEC_MAX_LEN, NHEAD)
+        jc = jc._replace(self_k=prior, self_v=-prior)
+        return T.decoder_step(jd, nn.Ctx.eval(), x, jnp.int32(DEC_POS), jc,
+                              T.padding_bias(pad), NHEAD, 0.0)
+
+    y, jc = jax_step(jd, memory, prior, x)
+    out["dec_step/y"] = np.asarray(y)
+    for name in ("self_k", "self_v", "cross_k"):
+        out[f"dec_step/{name}"] = np.asarray(getattr(jc, name))
+    stacked = T._stack_layers(jax.tree_util.tree_map(jnp.asarray,
+                                                     encoder_params()["layers"]))
+    for path, a in G.flatten(jax.device_get(stacked)).items():
+        out[f"stack/{path}"] = a
+    from unast_tpu.data import dataset as JD
+    from unast_tpu.models import TINY as JTINY, unast as JU
+    import torch_rnn_golden as RG
+    for attn in RNN_ATTNS:
+        shapes = jax.eval_shape(lambda k: JU.unast_init(
+            k, JTINY.replace(**RG.model_overrides(attn))), jax.random.PRNGKey(0))
+        for path, sds in _shape_paths(shapes).items():
+            out[f"rnn_shapes/{attn}/{path}"] = np.asarray(sds, np.int64)
+    shapes = jax.eval_shape(lambda k: JU.lstm_discriminator_init(k, 32, 16, True, 2),
+                            jax.random.PRNGKey(4))
+    for path, sds in _shape_paths(shapes).items():
+        out[f"disc_shapes/{path}"] = np.asarray(sds, np.int64)
+    import torch_vocoder_golden as VG
+    shapes = jax.eval_shape(lambda k: JU.vocoder_init(
+        k, JU.ModelConfig(hidden=VG.HIDDEN), VG.N_FFT), jax.random.PRNGKey(0))
+    for path, sds in _shape_paths(shapes).items():
+        out[f"vocoder_shapes/{path}"] = np.asarray(sds, np.int64)
+    from unast_tpu.audio import dsp as JDsp
+    mel, mag, n = JDsp.wav_to_mel_mag(wav_case())
+    out["wav_to_mel/mel"], out["wav_to_mel/mag"] = np.asarray(mel), np.asarray(mag)
+    out["wav_to_mel/n"] = np.asarray(n)
+    for i in range(len(DATASET_KW)):
+        for k, v in dataset_case(JD, i).items():
+            out[f"dataset/{i}/{k}"] = np.array(digest(v))
     x, lin, conv, bn_p, bn_s, ids, emb = nn_ops_case()
     for i, a in enumerate(nn_ops(nn, x, J(lin), J(conv), J(bn_p), J(bn_s),
                                  jnp.asarray(ids), J(emb))):

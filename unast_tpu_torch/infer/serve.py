@@ -17,7 +17,9 @@ model (`ctc_pv`): one-pass greedy, prefix beam search over its posteriors
 (`ctc_beam`), or as the draft of the AR decoder's speculative decode
 (`spec`); `beam` runs the AR beam search. `quantize='int8'` serves int8
 weight-only copies of the weights (nn/quant.py), dequantized at every use.
-`mesh` comes with a later slice and raises NotImplementedError.
+With `mesh` (parallel/mesh.py::make_mesh, one rank per device) every rank
+serves its 1/dp share of each request batch with replicated weights and
+the results are gathered, so every rank returns the whole batch.
 """
 
 from typing import List, Sequence
@@ -70,12 +72,20 @@ class Synthesizer:
         the int8 leaves stay int8 on the device and nn.weight dequantizes
         them in cfg.dtype at every use. device: None means
         cuda, and raises when there is no CUDA device; tests pass
-        device='cpu'."""
+        device='cpu'. mesh: None, or a dp mesh (parallel/mesh.py::
+        make_mesh) over ranks that all make this Synthesizer with the same
+        weights and all make the same calls: each rank serves its 1/dp
+        share of every request batch on its device, a short batch padded
+        by repeating its last request, and the results are gathered in
+        order (unast_tpu/infer/serve.py's sharded batches); max_batch must
+        divide over dp (ValueError)."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "Synthesizer mesh is not in the serving slice of the port; "
-                "it comes with the multi-device slice (ROADMAP.md queue 1 "
-                "item 7b)")
+            from ..parallel.mesh import dp_group, dp_rank, dp_size
+            self._dp = (dp_group(mesh), dp_rank(mesh), dp_size(mesh))
+            if max_batch % self._dp[2]:
+                raise ValueError(f"max_batch {max_batch} must divide over "
+                                 f"dp={self._dp[2]}")
         if quantize is not None:
             # int8 weight-only (nn/quant.py), as JAX: the AR params, the
             # CBHG vocoder's and the FastSpeech student's, nothing else
@@ -120,6 +130,23 @@ class Synthesizer:
             dsp.mel_to_mag_pseudo_inverse(audio_params)).to(self.device)
         # decode steps of the last tts/asr call, one entry per batch chunk
         self.last_decode_steps: List[int] = []
+
+    def _sharded(self, fn, *rows):
+        """fn(*rows) over the request rows (tensors [n, ...]); with a mesh,
+        this rank's share of them (rows padded to a multiple of dp by
+        repeating the last one), the tensor outputs gathered over the
+        ranks in row order and cut back to n rows (unast_tpu/infer/
+        serve.py::Synthesizer._pad_chunk and _place)."""
+        if self.mesh is None:
+            return fn(*rows)
+        from ..parallel import collectives as C
+        group, rank, dp = self._dp
+        n = rows[0].shape[0]
+        k = -(-n // dp)
+        idx = torch.clamp(torch.arange(rank * k, (rank + 1) * k), max=n - 1)
+        out = fn(*(r[idx.to(r.device)] for r in rows))
+        return tuple(C.all_gather(o, group)[:n] if torch.is_tensor(o) else o
+                     for o in out)
 
     def _place(self, pv):
         """(params, state) on the device, the weights cast to cfg.dtype."""
@@ -166,8 +193,8 @@ class Synthesizer:
             ids[i, :len(s)] = s
             lens[i] = len(s)
         with torch.inference_mode():
-            post, stop_lens = self._tts_impl(
-                torch.from_numpy(ids).to(self.device),
+            post, stop_lens = self._sharded(
+                self._tts_impl, torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(lens).to(self.device))
         stop_lens = stop_lens.cpu().numpy()
         if self.nar_pv is None:
@@ -324,7 +351,8 @@ class Synthesizer:
                 seqs[start:start + self.max_batch])
             tb = self._bucket(self.mel_buckets, max(1, int(stop_lens[:n].max())))
             with torch.inference_mode():
-                wavs = self._vocode(post[:, :tb]).cpu().numpy()
+                wavs, = self._sharded(lambda m: (self._vocode(m),), post[:, :tb])
+                wavs = wavs.cpu().numpy()
             for i in range(n):
                 # AR stop_lens counts the stop-fired frame, which the cut
                 # drops; NAR out_lens is the exact frame count
@@ -421,7 +449,8 @@ class Synthesizer:
             lens_t = torch.from_numpy(lens).to(self.device)
             if ctc_beam > 1:
                 with torch.inference_mode():
-                    lp, n_frames = self._ctc_log_probs(mel_t, lens_t)
+                    lp, n_frames = self._sharded(self._ctc_log_probs, mel_t,
+                                                 lens_t)
                 lp, n_frames = lp.cpu().numpy(), n_frames.cpu().numpy()
                 out.extend(np.asarray(CT.ctc_prefix_beam_search(
                     lp[i], int(n_frames[i]), beam=ctc_beam,
@@ -430,14 +459,16 @@ class Synthesizer:
                 continue
             with torch.inference_mode():
                 if spec:
-                    ids, stop_lens, rounds = self._spec_asr_impl(mel_t, lens_t)
+                    ids, stop_lens, rounds = self._sharded(
+                        self._spec_asr_impl, mel_t, lens_t)
                     self.last_spec_rounds.append(rounds)
                 elif beam > 1:
-                    ids, stop_lens = self._asr_beam_impl(mel_t, lens_t, beam)
+                    ids, stop_lens = self._sharded(
+                        lambda m, l: self._asr_beam_impl(m, l, beam), mel_t, lens_t)
                 elif self.ctc_pv is not None:
-                    ids, stop_lens = self._ctc_asr_impl(mel_t, lens_t)
+                    ids, stop_lens = self._sharded(self._ctc_asr_impl, mel_t, lens_t)
                 else:
-                    ids, stop_lens = self._asr_impl(mel_t, lens_t)
+                    ids, stop_lens = self._sharded(self._asr_impl, mel_t, lens_t)
             ids = ids.cpu().numpy()
             stop_lens = stop_lens.cpu().numpy()
             self.last_decode_steps.append(int(stop_lens.max()))

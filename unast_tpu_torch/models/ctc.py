@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
+from ..parallel import collectives as C
 from . import modules as M
 from . import networks as N
 from . import transformer as T
@@ -396,4 +397,4 @@ def ctc_loss(logits, frame_pad_mask, labels, label_lens):
         per_seq = per_seq.index_put((rows,), _optax_ctc_per_seq(
             logits[rows], frame_pad_mask[rows].float(), labels[rows],
             (~in_label[rows]).float()))
-    return per_seq.mean()
+    return C.mean(per_seq)

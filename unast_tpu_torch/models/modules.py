@@ -62,7 +62,13 @@ def positional_encoding(ctx: nn.Ctx, x, dropout_p: float = 0.1, offset: int = 0,
     `offset` is the position of x[:, 0] (incremental decode)."""
     d = x.shape[-1]
     t = x.shape[1]
-    pos = _pe_table(d, x.device)[offset:offset + t]
+    if torch.compiler.is_compiling():
+        # under torch.export the table is a constant of the program; the
+        # cache would keep the trace's fake tensor
+        table = torch.from_numpy(sinusoid_table(offset + t, d)).to(x.device)
+    else:
+        table = _pe_table(d, x.device)
+    pos = table[offset:offset + t]
     if scale:
         x = x * math.sqrt(d)
     x = x + pos[None, :, :].to(x.dtype)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
+from ..parallel import collectives as C
 
 
 class MoeOpts(NamedTuple):
@@ -149,11 +150,12 @@ def moe_ffn(p, ctx: nn.Ctx, x, pad_mask, dropout_p: float, opts=MoeOpts()):
         out, top1_assign = _moe_dispatch(p, ctx, xf, probs, valid, dropout_p,
                                          opts)
     if ctx.aux_losses is not None:
-        n_valid = torch.clamp(valid.sum(), min=1.0)
+        # over the global batch under data parallelism, each rank's share
+        n_valid = torch.clamp(C.total(valid.sum()), min=1.0)
         e = probs.shape[-1]
-        frac = top1_assign.sum(dim=0) / n_valid                   # f_e
-        mean_prob = (probs * valid[:, None]).sum(dim=0) / n_valid
-        ctx.aux_losses.append(e * (frac * mean_prob).sum())
+        frac = C.total(top1_assign.sum(dim=0)) / n_valid          # f_e
+        mean_prob = C.sum_grad((probs * valid[:, None]).sum(dim=0)) / n_valid
+        ctx.aux_losses.append(e * (frac * mean_prob).sum() / C.ranks())
     return out.reshape(b, t, d)
 
 

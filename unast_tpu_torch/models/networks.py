@@ -33,6 +33,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import nn
+from ..parallel import collectives as C
 from .config import ModelConfig, PAD_IDX, SOS_IDX, EOS_IDX
 from . import modules as M
 from . import rnn as R
@@ -41,11 +42,11 @@ from . import transformer as T
 
 def check_ported(cfg: ModelConfig):
     """Raise on a configuration the port does not run yet: pipeline stages
-    (pp > 1) come with the parallelism slice."""
+    (pp > 1) come with the next slice, the model-parallel one."""
     if cfg.pp > 1:
         raise NotImplementedError(
             "pp > 1: not in the port yet; pipeline stages come with the "
-            "parallelism slice (ROADMAP.md queue 1 item 7b)")
+            "next slice, model parallelism (ROADMAP.md queue 1 item 7c)")
 
 
 def _stack_kw(cfg: ModelConfig):
@@ -121,7 +122,7 @@ def text_tr_infer(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
     tokens[:, 0] = SOS_IDX
     stop_lens = torch.full((b,), max_len, dtype=torch.long, device=dev)
     for i in range(max_len):
-        if not bool((stop_lens == max_len).any()):
+        if not C.any_rank((stop_lens == max_len).any()):
             break
         text_tr_infer.steps += 1
         x = M.text_embed(p["prenet"], ctx, tokens[:, i:i + 1], cfg)
@@ -388,7 +389,7 @@ def speech_tr_infer(p, s, ctx, cfg: ModelConfig, memory, mem_pad_mask,
     stops = torch.zeros((b, cap), dtype=memory.dtype, device=dev)
     stop_lens = torch.full((b,), cap, dtype=torch.long, device=dev)
     for g in range(n_groups):
-        if not bool((stop_lens == cap).any()):
+        if not C.any_rank((stop_lens == cap).any()):
             break
         speech_tr_infer.steps += 1
         # input: last frame of the previous group (go-frame for g=0)
@@ -505,7 +506,7 @@ def text_rnn_infer(p, s, ctx, cfg: ModelConfig, enc_outputs, enc_pad_mask,
         (b,), SOS_IDX, dtype=torch.long, device=dev), cfg)
     attn = _init_attn_state(p, cfg, enc_out)
     for i in range(max_len):
-        if not bool((stop_lens == max_len).any()):
+        if not C.any_rank((stop_lens == max_len).any()):
             break
         text_rnn_infer.steps += 1
         x_t, bufs = M.text_prenet_step(p["prenet"], s["prenet"], ctx, cur_emb,
@@ -595,7 +596,7 @@ def speech_rnn_infer(p, s, ctx, cfg: ModelConfig, enc_outputs, enc_pad_mask,
     stop_lens = torch.full((b,), max_len, dtype=torch.long, device=dev)
     attn = _init_attn_state(p, cfg, enc_out)
     for i in range(max_len):
-        if not bool((stop_lens == max_len).any()):
+        if not C.any_rank((stop_lens == max_len).any()):
             break
         speech_rnn_infer.steps += 1
         x = M.speech_prenet(p["prenet"], ctx, frames[:, i], cfg)

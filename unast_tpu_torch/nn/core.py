@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as C
+
 
 @dataclasses.dataclass
 class Ctx:
@@ -203,13 +205,19 @@ def batchnorm(p, s, x: torch.Tensor, train: bool):
     [B, C] (torch BatchNorm1d semantics). train: normalise by the batch's
     statistics (biased variance, gradients flow through them) and move the
     running state toward them (unbiased variance), detached as JAX's state
-    output is. Returns (y, new_state)."""
+    output is. Under data parallelism (parallel/collectives.py) the
+    statistics are the global batch's. Returns (y, new_state)."""
     dims = tuple(range(x.ndim - 1))
     if train:
         xf = x.float()
-        mean = xf.mean(dim=dims)
-        var = xf.var(dim=dims, unbiased=False)
         n = x.numel() // x.shape[-1]
+        if C.active():   # the global batch's statistics, as GSPMD's under dp
+            n *= C.ranks()
+            mean = C.sum_grad(xf.sum(dim=dims)) / n
+            var = C.sum_grad(((xf - mean) ** 2).sum(dim=dims)) / n
+        else:
+            mean = xf.mean(dim=dims)
+            var = xf.var(dim=dims, unbiased=False)
         unbiased = var.detach() * (n / max(1, n - 1))
         new_s = {
             "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean.detach(),

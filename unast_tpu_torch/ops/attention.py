@@ -13,10 +13,14 @@ into a workspace allocated here). Both read the [B, T, H, D] tensors in
 place through their strides, so the [B*H, T, D] transposes of the JAX
 wrapper are gone, and load kv_lens per batch row themselves.
 
-The backward is `flash_attention_bwd_plain`, the JAX package's recompute
-backward (_flash_vjp_bwd, plain jnp there, so plain torch here) on the same
-[B, T, H, D] layout; `_FlashAttention`, a torch.autograd.Function, wires it
-behind the forward on every device.
+The forward is the registered operator unast::flash_attention_fwd
+(`flash_attention_fwd`), so that torch.export keeps it as one node of an
+exported program, as jax.export keeps the pallas_call, and loading such a
+program needs only this module imported. The backward is
+`flash_attention_bwd_plain`, the JAX package's recompute backward
+(_flash_vjp_bwd, plain jnp there, so plain torch here) on the same
+[B, T, H, D] layout, registered as the operator's autograd formula on
+every device.
 """
 
 import ctypes
@@ -208,27 +212,45 @@ def _forward(q, k, v, kv_lens, causal: bool):
     return o
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The forward (`_forward`: kernel on the card, plain on the CPU) with
-    the plain backward behind it on every device, the counterpart of the
-    JAX package's custom_vjp (_flash, _flash_vjp_fwd, _flash_vjp_bwd). It
-    keeps q, k, v, kv_lens and the output o for the backward, as JAX's
-    residuals do."""
+def _fake(q, k, v, kv_lens, causal):
+    # the kernels write o as a contiguous [B, Tq, H, D] tensor of q's dtype
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_lens, causal):
-        o = _forward(q, k, v, kv_lens, causal)
-        ctx.save_for_backward(q, k, v, kv_lens, o)
-        ctx.causal = causal
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, kv_lens, o = ctx.saved_tensors
-        flash_attention.backward_calls += 1
-        with record_function("unast/flash_attention_bwd"):
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal, o, do)
-        return dq, dk, dv, None, None
+def _setup_backward(ctx, inputs, output):
+    q, k, v, kv_lens, causal = inputs
+    ctx.save_for_backward(q, k, v, kv_lens, output)
+    ctx.causal = causal
+
+
+def _backward(ctx, do):
+    """The JAX package's custom_vjp backward (_flash_vjp_bwd) behind the
+    operator on every device: q, k, v, kv_lens and the output o are kept
+    for it, as JAX's residuals are."""
+    q, k, v, kv_lens, o = ctx.saved_tensors
+    flash_attention.backward_calls += 1
+    with record_function("unast/flash_attention_bwd"):
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal, o, do)
+    return dq, dk, dv, None, None
+
+
+# The forward as the registered operator unast::flash_attention_fwd (the
+# counterpart of the pallas_call in unast_tpu/ops/attention.py::_flash_fwd,
+# which jax.export keeps in its StableHLO). Its one implementation, for
+# every device, is `_forward` (looked up at each call): the kernel on a
+# CUDA tensor, the plain version on a CPU one. torch.export and torch.utils.checkpoint see one
+# opaque op; the fake implementation gives the output's shape and layout,
+# the autograd formula is the plain recompute backward. (torch.library's
+# custom_op decorator would do the same, but its first call imports
+# torch._dynamo, seconds in every process.)
+_LIB = torch.library.Library("unast", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, "
+            "bool causal) -> Tensor")
+_LIB.impl("flash_attention_fwd", lambda *a: _forward(*a), "CompositeExplicitAutograd")
+torch.library.register_fake("unast::flash_attention_fwd", _fake, lib=_LIB)
+torch.library.register_autograd("unast::flash_attention_fwd", _backward,
+                                setup_context=_setup_backward, lib=_LIB)
+flash_attention_fwd = torch.ops.unast.flash_attention_fwd.default
 
 
 def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
@@ -248,7 +270,7 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
     gradient, the backward is `flash_attention_bwd_plain` on either device,
     adding one to `flash_attention.backward_calls`. Precondition: every
     kv_len >= 1; a row with no visible key has no defined output."""
-    return _FlashAttention.apply(q, k, v, kv_lens, causal)
+    return flash_attention_fwd(q, k, v, kv_lens, causal)
 
 
 flash_attention.launches = 0        # every launch

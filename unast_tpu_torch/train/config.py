@@ -164,7 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
              "the card unless the caller asks for another; 'cuda' raises "
              "where there is none)")
     add("--dp", type=int, default=1,
-        help="data-parallel mesh size (not in the port yet: > 1 raises)")
+        help="data-parallel ranks, one process per device: launch with "
+             "torchrun --nproc_per_node N and pass --dp N")
     add("--tp", type=int, default=1,
         help="tensor-parallel mesh size (not in the port yet: > 1 raises)")
     add("--sp", type=int, default=1,
@@ -328,20 +329,34 @@ def parse_with_config(argv=None) -> argparse.Namespace:
 def apply_runtime_flags(args):
     """unast_tpu/train/config.py::apply_runtime_flags: check the flags that
     configure the runtime rather than the model. --fast_prng selects JAX's
-    hardware RNG and means nothing here. The mesh (dp, tp, sp, ep > 1),
-    ZeRO sharding and a multi-process launch come with the parallelism
-    slice of the port and raise NotImplementedError."""
-    later = [f"--{k} {getattr(args, k)}" for k in ("dp", "tp", "sp", "ep")
+    hardware RNG and means nothing here. Data parallelism runs one process
+    per device under torchrun (parallel/multihost.py): --dp must equal the
+    launch's world size (WORLD_SIZE), --zero 1 or 3 shards the optimizer
+    state (and the params) over the dp ranks (0 and dp 1 leave it whole,
+    as in JAX). The model-parallel axes (--tp, --sp, --ep above 1) come
+    with the next slice and raise NotImplementedError; a JAX launcher's
+    JAX_COORDINATOR_ADDRESS raises ValueError."""
+    later = [f"--{k} {getattr(args, k)}" for k in ("tp", "sp", "ep")
              if (getattr(args, k, 1) or 1) > 1]
-    if getattr(args, "zero", 0):
-        later.append(f"--zero {args.zero}")
-    if (os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1):
-        later.append("a multi-process (multihost) launch")
     if later:
         raise NotImplementedError(
-            f"{', '.join(later)}: the port runs on one device; parallelism "
-            "comes with a later slice (ROADMAP.md queue 1 item 7b)")
+            f"{', '.join(later)}: the port has data parallelism only; the "
+            "model-parallel axes come with the next slice (ROADMAP.md "
+            "queue 1 item 7c)")
+    if os.environ.get("JAX_COORDINATOR_ADDRESS"):
+        raise ValueError("JAX_COORDINATOR_ADDRESS is the JAX package's "
+                         "multihost launcher; launch the port with torchrun "
+                         "--nproc_per_node N -m unast_tpu_torch.train.loop --dp N")
+    zero = getattr(args, "zero", 0) or 0
+    if zero not in (0, 1, 3):
+        raise ValueError(f"--zero must be 0, 1 or 3, got {zero}")
+    dp = getattr(args, "dp", 1) or 1
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if dp != world:
+        raise ValueError(
+            f"--dp {dp} with a multihost launch of {world} processes: the "
+            "port runs one process per device, so --dp must equal "
+            f"torchrun's --nproc_per_node")
 
 
 def train_args(path=None, **overrides) -> argparse.Namespace:

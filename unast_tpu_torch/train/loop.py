@@ -8,11 +8,20 @@ one.
     python -m unast_tpu_torch.train.loop --config configs/transformer_test.json \\
         --synthetic --epochs 1 --device cpu
 
-Runs on the card unless --device names another device. Randomness: step
-`i` draws from a generator seeded from (seed + 17, i), warm-start step `s`
-from (seed + 29, s) and eval batch `b` from (0, b), the counterparts of
-the JAX loop's fold_in keys; the weights come from a CPU generator seeded
-with `seed`. A resumed run (load_path or auto_resume) also advances the
+Runs on the card unless --device names another device. Data parallelism:
+
+    torchrun --nproc_per_node N -m unast_tpu_torch.train.loop --dp N [--zero 1|3]
+
+runs one rank per device (cuda:LOCAL_RANK under NCCL; gloo with --device
+cpu), each reading its strided shard of the corpus with train_batch_size / N
+rows a micro-batch, through parallel/mesh.py's sharded step; only rank 0
+writes metrics and checkpoints, and a checkpoint holds the whole state
+whatever the ZeRO level. Randomness: step `i` draws from a generator seeded
+from (seed + 17, i), warm-start step `s` from (seed + 29, s) and eval batch
+`b` from (0, b), the counterparts of the JAX loop's fold_in keys; under dp
+rank r of N seeds from (seed + 17, i * N + r) and (seed + 29, s * N + r)
+instead, so no two ranks draw the same dropout masks; the weights come from
+a CPU generator seeded with `seed`. A resumed run (load_path or auto_resume) also advances the
 data streams past the batches the saved epochs consumed, so it trains on
 what an unbroken run would have (the JAX loop restarts its streams).
 """
@@ -30,6 +39,7 @@ from ..data.batching import BatchGetter, BatchIterator
 from ..data.dataset import LJSpeechDataset, SyntheticSpeechDataset
 from ..device import resolve_device
 from ..infer.evaluate import batch_to, evaluate
+from ..parallel import multihost as MH
 from .checkpoint import load_ckp, save_ckp, wait_for_saves
 from .config import apply_runtime_flags, model_config_from_args, parse_with_config
 from .observe import MetricsWriter, check_nan, log_loss_metrics, maybe_profile
@@ -110,11 +120,25 @@ def _warm_start(args, cfg):
 
 def train(args):
     """unast_tpu/train/loop.py::train. Returns (final TrainState, best
-    PER)."""
+    PER); under dp the TrainState is this rank's (its slices under
+    ZeRO)."""
     apply_runtime_flags(args)
-    device = resolve_device(args.device)
+    device = resolve_device(MH.maybe_initialize_distributed(args.device))
     cfg = model_config_from_args(args)
     datasets = initialize_datasets(args)
+    n_proc, rank = MH.process_count(), MH.process_index()
+    if n_proc > 1:
+        # each rank reads a strided corpus shard and contributes
+        # train_batch_size / n_proc rows per micro-batch
+        assert args.train_batch_size % n_proc == 0, (
+            f"global batch {args.train_batch_size} must divide over "
+            f"{n_proc} processes")
+        args.train_batch_size //= n_proc
+        for k in ("labeled", "unlabeled", "full"):
+            if len(datasets[k]) < n_proc:   # a rank's shard would be empty
+                raise ValueError(f"the {k} set has {len(datasets[k])} items, "
+                                 f"fewer than the {n_proc} processes sharding it")
+            datasets[k] = MH.HostShardedDataset(datasets[k])
     batch_getter = BatchGetter(args, datasets["labeled"],
                                datasets["unlabeled"], datasets["full"],
                                n_mels=args.num_mels)
@@ -135,16 +159,33 @@ def train(args):
         s_epoch, best, ts, _ = load_ckp(args.load_path, ts)
         print(f"[INFO] Training from epoch {s_epoch}.")
 
+    n_params = sum(x.numel() for x in tree_leaves(ts.params))
+    train_step = make_train_step(cfg, args)
+    dp = None
+    if args.dp > 1:
+        from ..parallel.mesh import make_mesh, shard_train_step
+        mesh = make_mesh(args.dp)
+        print(f"mesh: dp {args.dp} over {n_proc} processes, zero {args.zero}")
+        train_step, ts = shard_train_step(train_step, mesh, ts,
+                                          zero=args.zero)
+        dp = train_step.dp
+
+    def whole():
+        # the whole state (a collective under ZeRO: every rank gathers)
+        return dp.whole(ts) if dp is not None and dp.zero else ts
+
+    def generator(seed, i):
+        return seeded_generator(seed, i * n_proc + rank, device)
+
     wargs, wcfg = _warm_start(args, cfg)
     if args.sp_warmup_steps and s_epoch == 0:
         # grounding curriculum: supervised-only steps anchor the
         # cross-modal alignment before the joint mixture
-        wstep = make_train_step(wcfg, wargs)
+        wstep = make_train_step(wcfg, wargs, dp=dp)
         t0 = time.time()
         for s in range(args.sp_warmup_steps):
             wb = _to_device(batch_getter.step_batches(wargs, False), device)
-            ts, wm = wstep(ts, seeded_generator(args.seed + WARMUP_SEED, s,
-                                                device), wb)
+            ts, wm = wstep(ts, generator(args.seed + WARMUP_SEED, s), wb)
         print(f"[sp_warmup] {args.sp_warmup_steps} supervised-only steps "
               f"in {time.time() - t0:.1f}s "
               f"(final asr {float(wm['sp/asr']):.3f} "
@@ -155,19 +196,23 @@ def train(args):
         batch_getter.skip_steps(args, cfg.use_discriminator,
                                 s_epoch * args.epoch_steps)
 
-    train_step = make_train_step(cfg, args)
+    lead = rank == 0   # the rank that writes metrics and checkpoints
     writer = MetricsWriter(
-        jsonl_path=os.path.join(args.checkpoint_path, "metrics.jsonl"),
-        tb_log_path=args.tb_log_path)
-    print(f"Training model with {sum(x.numel() for x in tree_leaves(ts.params))} "
-          f"parameters on {device}")
+        jsonl_path=(os.path.join(args.checkpoint_path, "metrics.jsonl")
+                    if lead else None),
+        tb_log_path=args.tb_log_path if lead else None)
+    print(f"Training model with {n_params} parameters on {device}")
 
-    def eval_params():
-        return (ema_params(ts) if getattr(args, "ema_decay", 0.0)
-                else None) or ts.params
+    def eval_params(full):
+        return (ema_params(full) if getattr(args, "ema_decay", 0.0)
+                else None) or full.params
+
+    def save(full, *a, **kw):
+        if lead:
+            save_ckp(*a[:2], full, *a[2:], **kw)
 
     val_batches = _val_batches(args, datasets["val"])
-    per, eval_losses = evaluate(eval_params(), ts.net_state, cfg, args,
+    per, eval_losses = evaluate(eval_params(whole()), ts.net_state, cfg, args,
                                 val_batches)
     log_loss_metrics(eval_losses, s_epoch - 1, eval_=True)
 
@@ -208,8 +253,7 @@ def train(args):
                         raise batches
                     batches = _to_device(batches, device)
                     step_seed = [args.seed + STEP_SEED, step_count]
-                    ts, metrics = train_step(
-                        ts, seeded_generator(*step_seed, device), batches)
+                    ts, metrics = train_step(ts, generator(*step_seed), batches)
                     step_count += 1
                     if step_count % max(1, args.log_every) == 0:
                         host = {k: float(v) for k, v in metrics.items()}
@@ -222,24 +266,24 @@ def train(args):
                   f"({args.epoch_steps / dt:.2f} steps/s)")
 
             # pre-save so a crash in eval loses nothing (src/train.py:666-667)
-            save_ckp(epoch, 300.0, ts, False, args.checkpoint_path,
-                     temporary_save=True, rng=step_seed,
-                     async_save=args.async_ckpt)
-            per, eval_losses = evaluate(eval_params(), ts.net_state, cfg, args,
-                                        val_batches)
+            full = whole()
+            save(full, epoch, 300.0, False, args.checkpoint_path,
+                 temporary_save=True, rng=step_seed, async_save=args.async_ckpt)
+            per, eval_losses = evaluate(eval_params(full), ts.net_state, cfg,
+                                        args, val_batches)
             log_loss_metrics(epoch_losses, epoch)
             log_loss_metrics(eval_losses, epoch, eval_=True)
             writer.scalars(step_count, {k: np.mean(v) for k, v in
                                         eval_losses.items()}, prefix="eval/")
             writer.scalars(step_count, {"per": per}, prefix="eval/")
 
-            save_ckp(epoch, per, ts, per < best, args.checkpoint_path,
-                     rng=step_seed, async_save=args.async_ckpt)
-            if args.tb_log_path:
+            save(full, epoch, per, per < best, args.checkpoint_path,
+                 rng=step_seed, async_save=args.async_ckpt)
+            if args.tb_log_path and lead:
                 from .observe import log_example
                 try:
                     idx = int(np.random.randint(0, len(datasets["val"])))
-                    log_example(writer, ts.params, ts.net_state, cfg,
+                    log_example(writer, full.params, ts.net_state, cfg,
                                 datasets["val"][idx], step_count, "eval")
                 except Exception as e:  # logging must never kill training
                     print(f"[observe] example logging failed: {e!r}")
@@ -248,9 +292,8 @@ def train(args):
                 print("\t Best score - saving model!")
                 best = per
             if args.save_every and (epoch + 1) % args.save_every == 0:
-                save_ckp(epoch, per, ts, per < best, args.checkpoint_path,
-                         epoch_save=True, rng=step_seed,
-                         async_save=args.async_ckpt)
+                save(full, epoch, per, per < best, args.checkpoint_path,
+                     epoch_save=True, rng=step_seed, async_save=args.async_ckpt)
     finally:
         stop_prefetch.set()
         producer.join(timeout=30)
@@ -294,7 +337,10 @@ def main(argv=None):
         evaluate_main(args)
     else:
         print("#### TRAINING ####")
-        train(args)
+        try:
+            train(args)
+        finally:
+            MH.shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -2,6 +2,9 @@
 
 All reductions accumulate in float32. Padding is handled by masks as the
 JAX package does, including its unmasked stop BCE over padded frames.
+Under data parallelism (parallel/collectives.py) every mean and every
+normaliser is the global batch's, as GSPMD computes it: a rank's loss is
+its share, its local sum over the global denominator.
 """
 
 import torch
@@ -9,6 +12,7 @@ import torch.nn.functional as F
 
 from ..models.config import PAD_IDX, EOS_IDX
 from ..models.modules import lens_to_mask
+from ..parallel import collectives as C
 
 
 def masked_mse(gold_mel, pred_mel, mel_mask):
@@ -16,7 +20,7 @@ def masked_mse(gold_mel, pred_mel, mel_mask):
     kept elements; mel_mask broadcasts to gold_mel, 1 = keep."""
     diff2 = (gold_mel.float() - pred_mel.float()) ** 2
     m = torch.broadcast_to(mel_mask, gold_mel.shape).float()
-    return (diff2 * m).sum() / m.sum().clamp(min=1.0)
+    return (diff2 * m).sum() / C.total(m.sum()).clamp(min=1.0)
 
 
 def text_loss(gold_char, logits, eos_weight: float = 1.0):
@@ -27,7 +31,7 @@ def text_loss(gold_char, logits, eos_weight: float = 1.0):
     nll = -torch.gather(logp, -1, gold[..., None])[..., 0]
     w = torch.where(gold == EOS_IDX, eos_weight, 1.0)
     w = torch.where(gold == PAD_IDX, 0.0, w).to(nll.dtype)
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    return (nll * w).sum() / C.total(w.sum()).clamp(min=1.0)
 
 
 def bce_with_logits(logits, labels, pos_weight=None):
@@ -41,7 +45,7 @@ def bce_with_logits(logits, labels, pos_weight=None):
         loss = -(pos_weight * y * log_p + (1.0 - y) * log_np)
     else:
         loss = -(y * log_p + (1.0 - y) * log_np)
-    return loss.mean()
+    return C.mean(loss)
 
 
 def speech_loss(gold_mel, stop_label, pred_mel, post_pred_mel, mel_len,
@@ -104,5 +108,5 @@ def guided_attention_loss(attn, q_len, k_len, sigma: float = 0.2):
     w = w[:, None, :, :]
     valid = valid[:, None, :, :]
     num = (attn.float() * w * valid).sum()
-    den = torch.broadcast_to(valid, attn.shape).sum().clamp(min=1.0)
+    den = C.total(torch.broadcast_to(valid, attn.shape).sum()).clamp(min=1.0)
     return num / den

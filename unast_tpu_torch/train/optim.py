@@ -224,10 +224,14 @@ class Optimizer:
         return OptState(0, tree_map(torch.zeros_like, params),
                         tree_map(torch.zeros_like, params))
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm=None):
+        """norm: the gradient's global norm for the clip when `grads` is a
+        part of the gradient (a ZeRO shard, parallel/mesh.py); None
+        computes it from `grads`."""
         g = grads
         if self.grad_clip > 0:      # optax.clip_by_global_norm
-            norm = global_norm(g)
+            if norm is None:
+                norm = global_norm(g)
             if not bool(norm < self.grad_clip):
                 g = tree_map(lambda t: t / norm.to(t.dtype) * self.grad_clip, g)
         wd = self.weight_decay
@@ -280,8 +284,8 @@ class ParamsEma:
     def init(self, params) -> EmaState:
         return EmaState(self.inner.init(params), tree_map(torch.clone, params))
 
-    def update(self, grads, state: EmaState, params):
-        u, inner = self.inner.update(grads, state.inner, params)
+    def update(self, grads, state: EmaState, params, norm=None):
+        u, inner = self.inner.update(grads, state.inner, params, norm)
         new_p = apply_updates(params, u)
         d = self.decay
         ema = tree_map(lambda e, p: d * e + (1.0 - d) * p, state.ema, new_p)

@@ -42,6 +42,7 @@ from ..models import modules as M
 from ..models import networks as N
 from ..models import unast as U
 from ..models.config import ModelConfig
+from ..parallel import collectives as C
 from . import losses as L
 from .augment import specaugment
 from .optim import (ParamsEma, apply_updates, find_ema, global_norm,
@@ -448,7 +449,7 @@ def _accumulate(loss_fn, params, wrt, net_state, gen, stacked_batches):
     return grads, st, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
 
 
-def make_train_step(cfg: ModelConfig, args):
+def make_train_step(cfg: ModelConfig, args, dp=None):
     """unast_tpu/train/steps.py::make_train_step: train_step(ts, gen,
     batches) -> (new ts, metrics).
 
@@ -459,14 +460,38 @@ def make_train_step(cfg: ModelConfig, args):
     ('ae/t_ae', ..., 'grad_norm', 'd/d'), each the mean over the
     micro-batches; 'param_sum' with args.param_sum_metric. Raises
     NotImplementedError, before any step runs, on model options of later
-    slices (networks.check_ported)."""
+    slices (networks.check_ported).
+
+    dp: None, or a parallel/mesh.py::DataParallel (shard_train_step makes
+    it): then `batches` are this rank's rows of the global batch, every
+    loss, normaliser and BatchNorm statistic is the global batch's
+    (parallel/collectives.py), the gradients and the metrics are summed
+    over the ranks, and the update goes through dp (ZeRO)."""
     N.check_ported(cfg)
     gen_tx, disc_tx = make_optimizers(cfg, args)
     scale = 1.0 / (args.ae_steps + args.cm_steps + args.sp_steps)
 
+    def update(tx, opt_dims, grads, opt_state, params, norm):
+        if dp is not None:
+            return dp.update(tx, opt_dims, grads, opt_state, params, norm)
+        updates, opt_state = tx.update(grads, opt_state, params, norm)
+        return apply_updates(params, updates), opt_state
+
+    def reduce_metrics(metrics: dict):
+        # each rank's losses are its shares of the global batch's
+        if dp is None or not metrics:
+            return metrics
+        keys = list(metrics)
+        return dict(zip(keys, dp.all_reduce([metrics[k] for k in keys])))
+
     def train_step(ts: TrainState, gen: torch.Generator, batches):
+        with C.data_parallel(None if dp is None else dp.group):
+            return step(ts, gen, batches)
+
+    def step(ts: TrainState, gen: torch.Generator, batches):
         metrics = {}
-        gen_params, disc_params = split_params(ts.params)
+        params_in = ts.params if dp is None else dp.params_in(ts.params)
+        gen_params, disc_params = split_params(params_in)
         live = tree_map(lambda x: x.detach().requires_grad_(True), gen_params)
         params = dict(live)
         if disc_params is not None:
@@ -485,13 +510,17 @@ def make_train_step(cfg: ModelConfig, args):
             total = g if total is None else [a + b for a, b in zip(total, g)]
             metrics.update({f"{name}/{k}": v.mean() for k, v in aux.items()})
 
+        metrics = reduce_metrics(metrics)
         gen_opt = ts.gen_opt
         with torch.no_grad(), record_function("unast/train/gen_update"):
             if total is not None:
+                if dp is not None:
+                    total = dp.all_reduce(total)
                 gen_grads = tree_unflatten(gen_params, total)
                 metrics["grad_norm"] = global_norm(gen_grads)
-                updates, gen_opt = gen_tx.update(gen_grads, gen_opt, gen_params)
-                gen_params = apply_updates(gen_params, updates)
+                gen_params, gen_opt = update(
+                    gen_tx, dp and dp.dims.gen_opt, gen_grads, gen_opt,
+                    gen_params, metrics["grad_norm"])
         new_params = dict(gen_params)
         disc_opt = ts.disc_opt
 
@@ -509,18 +538,24 @@ def make_train_step(cfg: ModelConfig, args):
                                                 tree_leaves(d_live), net_state,
                                                 gen, batches["d"])
             with torch.no_grad():
+                if dp is not None:
+                    d_grads = dp.all_reduce(d_grads)
                 d_grads = tree_unflatten(disc_params, d_grads)
-                d_updates, disc_opt = disc_tx.update(d_grads, disc_opt,
-                                                     disc_params)
-                disc_params = apply_updates(disc_params, d_updates)
-            metrics.update({f"d/{k}": v.mean() for k, v in d_aux.items()})
+                disc_params, disc_opt = update(
+                    disc_tx, dp and dp.dims.disc_opt, d_grads, disc_opt,
+                    disc_params, global_norm(d_grads))
+            metrics.update(reduce_metrics(
+                {f"d/{k}": v.mean() for k, v in d_aux.items()}))
 
         if disc_params is not None:
             new_params["discriminator"] = disc_params
         if getattr(args, "param_sum_metric", False):
             metrics["param_sum"] = sum(x.abs().sum()
                                        for x in tree_leaves(new_params))
+        if dp is not None:
+            new_params = dp.params_out(new_params)
         return TrainState(new_params, net_state, gen_opt, disc_opt,
                           ts.step + 1), metrics
 
+    train_step.config, train_step.dp = (cfg, args), dp
     return train_step
