@@ -79,10 +79,10 @@ Phases (each that fails exits non-zero; nothing is caught):
      asr_ids profile, peak memory; TINY f32 on the card against the CPU
      under 'lsa' and 'luong' (mels 1e-4, ids equal, each greedy choice
      leading by more than 1e-3 on the CPU);
-  11. the RNN backbone trained: 2 steps of make_train_step with rnn_d's
+  11. the RNN backbone trained: 1 step of make_train_step with rnn_d's
      own train args (adam, multistep, B2, ae 1 / cm 2 / sp 1 / d 1) on
      synthetic batches at 816 frames / 304 tokens, counts set to 0 just
-     before each step and read just after (0 forwards, 0 backward calls),
+     before the step and read just after (0 forwards, 0 backward calls),
      losses and params finite, step seconds, peak memory; one TINY f32 RNN
      step on the card against the CPU (phase 8's tolerances);
   12. the CBHG vocoder: infer/vocoder.py::train_vocoder at
@@ -167,16 +167,22 @@ Phases (each that fails exits non-zero; nothing is caught):
      against a direct call; the flagship trees and phase 12's CBHG vocoder
      through export_state_dict / import_state_dict bit-equal, and the two
      compat CLIs round-tripping the flagship checkpoint;
-  20. data parallelism on the one card: a dp = 2 world of two processes
-     (this script with --dp-worker) under gloo sharing the H100 (NCCL
-     refuses two ranks on one device; the device line still says count 1),
-     each joined, a failing rank failing the phase: at TINY f32 one dp
-     step per ZeRO level 0, 1 and 3 against the single-process step
-     (phase 8's tolerances) and Synthesizer(mesh=) against the
-     single-process one; at flagship width one bf16 joint step with zero=1
-     and one with zero=3, each rank's launches and backward calls as
-     flash_calls_per_step counts them, its peak memory and optimizer
-     bytes, the step's seconds;
+  20. data, tensor and expert parallelism on the one card (its worlds
+     are started before phase 17 and run beside phases 17-19): a world of two
+     processes (this script with --dp-worker) under gloo sharing the H100
+     (NCCL refuses two ranks on one device; the device line still says
+     count 1), each joined, a failing rank failing the phase: at TINY f32
+     one dp step per ZeRO level 0, 1 and 3, the dp = 2 dispatch-MoE step
+     whose capacity overflows, a tp = 2 and an ep = 2 step, each against
+     the single-process step (phase 8's tolerances), and
+     Synthesizer(mesh=) against the single-process one; at flagship width
+     one bf16 joint step with zero=1, one with zero=3 and one at tp = 2,
+     each rank's launches and backward calls as flash_calls_per_step
+     counts them, its peak memory, param and optimizer bytes (a tp
+     rank's as the split rule counts them), the step's seconds; in every
+     sharded step the kernel against its plain version on each q/k/v
+     layout the rank gave it; then a world of four ranks: a TINY dp 2 x
+     tp 2 zero-1 step against the single-process step;
   then one `{"kernels": [...]}` line (both routes, with their launches on
      the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
      beam, CTC train, hybrid, NAR serve, distill, NAR + MelGAN serve,
@@ -190,6 +196,8 @@ Phases (each that fails exits non-zero; nothing is caught):
      `{"ok": true, "device": ...}`.
 """
 
+import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -273,6 +281,13 @@ FLASH_CASES = [
     Case("d128", bf16, 8, 300, 300, 2, 128, False, 10),
     Case("d128_cross_causal", bf16, 8, 300, 815, 2, 128, True, 23, "cross",
          lens=RAGGED),
+    # a tp = 2 rank's step (phase 20): 2 of the flagship's 4 heads, q/k/v
+    # views of its fused [B, T, 3 * 128] projection, k/v of [B, T, 2 * 128]
+    Case("tp_self_t816_h2", bf16, 4, 816, 816, 2, 64, True, 49, "qkv"),
+    Case("tp_self_t304_h2", bf16, 4, 304, 304, 2, 64, True, 50, "qkv"),
+    Case("tp_encoder_t816_h2", bf16, 4, 816, 816, 2, 64, False, 51, "qkv"),
+    Case("tp_cross_304x816_h2", bf16, 4, 304, 816, 2, 64, False, 52, "cross"),
+    Case("tp_cross_816x304_h2", bf16, 4, 816, 304, 2, 64, False, 53, "cross"),
     # phase 17's wide encoder: d 1024 over 8 heads of 128
     Case("wide_encoder_qkv_d128", bf16, 8, 815, 815, 8, 128, False, 47, "qkv"),
     Case("tiny_asr_encoder_f32", f32, 2, 24, 24, 2, 16, False, 37, "qkv",
@@ -318,6 +333,9 @@ BWD_CASES = [
          lens=[20, 9]),
 ]
 TRAIN_STEPS = 1
+# phase 11's RNN steps at rnn_d width (host-bound: about a minute and a
+# half each; one keeps the script inside its time limit)
+RNN_TRAIN_STEPS = 1
 TEST_CONFIG = os.path.join(ROOT, "configs", "transformer_test.json")
 RNN_CONFIG = os.path.join(ROOT, "configs", "rnn_d.json")
 VOCODER_CONFIG = os.path.join(ROOT, "configs", "vocoder.json")
@@ -579,6 +597,96 @@ def sdpa_call(q, k, v, kv_lens, causal):
         qt, kt, vt, attn_mask=mask)
 
 
+def flash_agreement(out, ref, scale=None):
+    """(max abs error, tol, ok, worst error over its bound) of a
+    flash_attention output against its plain version on the same inputs:
+    within tol (2e-5 for float32, 2e-2 for bfloat16) plus tol times
+    `scale` (|ref| unless given), and a bfloat16 output also within one
+    bf16 rounding of it (2^-7 scale + 1e-5)."""
+    tol = 2e-5 if out.dtype == torch.float32 else 2e-2
+    err = (out.float() - ref.float()).abs()
+    scale = ref.float().abs() if scale is None else scale
+    bound = tol + tol * scale
+    if out.dtype == torch.bfloat16:
+        bound = torch.minimum(bound, 2.0 ** -7 * scale + 1e-5)
+    return float(err.max()), tol, bool((err <= bound).all()), float((err / bound).max())
+
+
+def attention_f64(q, k, v, kv_lens, causal: bool):
+    """(o, P.|V|): the flash function of q, k, v in float64 (the same
+    kv_lens and causal mask), and its weights applied to |v|."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / q.shape[-1] ** 0.5
+    kpos = torch.arange(k.shape[1], device=q.device)
+    keep = torch.ones_like(s, dtype=torch.bool)
+    if kv_lens is not None:
+        keep = keep & (kpos[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        keep = keep & (kpos[None, :] <= torch.arange(q.shape[1], device=q.device)[:, None])
+    p = torch.softmax(s.masked_fill(~keep, -1e9), dim=-1)
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v.double()),
+            torch.einsum("bhqk,bkhd->bqhd", p, v.double().abs()))
+
+
+@contextlib.contextmanager
+def recorded_flash_inputs(seen: dict):
+    """Within the block the transformer's flash_attention calls run as
+    before, and the first (q, k, v, kv_lens, causal) of each distinct
+    layout (shapes, strides, dtype, causal) lands in `seen`, detached:
+    the very views a step gave the kernel, to hold it against its plain
+    version afterwards (check_recorded_flash)."""
+    from unast_tpu_torch.models import transformer
+    inner = transformer.flash_attention
+
+    def record(q, k, v, kv_lens=None, causal=False):
+        key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+               v.stride(), q.dtype, causal)
+        if key not in seen:
+            seen[key] = (q.detach(), k.detach(), v.detach(), kv_lens, causal)
+        return inner(q, k, v, kv_lens, causal=causal)
+
+    transformer.flash_attention = record
+    try:
+        yield seen
+    finally:
+        transformer.flash_attention = inner
+
+
+def check_recorded_flash(seen: dict) -> list:
+    """The kernel against flash_attention_plain on each input set that
+    recorded_flash_inputs kept: flash_agreement's tolerances on the scale
+    |ref| + P.|V|. A step's activations reach |v| of tens, and where an
+    output cancels, two float32 sums of such terms in another order
+    differ far beyond |ref|'s rounding; the error of a weighted sum is
+    bounded by its weights on |v|. Beside it, both against the float64
+    function (attention_f64): a bfloat16 output must lie within one bf16
+    unit roundoff (2^-8) of |o| + P.|V| from it. One record a layout
+    ('self' when q and k are views of one fused projection)."""
+    from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    recs = []
+    for q, k, v, kv_lens, causal in seen.values():
+        out = flash_attention(q, k, v, kv_lens, causal=causal)
+        ref = flash_attention_plain(q, k, v, kv_lens, causal=causal)
+        exact, weighted = attention_f64(q, k, v, kv_lens, causal)
+        err, tol, ok, ratio = flash_agreement(out, ref, ref.float().abs() + weighted.float())
+        model = (2.0 ** -8 * (exact.abs() + weighted)).clamp(min=1e-30)
+        rec = {
+            "dtype": str(q.dtype).replace("torch.", ""), "q": list(q.shape),
+            "k": list(k.shape), "q_stride": list(q.stride()),
+            "k_stride": list(k.stride()), "causal": causal,
+            "self": q.untyped_storage().data_ptr() == k.untyped_storage().data_ptr(),
+            "max_abs_v": float(v.float().abs().max()),
+            "max_abs_err": err, "tol": tol, "err_over_bound": ratio,
+            "f64_err_kernel": float((out.double() - exact).abs().max()),
+            "f64_err_plain": float((ref.double() - exact).abs().max())}
+        if q.dtype == torch.bfloat16:
+            rec["f64_err_over_roundoff_kernel"] = float(((out.double() - exact).abs() / model).max())
+            rec["f64_err_over_roundoff_plain"] = float(((ref.double() - exact).abs() / model).max())
+            ok = ok and rec["f64_err_over_roundoff_kernel"] <= 1
+        rec["ok"] = ok
+        recs.append(rec)
+    return recs
+
+
 def flash_case(c: Case):
     """Kernel vs plain (and SDPA as a yardstick) on case c's inputs."""
     from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
@@ -586,11 +694,7 @@ def flash_case(c: Case):
     out = flash_attention(q, k, v, kv_lens, causal=c.causal)
     torch.cuda.synchronize()
     ref = flash_attention_plain(q, k, v, kv_lens, causal=c.causal)
-    tol = 2e-5 if c.dtype == torch.float32 else 2e-2
-    err = (out.float() - ref.float()).abs()
-    ok = bool((err <= tol + tol * ref.float().abs()).all())
-    if c.dtype == torch.bfloat16:   # and within one bf16 rounding of the output
-        ok = ok and bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all())
+    max_err, tol, ok, _ = flash_agreement(out, ref)
     iters = 50 if c.tq * c.tk <= 300 * 815 else 20
     bound_ms, bound_by, bound_cuda_core_ms = attention_bound(q, k, kv_lens, c.causal)
     symbols = ROUTE_KERNELS[c.dtype]
@@ -604,7 +708,7 @@ def flash_case(c: Case):
         "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
         "causal": c.causal, "kv_lens": kv_lens.tolist(),
         "one_hot_v": c.one_hot_v,
-        "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
+        "max_abs_err": max_err, "tol": tol, "ok": ok,
         "ms": cuda_ms(kernel, iters),
         "device_ms": sum(per_kernel.values()),
         "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens,
@@ -1218,9 +1322,9 @@ def rnn_serve(fa):
 
 
 def rnn_train(fa):
-    """Phase 11: 2 steps of make_train_step on configs/rnn_d.json with its
-    own train args (adam, multistep, B2, ae 1 / cm 2 / sp 1 / d 1) on
-    synthetic batches at 816 frames / 304 tokens (numpy seed 0), random
+    """Phase 11: RNN_TRAIN_STEPS of make_train_step on configs/rnn_d.json
+    with its own train args (adam, multistep, B2, ae 1 / cm 2 / sp 1 / d 1)
+    on synthetic batches at 816 frames / 304 tokens (numpy seed 0), random
     weights from seed 0, counts set to 0 just before each step and read
     just after; then one TINY f32 RNN step on the card against the CPU."""
     from unast_tpu_torch.models import TINY, ModelConfig, networks, unast_init
@@ -1241,7 +1345,7 @@ def rnn_train(fa):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
-    for i in range(2):
+    for i in range(RNN_TRAIN_STEPS):
         reset_launch_counts(fa)
         before = [fa.backward_calls] + [d.steps for d in decoders]
         torch.cuda.synchronize()
@@ -1262,7 +1366,7 @@ def rnn_train(fa):
         assert s_["flash_launches"] == 0 and s_["backward_calls"] == 0, s_
     nonfinite = [k for k, x in tree_paths(ts.params).items()
                  if not bool(torch.isfinite(x).all())]
-    assert not nonfinite and ts.step == 2, nonfinite
+    assert not nonfinite and ts.step == RNN_TRAIN_STEPS, nonfinite
 
     tiny_t = TINY.replace(model_type="rnn", e_bi=True, d_attn="lsa", attn_dim=16,
                           use_discriminator=True, disc_num_layers=1, **ZERO_DROPOUTS)
@@ -1293,7 +1397,8 @@ def rnn_train(fa):
         "batch": args.train_batch_size, "text_len": args.data_text_len,
         "mel_len": args.data_mel_len,
         "micro_batches": {k: getattr(args, f"{k}_steps") for k in ("ae", "cm", "sp", "d")},
-        "first_step_s": steps[0]["s"], "later_step_s": steps[1]["s"],
+        "first_step_s": steps[0]["s"],
+        "later_step_s": [s_["s"] for s_ in steps[1:]],
         "max_memory_allocated_bytes": peak, "steps": steps,
         "tiny_gpu_vs_cpu": tiny, "phase_s": time.perf_counter() - t_phase,
     }
@@ -2790,15 +2895,33 @@ def export_phase(fa, flag_params, flag_state, flag_cfg, ctc_pv, student, melgan_
     return out
 
 
-DP_RANKS = 2
+DP_RANKS = 2      # phase 20's world
+DPTP_RANKS = 4    # its dp 2 x tp 2 world
+# phase 20's TINY float32 mesh cases: (mesh, config overrides, zero); the
+# MoE case overflows its capacity in groups of 16 tokens that straddle the
+# dp ranks' rows
+MESH_TINY_CASES = {
+    "moe_dp": ("dp", dict(moe_experts=4, moe_capacity_factor=0.5,
+                          moe_group_size=16), 1),
+    "tp": ("tp", {}, 0),
+    "ep": ("ep", dict(moe_experts=4, moe_group_size=16), 0),
+}
 
 
-def dp_worker(rank: int, port: str, out_dir: str) -> int:
-    """One rank of phase 20's world (`python3 chip_smoke.py --dp-worker RANK
-    PORT OUT_DIR`). NCCL refuses two ranks on one device, so the two ranks
-    share the one card under gloo, which moves the collectives' tensors
-    through the host. Writes OUT_DIR/rank<RANK>.json; raises (exit 1) on
-    any failed check."""
+def _tiny_ok(c):
+    """Phase 8's tolerances on a compare_train_steps result."""
+    return (c["metrics_rel"] <= 1e-4 and c["state_abs"] <= 1e-5
+            and c["gen_mu_scaled"] <= 1 and c["disc_mu_scaled"] <= 1
+            and c["update_abs"] <= 1e-3)
+
+
+def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
+    """One rank of phase 20's worlds (`python3 chip_smoke.py --dp-worker
+    RANK PORT OUT_DIR WORLD`). NCCL refuses two ranks on one device, so the
+    ranks share the one card under gloo, which moves the collectives'
+    tensors through the host. The 2-rank world runs the dp, tp and ep
+    cases, the 4-rank one the dp 2 x tp 2 step. Writes
+    OUT_DIR/rank<RANK>.json; raises (exit 1) on any failed check."""
     import datetime
     import torch.distributed as dist
     sys.path.insert(0, ROOT)
@@ -2806,7 +2929,7 @@ def dp_worker(rank: int, port: str, out_dir: str) -> int:
     from unast_tpu_torch.models import TINY, ModelConfig, unast_init
     from unast_tpu_torch.nn import tree_to
     from unast_tpu_torch.ops import attention
-    from unast_tpu_torch.parallel.mesh import (batch_shardings, make_mesh,
+    from unast_tpu_torch.parallel.mesh import (axis_size, batch_shardings, make_mesh,
                                                shard_train_step, state_bytes)
     from unast_tpu_torch.train import init_train_state, make_train_step, train_state
     from unast_tpu_torch.train.config import train_args
@@ -2816,35 +2939,75 @@ def dp_worker(rank: int, port: str, out_dir: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=DP_RANKS, rank=rank,
+                            world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=300))
-    mesh = make_mesh(DP_RANKS)
     fa = attention.flash_attention
     out = {"rank": rank}
-    # (a) TINY, float32, every dropout at 0: one dp step per ZeRO level
-    # against the single-process step on the whole batch, on the card
     tiny_t = TINY.replace(use_discriminator=True, attn_impl="flash", **ZERO_DROPOUTS)
     targs = train_args(CONFIG, sp_steps=2)
-    tp0, ts0 = unast_init(torch.Generator().manual_seed(0), tiny_t)
     tb = train_batches(np.random.default_rng(1), targs, tiny_t, 4, 12, 20, "cuda")
+
+    singles = {}
+
+    def tiny_case(mesh, cfg_t, zero, dp_coord):
+        # one sharded step from the same weights on every rank against the
+        # single-process step on the whole batch (once a config), both on
+        # the card
+        p0, s0 = unast_init(torch.Generator().manual_seed(0), cfg_t)
+        fresh = lambda: train_state(tree_to(p0, "cuda"), tree_to(s0, "cuda"),
+                                    cfg_t, targs)
+        with zero_fixed_dropouts():
+            if cfg_t not in singles:
+                singles[cfg_t] = make_train_step(cfg_t, targs)(
+                    fresh(), torch.Generator(device="cuda").manual_seed(0), tb)
+            single = singles[cfg_t]
+            step, placed = shard_train_step(make_train_step(cfg_t, targs), mesh,
+                                            fresh(), zero=zero)
+            seen, f32_0 = {}, fa.launches_f32
+            with recorded_flash_inputs(seen):
+                new, m = step(placed, seeded_generator(0, dp_coord, "cuda"),
+                              batch_shardings(mesh, tb))
+            launches = fa.launches_f32 - f32_0
+            whole = step.plan.whole(new)
+        c = compare_train_steps(targs.lr, **joint_step_comparison((whole, m), single))
+        # the float32 kernel on this rank's own views (its heads under tp)
+        c["flash_launches_f32"] = launches
+        c["flash_vs_plain"] = check_recorded_flash(seen)
+        c["ok"] = (_tiny_ok(c) and launches > 0 and bool(c["flash_vs_plain"])
+                   and all(r["ok"] for r in c["flash_vs_plain"]))
+        c["opt_state_bytes"] = state_bytes(new.gen_opt) + state_bytes(new.disc_opt)
+        c["opt_state_bytes_whole"] = (state_bytes(single[0].gen_opt)
+                                      + state_bytes(single[0].disc_opt))
+        return c
+
+    if world == DPTP_RANKS:
+        # dp 2 x tp 2, zero 1, at TINY: the combinations two ranks cannot
+        # hold (a dp group's tp peers, ZeRO on top of the tp slices)
+        mesh = make_mesh(2, 2)
+        c = tiny_case(mesh, tiny_t, 1, mesh.get_local_rank("dp"))
+        out["tiny_dp2_tp2_zero1"] = c
+        assert c["ok"] and c["opt_state_bytes"] < 0.5 * c["opt_state_bytes_whole"], c
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+
+    mesh = make_mesh(DP_RANKS)
+    meshes = {"dp": mesh, "tp": make_mesh(1, DP_RANKS), "ep": make_mesh(1, 1, ep=DP_RANKS)}
+    # (a) TINY, float32, every dropout at 0: one dp step per ZeRO level
+    # against the single-process step on the whole batch, on the card
     tiny = {}
-    with zero_fixed_dropouts():
-        single = make_train_step(tiny_t, targs)(
-            train_state(tree_to(tp0, "cuda"), tree_to(ts0, "cuda"), tiny_t, targs),
-            torch.Generator(device="cuda").manual_seed(0), tb)
-        for zero in (0, 1, 3):
-            ts = train_state(tree_to(tp0, "cuda"), tree_to(ts0, "cuda"), tiny_t, targs)
-            step, placed = shard_train_step(make_train_step(tiny_t, targs), mesh, ts,
-                                            zero=zero)
-            new, m = step(placed, seeded_generator(0, rank, "cuda"),
-                          batch_shardings(mesh, tb))
-            whole = step.dp.whole(new) if zero else new
-            c = compare_train_steps(targs.lr, **joint_step_comparison((whole, m), single))
-            c["ok"] = (c["metrics_rel"] <= 1e-4 and c["state_abs"] <= 1e-5
-                       and c["gen_mu_scaled"] <= 1 and c["disc_mu_scaled"] <= 1
-                       and c["update_abs"] <= 1e-3)
-            tiny[f"zero{zero}"] = c
+    for zero in (0, 1, 3):
+        tiny[f"zero{zero}"] = tiny_case(mesh, tiny_t, zero, rank)
+    # the MoE capacity under dp, tp = 2 and ep = 2 (the tp and ep ranks
+    # share dp coordinate 0's stream)
+    for name, (m, over, zero) in MESH_TINY_CASES.items():
+        tiny[name] = tiny_case(meshes[m], tiny_t.replace(**over), zero,
+                               rank if m == "dp" else 0)
     assert all(c["ok"] for c in tiny.values()), tiny
+    assert all(r["q"][2] == tiny_t.nhead // DP_RANKS
+               for r in tiny["tp"]["flash_vs_plain"]), tiny["tp"]
     # Synthesizer(mesh=) against the single-process one (3 requests, padded
     # to 4), TINY float32 on the card
     tcfg = TINY.replace(attn_impl="flash")
@@ -2865,35 +3028,61 @@ def dp_worker(rank: int, port: str, out_dir: str) -> int:
     cfg = ModelConfig.from_json(CONFIG).replace(attn_impl="flash")
     args = train_args(CONFIG)
     fwd, bwd = flash_calls_per_step(cfg, args)
-    batches = batch_shardings(mesh, train_batches(
-        np.random.default_rng(0), args, cfg, args.train_batch_size,
-        args.data_text_len, args.data_mel_len, "cuda"))
     flag = {}
-    for zero in DP_FLAGSHIP_ZEROS:
+    whole_batches = train_batches(np.random.default_rng(0), args, cfg,
+                                  args.train_batch_size, args.data_text_len,
+                                  args.data_mel_len, "cuda")
+    # the dp steps under ZeRO 1 and 3 (each rank 2 of the 4 rows), then one
+    # tp = 2 step (each rank all 4 rows and 2 of the 4 heads)
+    for key, m, zero in [(f"zero{z}", mesh, z) for z in DP_FLAGSHIP_ZEROS] + [
+            ("tp2", meshes["tp"], 0)]:
         ts = init_train_state(torch.Generator().manual_seed(0), cfg, args, "cuda")
         whole_bytes = state_bytes(ts.gen_opt) + state_bytes(ts.disc_opt)
-        step, placed = shard_train_step(make_train_step(cfg, args), mesh, ts, zero=zero)
+        whole_params = state_bytes(ts.params)
+        tp = axis_size(m, "tp")
+        split_params = split_bytes(ts.params, tp)
+        split_opt = split_bytes(ts.gen_opt, tp) + split_bytes(ts.disc_opt, tp)
+        step, placed = shard_train_step(make_train_step(cfg, args), m, ts, zero=zero)
         del ts
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts(fa)
         bwd0 = fa.backward_calls
+        seen = {}
         dist.barrier()
         t = time.perf_counter()
-        new, m = step(placed, seeded_generator(0, rank, "cuda"), batches)
+        with recorded_flash_inputs(seen):
+            new, met = step(placed, seeded_generator(0, rank if m is mesh else 0, "cuda"),
+                            batch_shardings(m, whole_batches))
         torch.cuda.synchronize()
-        rec = {"s": time.perf_counter() - t, "rows": args.train_batch_size // DP_RANKS,
+        rec = {"s": time.perf_counter() - t,
+               "rows": args.train_batch_size // (DP_RANKS if m is mesh else 1),
+               "heads": cfg.nhead // tp,
                "flash_launches_bf16": fa.launches_bf16, "flash_launches_f32": fa.launches_f32,
                "backward_calls": fa.backward_calls - bwd0,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "param_bytes": state_bytes(new.params), "param_bytes_whole": whole_params,
                "opt_state_bytes": state_bytes(new.gen_opt) + state_bytes(new.disc_opt),
                "opt_state_bytes_whole": whole_bytes,
-               "metrics": {k: float(v) for k, v in m.items()}}
+               "param_bytes_split_rule": split_params,
+               "opt_state_bytes_split_rule": split_opt,
+               "metrics": {k: float(v) for k, v in met.items()}}
+        # the bf16 kernel against its plain version on every layout the
+        # step gave it (the fused q/k/v views of the rank's heads)
+        rec["flash_vs_plain"] = check_recorded_flash(seen)
+        kinds = {(r["self"], r["causal"]) for r in rec["flash_vs_plain"]}
         assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
         assert (rec["flash_launches_bf16"], rec["flash_launches_f32"],
                 rec["backward_calls"]) == (fwd, 0, bwd), (rec, fwd, bwd)
-        assert rec["opt_state_bytes"] < 0.6 * whole_bytes, rec
-        flag[f"zero{zero}"] = rec
+        assert all(r["ok"] and r["q"][2] == rec["heads"]
+                   for r in rec["flash_vs_plain"]), rec["flash_vs_plain"]
+        assert {(True, True), (True, False), (False, False)} <= kinds, kinds
+        if m is mesh:
+            assert rec["opt_state_bytes"] < 0.6 * whole_bytes, rec
+        else:   # each tp-split leaf's half, every other leaf whole
+            assert (rec["param_bytes"], rec["opt_state_bytes"]) == (
+                split_params, split_opt), rec
+        flag[key] = rec
         del new, placed, step
         torch.cuda.empty_cache()
     out["flagship"] = flag
@@ -2907,29 +3096,31 @@ def dp_worker(rank: int, port: str, out_dir: str) -> int:
 DP_FLAGSHIP_ZEROS = (1, 3)
 
 
-def dp_phase():
-    """Phase 20: data parallelism on the one card. A dp = 2 world of two
-    processes (`dp_worker`) under gloo, both ranks on the one H100
-    (NCCL refuses two ranks on one device), each joined and its exit code
-    propagated: (a) at TINY in float32 with every dropout at 0, one dp
-    step per ZeRO level 0, 1 and 3 against the single-process step on the
-    whole batch on the card (phase 8's tolerances), and Synthesizer(mesh=)
-    TTS mels and ASR ids against the single-process Synthesizer; (b) at
-    flagship width in bf16, one joint step with zero=1 and one with
-    zero=3 (each rank 2 of the config's 4 rows): each rank's flash
-    launches and backward calls (flash_calls_per_step: the counts do not
-    depend on the rows), its peak memory, the bytes of its optimizer
-    state against the whole state's, the step's seconds."""
+def split_bytes(tree, tp: int) -> int:
+    """Bytes a tp rank holds of a whole tree: each leaf that split_rule
+    splits over tp by its path, over tp; every other leaf whole."""
+    from unast_tpu_torch.parallel.mesh import split_rule
+    from unast_tpu_torch.train.optim import tree_paths
+    n = 0
+    for path, x in tree_paths(tree).items():
+        if torch.is_tensor(x):
+            split = x.ndim >= 1 and "tp" in split_rule(path, tuple(x.shape), tp, 1).axes
+            n += x.numel() * x.element_size() // (tp if split else 1)
+    return n
+
+
+def _world(n: int) -> list:
+    """Run `dp_worker` on n gloo ranks sharing the card, each joined, a
+    failing rank failing the phase; their records in rank order."""
     import socket
-    t_phase = time.perf_counter()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
-                                   str(r), port, tmp],
+                                   str(r), port, tmp, str(n)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(DP_RANKS)]
+                 for r in range(n)]
         logs = []
         try:
             for p in procs:
@@ -2942,13 +3133,43 @@ def dp_phase():
         bad = [(r, p.returncode, log[-3000:]) for r, (p, log)
                in enumerate(zip(procs, logs)) if p.returncode != 0]
         if bad:
-            raise SystemExit(f"phase 20: a dp rank failed: {bad}")
+            raise SystemExit(f"phase 20: a rank of the {n}-rank world failed: {bad}")
         ranks = []
-        for r in range(DP_RANKS):
+        for r in range(n):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+    return ranks
+
+
+def dp_phase():
+    """Phase 20: data, tensor and expert parallelism on the one card. A
+    world of two processes (`dp_worker`) under gloo, both ranks on the one
+    H100 (NCCL refuses two ranks on one device): (a) at TINY in float32
+    with every dropout at 0, one dp step per ZeRO level 0, 1 and 3, the
+    dp = 2 dispatch-MoE step whose capacity overflows in groups straddling
+    the ranks (zero 1), a tp = 2 step and an ep = 2 step (E 4), each
+    against the single-process step on the whole batch on the card (phase
+    8's tolerances), and Synthesizer(mesh=) TTS mels and ASR ids against
+    the single-process Synthesizer; (b) at flagship width in bf16, one dp
+    joint step with zero=1 and one with zero=3 (each rank 2 of the
+    config's 4 rows) and one tp = 2 step (each rank the 4 rows and 2 of
+    the 4 heads): each rank's flash launches and backward calls
+    (flash_calls_per_step: the counts depend on neither the rows nor the
+    heads), its peak memory, the bytes of its params and optimizer state
+    against the whole state's (a tp rank's equal to the split rule's
+    count), the step's seconds. Every sharded step also holds the kernel
+    against flash_attention_plain on each q/k/v layout it gave the
+    kernel on that rank (recorded_flash_inputs: the fused views of the
+    rank's heads). Then a world of four ranks: a dp 2 x tp 2 zero-1 step
+    at TINY against the single-process step."""
+    t_phase = time.perf_counter()
+    ranks = _world(DP_RANKS)
+    t_four = time.perf_counter()
+    four = _world(DPTP_RANKS)
     return {"ranks": DP_RANKS, "backend": "gloo", "device": "one card, shared",
-            "per_rank": ranks, "phase_s": time.perf_counter() - t_phase}
+            "per_rank": ranks, "dp2_tp2": {"ranks": DPTP_RANKS, "per_rank": four,
+                                           "world_s": time.perf_counter() - t_four},
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def _timed(fn, seconds):
@@ -3225,6 +3446,11 @@ def main() -> int:
                                                  data_root)
         print(json.dumps({"phase": 16, "s": melgan_run["phase_s"]}), flush=True)
     phase_ends.append((16, time.perf_counter()))
+    # 20. (started here) data, tensor and expert parallelism: its worlds
+    # are processes of their own with their own counts, and run beside
+    # phases 17-19, which keep the main process
+    dp_pool = concurrent.futures.ThreadPoolExecutor(1)
+    dp_future = dp_pool.submit(dp_phase)
     # 17.-18. the family additions: the wide model (remat, int8 serving),
     # then the conformer and MoE at flagship width (phases 15, 16, 14 and
     # 12's models stay for phase 19)
@@ -3245,10 +3471,11 @@ def main() -> int:
                               vocoder_pv)
     print(json.dumps({"phase": 19, "s": export_run["phase_s"]}), flush=True)
     phase_ends.append((19, time.perf_counter()))
-    # 20. data parallelism: a 2-rank world sharing the one card
+    # 20. its worlds' end
     del student, ctc_pv, melgan_params, vocoder_pv
     torch.cuda.empty_cache()
-    dp_run = dp_phase()
+    dp_run = dp_future.result()
+    dp_pool.shutdown()
     print(json.dumps({"phase": 20, "s": dp_run["phase_s"]}), flush=True)
     phase_ends.append((20, time.perf_counter()))
     print(json.dumps({"phase_s": {
@@ -3357,6 +3584,7 @@ def main() -> int:
         ex_calls = export_run["calls"]
         dp_flag = [r["flagship"][f"zero{z}"] for r in dp_run["per_rank"]
                    for z in DP_FLAGSHIP_ZEROS]
+        tp_flag = [r["flagship"]["tp2"] for r in dp_run["per_rank"]]
         slice10_counts = {
             "launches_export": sum(c[key] for c in ex_calls.values()),
             "launches_export_counted_on":
@@ -3369,7 +3597,15 @@ def main() -> int:
             "launches_dp_flagship_counted_on":
                 f"dp = 2 joint steps at flagship width, zero {DP_FLAGSHIP_ZEROS}, "
                 "each rank 2 of 4 rows, both ranks' counts, bf16 (phase 20; "
-                "the TINY float32 dp checks are not counted)"}
+                "the TINY float32 dp checks are not counted)",
+            "launches_tp_flagship": sum(r[f"flash_{key}"] for r in tp_flag),
+            "launches_tp_flagship_per_rank": [r[f"flash_{key}"] for r in tp_flag],
+            "bwd_calls_tp_flagship": (sum(r["backward_calls"] for r in tp_flag)
+                                      if dtype == "bfloat16" else 0),
+            "launches_tp_flagship_counted_on":
+                "one tp = 2 joint step at flagship width, each rank the 4 rows "
+                "and 2 of the 4 heads, both ranks' counts, bf16 (phase 20; the "
+                "TINY float32 tp, ep and dp x tp checks are not counted)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",
@@ -3454,5 +3690,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
-        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                           int(sys.argv[5])))
     sys.exit(main())

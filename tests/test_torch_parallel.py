@@ -73,6 +73,8 @@ def test_zero_leaf_rule_matches_jax():
     from unast_tpu_torch.parallel import mesh as PM
 
     class Mesh2:   # what train_state_shardings reads of a DeviceMesh
+        mesh_dim_names = ("dp",)
+
         def __getitem__(self, name):
             return self
 
@@ -108,18 +110,21 @@ def test_zero_leaf_rule_matches_jax():
             assert None in opt and any(d is not None for d in opt)
 
 
-def _compare_steps(mine, ref, lr, old, metric_rtol):
+def _compare_steps(mine, ref, lr, old, metric_rtol, loose=2.0):
     """The train-step test's comparison (tests/test_torch_train.py::
     test_train_step_matches_jax): metrics, BN state, both optimizers'
     first Adam moments, and the new params as the normalised update (new - old) / lr, within
-    1e-3 where the reference's first moment is above 1e-7 and within 2 (a
-    rounding sign flip of a gradient of ~0) elsewhere."""
+    1e-3 where the reference's first moment is above 1e-7 and within
+    `loose` elsewhere (2: a rounding sign flip of a gradient of ~0 at an
+    Adam step, whose update is at most 1)."""
     assert sorted(mine["metrics"]) == sorted(ref["metrics"])
     for k, r in ref["metrics"].items():
         np.testing.assert_allclose(mine["metrics"][k], r, rtol=metric_rtol, err_msg=k)
     for k, r in ref["state"].items():
         np.testing.assert_allclose(mine["state"][k], r, atol=1e-5, rtol=1e-5, err_msg=k)
     for name in ("gen_mu", "disc_mu"):
+        if not ref[name]:   # a family step has one optimizer
+            continue
         top = max(np.abs(r).max() for r in ref[name].values())
         for k, r in ref[name].items():
             np.testing.assert_allclose(mine[name][k], r, rtol=1e-4,
@@ -130,7 +135,7 @@ def _compare_steps(mine, ref, lr, old, metric_rtol):
         u_mine, u_ref = (mine["params"][k] - old[k]) / lr, (r - old[k]) / lr
         big = np.abs(mu[k]) > 1e-7
         np.testing.assert_allclose(u_mine[big], u_ref[big], atol=1e-3, err_msg=k)
-        assert (np.abs(u_mine - u_ref) <= 2 + 1e-3).all(), k
+        assert (np.abs(u_mine - u_ref) <= loose + 1e-3).all(), k
 
 
 def _np(rec):
@@ -261,3 +266,150 @@ def test_synthesizer_mesh_matches_single_process(world):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
         assert [x.tolist() for x in r["syn_opts/ids"]] == \
             [x.tolist() for x in r0["one_opts/ids"]]
+
+
+# ---------------------------------------------------------------------------
+# Model parallelism (tp, ep), the MoE capacity under dp, the family steps
+# ---------------------------------------------------------------------------
+
+
+def _mesh_case(world, name):
+    """(mesh record, single-process record, the params before the step)
+    of a worker case, from the rank that wrote it."""
+    r = next(w for w in world.values() if f"{name}/mesh" in w)
+    return _np(r[f"{name}/mesh"]), _np(r[f"{name}/single"]), \
+        {k: v.numpy() for k, v in r[f"{name}/init"].items()}
+
+
+@pytest.mark.parametrize("impl", ["dispatch", "ragged"])
+def test_moe_dp_matches_single_process(world, impl):
+    """An MoE (E 4, groups of 16 tokens, capacity factor 0.5: tokens
+    overflow) dp = 2 zero-1 step against the single-process step on the
+    whole batch, metrics within 1e-6 relative (the aux 'moe' losses too),
+    the rest as the dp tests compare it. On the dispatch route the groups
+    and the capacity cumsum are the global batch's: groups of 16 of the
+    48 text tokens straddle the ranks' 24, so per-rank grouping (which
+    regrouped each rank's rows alone) fails this test."""
+    mine, ref, old = _mesh_case(world, f"moe_dp/{impl}")
+    assert any(k.endswith("/moe") for k in ref["metrics"])
+    _compare_steps(mine, ref, train_args(PG.CONFIG).lr, old, 1e-6)
+
+
+@pytest.mark.parametrize("case", ["transformer", "conformer", "train_mode"])
+def test_tp_steps_match_single_process(world, case):
+    """A tp = 2 joint step (each rank its nhead / 2 heads and half of
+    every column / row split, the same rows) against the single-process
+    step, metrics within 1e-6 relative, the rest as the dp tests compare
+    it: the transformer, and the conformer speech encoder under Adafactor
+    (its block-RMS clip, which needs the whole leaves, acts from the
+    second step: both sides start from one single-process step), with
+    every dropout at 0, and train mode with the config's dropouts on the xla
+    attention route (the attention probabilities' and the FFN hidden's
+    masks drawn whole from the shared stream, each rank keeping its
+    slice; guided attention over the local heads). Each rank holds about
+    half of the split leaves' optimizer state."""
+    mine, ref, old = _mesh_case(world, f"tp/{case}")
+    # Adafactor's second update of an element is at most 1 / sqrt(1 -
+    # decay) = 2 ** 0.4 (optim._factored_update at count 1), so a rounding
+    # sign flip of a gradient of ~0 (a conv bias ahead of train-mode
+    # BatchNorm) costs 2 * 2 ** 0.4 at most
+    _compare_steps(mine, ref, train_args(PG.CONFIG).lr, old, 1e-6,
+                   loose=2 * 2 ** 0.4 if case == "conformer" else 2.0)
+    r = next(w for w in world.values() if f"tp/{case}/opt_bytes" in w)
+    rank_bytes, whole = r[f"tp/{case}/opt_bytes"]
+    assert 0.5 * whole < rank_bytes < 0.8 * whole
+
+
+@pytest.mark.parametrize("impl", ["dispatch", "ragged"])
+def test_ep_steps_match_single_process(world, impl):
+    """An ep = 2 step with E 4 (each rank 2 experts on the same tokens,
+    the combine all-reduced over ep) against the single-process step,
+    metrics within 1e-6 relative, the rest as the dp tests compare it
+    (top-1 routing gives each token one expert, so the all-reduced
+    partial sums add zeros and the step matches bit for bit). Each rank
+    holds half of the expert stacks' optimizer state."""
+    mine, ref, old = _mesh_case(world, f"ep/{impl}")
+    _compare_steps(mine, ref, train_args(PG.CONFIG).lr, old, 1e-6)
+    r = next(w for w in world.values() if f"ep/{impl}/opt_bytes" in w)
+    rank_bytes, whole = r[f"ep/{impl}/opt_bytes"]
+    assert rank_bytes < whole
+
+
+@pytest.mark.parametrize("case", ["ctc_tp", "distill_tp", "melgan_dp"])
+def test_family_steps_match_single_process(world, case):
+    """The family steps on the mesh (tests/test_sharded_families.py's
+    cases): make_ctc_step and make_distill_step (the teacher's params
+    split too, its cross-attention heads gathered for the durations) at
+    tp = 2, make_vocoder_step at dp = 2 (each rank 2 of the 4 crops),
+    against the single-process step: metrics within 1e-6 relative, the
+    new params and first moments as the dp tests compare them. The CTC
+    step's grad_norm is held to 4e-6: in the single process a 1e-7
+    relative perturbation of the weights moves it by 9.6e-7 relative (the
+    CTC gradient's posteriors amplify rounding), and the tp step's
+    reassociated sums measure 1.9e-6."""
+    mine, ref, old = _mesh_case(world, f"family/{case}")
+    if case == "ctc_tp":
+        np.testing.assert_allclose(mine["metrics"].pop("grad_norm"),
+                                   ref["metrics"].pop("grad_norm"), rtol=4e-6)
+    _compare_steps(mine, ref, 1e-3, old, 1e-6)
+
+
+def test_tp_checkpoint_resumes(world):
+    """A tp = 2 state after one step, saved whole by rank 0, loaded on
+    both ranks and placed again, gives each rank the slices it kept,
+    bit for bit, and those hold fewer params than the whole."""
+    for r in ("rank0", "rank1"):
+        kept, placed = world[r]["tp_resume/kept"], world[r]["tp_resume/placed"]
+        assert kept.keys() == placed.keys()
+        for k in kept:
+            assert torch.equal(kept[k], placed[k]), (r, k)
+    old = _mesh_case(world, "tp/transformer")[2]
+    assert sum(x.numel() for k, x in world["rank0"]["tp_resume/kept"].items()
+               if k.startswith("params/")) < sum(v.size for v in old.values())
+
+
+@pytest.mark.parametrize("family", ["transformer", "conformer", "moe", "rnn"])
+def test_model_split_rule_matches_jax(family):
+    """The port's tp and ep split of every leaf of the TINY TrainState
+    (parallel/mesh.py::split_rule at tp = ep = 2) against JAX's _spec_for
+    called live (ep_axis on): the same dims over the same axes, except
+    the leaves whose tp dim does not divide, which the port keeps
+    replicated where GSPMD pads them: exactly the RNN attention's v/w
+    [attn_dim, 1] and its optimizer mirrors."""
+    import jax
+    from unast_tpu.parallel.mesh import _spec_for as jax_spec
+    from unast_tpu_torch.parallel import mesh as PM
+
+    cfg = {"transformer": TINY, "conformer": TINY.replace(speech_encoder="conformer"),
+           "moe": TINY.replace(moe_experts=4),
+           "rnn": TINY.replace(model_type="rnn")}[family].replace(use_discriminator=True)
+    args = train_args(PG.CONFIG)
+    ts = TS.train_state(*unast_init(torch.Generator().manual_seed(0), cfg), cfg, args)
+    as_np = PM._map(lambda _, x: x.numpy() if torch.is_tensor(x) else x, ts)
+    ref = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(as_np):
+        spec = tuple(jax_spec(path, leaf, ep_axis=True))
+        key = "/".join(str(getattr(k, "name", getattr(k, "key", getattr(k, "idx", k))))
+                       for k in path)
+        ref[key] = {i: a for i, a in enumerate(spec) if a is not None}
+    leaves = {}
+    PM._map(leaves.__setitem__, ts)
+    mine = {p: dict(PM.split_rule(p, tuple(x.shape), 2, 2).dims)
+            for p, x in leaves.items() if torch.is_tensor(x) and x.ndim >= 1}
+    assert mine.keys() <= ref.keys()
+    padded = sorted(k for k in mine if mine[k] != ref[k])
+    for k in padded:    # only a tp dim that does not divide differs
+        assert {i: a for i, a in ref[k].items() if i not in mine[k]} == {1: "tp"}, k
+        assert leaves[k].shape[1] == 1, k
+    assert all(k.endswith("decoder/attn/v/w") for k in padded), padded
+    assert bool(padded) == (family == "rnn")
+    split = [k for k in mine if mine[k]]
+    if family == "rnn":
+        assert not split
+    else:
+        assert any("/q/w" in k for k in split) and any("/lin2/w" in k or "/down/w" in k
+                                                      for k in split)
+    if family == "moe":
+        assert any(v == {0: "ep", 2: "tp"} for v in mine.values())
+    if family == "conformer":
+        assert any(k.endswith("conv_pw1/w") and v == {1: "tp"} for k, v in mine.items())

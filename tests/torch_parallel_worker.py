@@ -43,15 +43,151 @@ mesh = make_mesh(2)
 out = {}
 
 
+def mesh_cases():
+    """The model-parallel cases and the MoE capacity under dp, each a
+    sharded step from the same weights on both ranks (the whole state
+    recorded) and the single-process step on the whole batch; case i's
+    records are written by rank i % 2, which also takes its reference
+    once every sharded step has run, while the other rank takes its
+    own."""
+    import contextlib
+
+    from unast_tpu_torch.audio.params import DEFAULT as AP
+    from unast_tpu_torch.parallel.mesh import shard_family_step
+    from unast_tpu_torch.train import ctc as TC, fastspeech as TF, melgan as TG
+    meshes = {"dp": mesh, "tp": make_mesh(1, 2), "ep": make_mesh(1, 1, ep=2)}
+    moe = dict(moe_experts=4, moe_capacity_factor=0.5, moe_group_size=16)
+    # name: (mesh, config overrides, every dropout at 0, optimizer); the
+    # conformer case updates through Adafactor, whose block-RMS clip needs
+    # the whole leaf: at a first step every update is +-1, its RMS 1 and
+    # the clip idle, so both sides start from one single-process step
+    joint = {
+        "moe_dp/dispatch": ("dp", moe, True, "adamw"),
+        "moe_dp/ragged": ("dp", dict(moe, moe_impl="ragged"), True, "adamw"),
+        "tp/transformer": ("tp", {}, True, "adamw"),
+        "tp/conformer": ("tp", dict(speech_encoder="conformer"), True, "adafactor"),
+        "tp/train_mode": ("tp", dict(attn_impl="xla", use_discriminator=True), False,
+                          "adamw"),
+        "ep/dispatch": ("ep", dict(moe_experts=4, moe_group_size=16), True, "adamw"),
+        "ep/ragged": ("ep", dict(moe_experts=4, moe_impl="ragged"), True, "adamw"),
+    }
+    refs = []   # this rank's single-process references, taken last
+    for i, (name, (m, over, zero_drop, optim)) in enumerate(joint.items()):
+        c = (TINY.replace(**over) if not zero_drop
+             else TINY.replace(**PG.model_overrides(), **over))
+        args = train_args(PG.CONFIG, **PG.ARGS, optim_type=optim)
+        p0, s0 = unast_init(torch.Generator().manual_seed(0), c)
+        start = TS.train_state(p0, s0, c, args)
+        fixed = TS.zero_fixed_dropouts if zero_drop else contextlib.nullcontext
+        with fixed():
+            if optim == "adafactor":
+                start, _ = TS.make_train_step(c, args)(
+                    start, TS.seeded_generator(1, 0, "cpu"), batches)
+            step, placed = shard_train_step(
+                TS.make_train_step(c, args), meshes[m], start,
+                zero=1 if m == "dp" else 0)
+            # the tp and ep ranks share their dp coordinate's stream
+            gen = TS.seeded_generator(0, RANK if m == "dp" else 0, "cpu")
+            new, metrics = step(placed, gen, batch_shardings(meshes[m], batches))
+            whole = step.plan.whole(new)
+        if RANK == i % 2:
+            record(f"{name}/mesh", whole, metrics)
+            out[f"{name}/init"] = flat(start.params)
+            out[f"{name}/opt_bytes"] = state_bytes(new.gen_opt)
+            refs.append((name, None, (c, args, start, fixed)))
+        if name == "tp/transformer":
+            # a tp checkpoint: the whole state saved by rank 0, loaded by
+            # both and placed again: each rank's slices as kept in memory
+            ck = os.path.join(OUT, "tp_ck")
+            if RANK == 0:
+                CK.save_ckp(0, 1.0, whole, False, ck)
+            dist.barrier()
+            _, _, loaded, _ = CK.load_ckp(os.path.join(ck, "model_most_recent.ckpt"),
+                                          TS.train_state(p0, s0, c, args))
+            out["tp_resume/placed"] = flat(step.plan.place(loaded)._asdict())
+            out["tp_resume/kept"] = flat(new._asdict())
+
+    # the family steps: CTC and distillation at tp = 2, MelGAN at dp = 2
+    c = TINY.replace(**PG.model_overrides())
+    fargs = train_args(PG.CONFIG, lr=1e-3, melgan_base=32)
+    text, mel, tl, ml = (x[0] for x in batches["sp"])
+    flat_b = {"text": text, "text_len": tl, "mel": mel, "mel_len": ml}
+    t_p, t_s = unast_init(torch.Generator().manual_seed(0), c)
+    rng = np.random.default_rng(0)
+    vmel = torch.from_numpy(rng.random((4, 16, 80)).astype(np.float32))
+    vwav = torch.from_numpy((rng.standard_normal((4, 16 * AP.hop_length))
+                             * 0.1).astype(np.float32))
+    family = {
+        "family/ctc_tp": ("tp", lambda: TC.init_ctc_state(
+            torch.Generator().manual_seed(0), c, fargs, "cpu"),
+            lambda plan=None: TC.make_ctc_step(c, fargs, plan=plan)),
+        "family/distill_tp": ("tp", lambda: TF.init_fs_state(
+            torch.Generator().manual_seed(1), c, fargs, "cpu"),
+            lambda plan=None: TF.make_distill_step(c, c, fargs, plan=plan)),
+        "family/melgan_dp": ("dp", lambda: TG.init_voc_state(
+            torch.Generator().manual_seed(0), fargs, device="cpu"),
+            lambda plan=None: TG.make_vocoder_step(fargs, plan=plan)),
+    }
+    def call(kind, st, ts_, b, teacher):
+        if kind == "ctc":
+            return st(ts_, TS.seeded_generator(1, 0, "cpu"), b)
+        if kind == "distill":
+            return st(ts_, *teacher, TS.seeded_generator(2, 0, "cpu"), b)
+        return st(ts_, b["mel"], b["wav"])
+
+    def family_record(key, st_, mt):
+        out[key] = {"metrics": {k: float(v) for k, v in mt.items()},
+                    "params": flat(st_.params),
+                    "state": flat(getattr(st_, "net_state", {})),
+                    "gen_mu": flat(st_.opt.mu), "disc_mu": {}}
+
+    for i, (name, (m, init, make)) in enumerate(family.items(), start=len(joint)):
+        ts = init()
+        step, placed, plan = shard_family_step(make, meshes[m], ts)
+        kind = name.split("/")[1].split("_")[0]
+        b = (flat_b if kind != "melgan" else {"mel": vmel, "wav": vwav})
+        with TS.zero_fixed_dropouts():
+            new, metrics = call(kind, step, placed,
+                                batch_shardings(meshes[m], b, dim=0),
+                                (plan.place_tree(t_p), t_s))
+            whole = plan.whole(new)
+        if RANK == i % 2:
+            family_record(f"{name}/mesh", whole, metrics)
+            out[f"{name}/init"] = flat(ts.params)
+            refs.append((name, kind, (ts, make, b)))
+
+    # the references, each rank its own cases, both ranks at once
+    for name, kind, case in refs:
+        if kind is not None:   # a family step
+            ts, make, b = case
+            with TS.zero_fixed_dropouts():
+                family_record(f"{name}/single",
+                              *call(kind, make(None), ts, b, (t_p, t_s)))
+            continue
+        c, args, start, fixed = case
+        with fixed():
+            single, sm = TS.make_train_step(c, args)(
+                start, TS.seeded_generator(0, 0, "cpu"), batches)
+        record(f"{name}/single", single, sm)
+        out[f"{name}/opt_bytes"] = (out[f"{name}/opt_bytes"],
+                                    state_bytes(single.gen_opt))
+
+
 def flat(tree):
     return {k: torch.as_tensor(v).detach().float().clone()
             for k, v in tree_paths(tree).items()}
 
 
+def moment(opt):
+    """An optimizer state's per-param moment: Adam's first, or (Adafactor
+    at TINY, where no leaf is factored) its full second moment."""
+    return flat(opt.mu if hasattr(opt, "mu") else opt.v)
+
+
 def record(key, ts, metrics):
     out[key] = {"metrics": {k: float(v) for k, v in metrics.items()},
                 "params": flat(ts.params), "state": flat(ts.net_state),
-                "gen_mu": flat(ts.gen_opt.mu), "disc_mu": flat(ts.disc_opt.mu)}
+                "gen_mu": moment(ts.gen_opt), "disc_mu": moment(ts.disc_opt)}
 
 
 cfg = TINY.replace(**PG.model_overrides())
@@ -70,7 +206,7 @@ with TS.zero_fixed_dropouts():
                                         ts, zero=zero)
         out[f"opt_bytes/{zero}"] = state_bytes(placed.gen_opt)
         new, metrics = step(placed, TS.seeded_generator(0, RANK, "cpu"), local)
-        whole = step.dp.whole(new) if zero else new
+        whole = step.plan.whole(new) if zero else new
         record(f"dp/{zero}", whole, metrics)
         if zero == 3:
             # a ZeRO-3 checkpoint: the whole state, saved by rank 0, loaded
@@ -82,7 +218,7 @@ with TS.zero_fixed_dropouts():
             template = TS.train_state(params, state, cfg, args)
             _, _, loaded, _ = CK.load_ckp(os.path.join(ck, "model_most_recent.ckpt"),
                                           template)
-            out["resume/placed"] = flat(step.dp.place(loaded)._asdict())
+            out["resume/placed"] = flat(step.plan.place(loaded)._asdict())
             out["resume/kept"] = flat(new._asdict())
     # a mean of per-rank steps: each rank's single-process step on its rows
     ts = TS.train_state(params, state, cfg, args)
@@ -182,6 +318,7 @@ if RANK == 0:
     out["one_opts/wavs"] = [torch.from_numpy(w) for w in one.tts(PG.SYN_TEXTS)]
     out["one_opts/ids"] = [torch.from_numpy(i) for i in one.asr_ids(mels)]
 
+mesh_cases()
 torch.save(out, os.path.join(OUT, f"rank{RANK}.pt"))
 dist.barrier()
 dist.destroy_process_group()

@@ -82,6 +82,10 @@ class Synthesizer:
         self.mesh = mesh
         if mesh is not None:
             from ..parallel.mesh import dp_group, dp_rank, dp_size
+            from ..parallel.mesh import axis_size
+            if axis_size(mesh, "tp") > 1 or axis_size(mesh, "ep") > 1:
+                raise ValueError("Synthesizer(mesh=) shards the request "
+                                 "batch over 'dp' only, as JAX's does")
             self._dp = (dp_group(mesh), dp_rank(mesh), dp_size(mesh))
             if max_batch % self._dp[2]:
                 raise ValueError(f"max_batch {max_batch} must divide over "
@@ -144,7 +148,17 @@ class Synthesizer:
         n = rows[0].shape[0]
         k = -(-n // dp)
         idx = torch.clamp(torch.arange(rank * k, (rank + 1) * k), max=n - 1)
-        out = fn(*(r[idx.to(r.device)] for r in rows))
+        if self.cfg.moe_experts > 0 and self.cfg.moe_impl == "dispatch":
+            # the MoE dispatch groups the padded global batch's tokens, as
+            # JAX's sharded encoder does (models/moe.py), so it needs the
+            # dp group. Every other path runs without it: its rows are
+            # independent, and under the group each decode's stop check
+            # (collectives.any_rank) would all-reduce at every step and
+            # run every rank's loop to the slowest rank's length.
+            with C.data_parallel(group):
+                out = fn(*(r[idx.to(r.device)] for r in rows))
+        else:
+            out = fn(*(r[idx.to(r.device)] for r in rows))
         return tuple(C.all_gather(o, group)[:n] if torch.is_tensor(o) else o
                      for o in out)
 

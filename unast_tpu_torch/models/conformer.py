@@ -16,12 +16,23 @@ Absolute sinusoid positions come from the surrounding model; BatchNorm
 statistics include the zeroed pad frames, as JAX's do. The BN state is the
 layer's output, so a recompute under the checkpoint (remat) does not move
 the running statistics a second time.
+
+Under tensor parallelism (parallel/collectives.py's tp axis) the FFNs'
+up and the conv module's conv_pw1 are column splits, down and conv_pw2
+row splits (parallel/mesh.py). conv_pw1 feeds the GLU, so its rank slice
+holds the matching parts of both halves (value channels [r d/tp, (r+1)
+d/tp) and their gates); the depthwise conv and the BatchNorm then run on
+those d/tp channels with their replicated per-channel leaves sliced at use
+(their gradients all-reduced into the whole), and the new running
+statistics are gathered whole. BatchNorm's statistics are per channel, so
+the tp split needs no reduction of them (the dp one stays).
 """
 
 import torch
 import torch.nn.functional as F
 
 from .. import nn
+from ..parallel import collectives as C
 from . import transformer as T
 
 
@@ -33,9 +44,9 @@ def _ffn_init(gen: torch.Generator, d: int, ffn_dim: int):
 
 def _half_ffn(p, ctx: nn.Ctx, x, dropout_p: float):
     """unast_tpu/models/conformer.py::_half_ffn: x + 1/2 FFN(LN(x))."""
-    h = nn.layernorm(p["ln"], x)
-    h = nn.dropout(ctx, F.silu(nn.linear(p["up"], h)), dropout_p)
-    return x + 0.5 * nn.dropout(ctx, nn.linear(p["down"], h), dropout_p)
+    h = F.silu(nn.linear(p["up"], C.copy_to(nn.layernorm(p["ln"], x))))
+    h = nn.dropout(ctx, h, dropout_p, split=C.split_of(h, -1))
+    return x + 0.5 * nn.dropout(ctx, T.row_linear(p["down"], h), dropout_p)
 
 
 def _depthwise_init(gen: torch.Generator, d: int, kernel: int):
@@ -88,10 +99,16 @@ def conformer_layer(p, s, ctx: nn.Ctx, x, pad_mask, bias, nhead: int,
 
     h = nn.layernorm(p["conv_ln"], x)
     h = h * (~pad_mask)[..., None].to(h.dtype)   # no pad leak into the conv
-    h = F.glu(nn.linear(p["conv_pw1"], h), dim=-1)
-    h = _depthwise_conv(p["conv_dw"], h, kernel)
-    h, bn_s = nn.batchnorm(p["conv_bn"], s["bn"], h, ctx.train)
-    h = nn.linear(p["conv_pw2"], F.silu(h))
+    h = F.glu(nn.linear(p["conv_pw1"], C.copy_to(h)), dim=-1)
+    dw, bn, bn_s = p["conv_dw"], p["conv_bn"], s["bn"]
+    if C.axis_size("tp") > 1:   # this rank's channels of the per-channel leaves
+        dw, bn, bn_s = ({k: C.take(v, -1) for k, v in t.items()}
+                        for t in (dw, bn, bn_s))
+    h = _depthwise_conv(dw, h, kernel)
+    h, bn_s = nn.batchnorm(bn, bn_s, h, ctx.train)
+    if C.axis_size("tp") > 1:
+        bn_s = {k: C.gather(v, -1) for k, v in bn_s.items()}
+    h = T.row_linear(p["conv_pw2"], F.silu(h))
     x = x + nn.dropout(ctx, h, dropout_p)
 
     x = _half_ffn(p["ff2"], ctx, x, dropout_p)

@@ -25,6 +25,24 @@ exactly, with no capacity and no aux loss.
 
 A bf16 product here is torch's bf16 matmul, which accumulates in float32
 and rounds once, as JAX's preferred_element_type=f32 then astype does.
+
+Under data parallelism the dispatch route groups the GLOBAL batch's tokens,
+as JAX's sharded step does: the router's probabilities and the valid mask
+of every dp rank's rows are gathered (N x E floats, in rank order), the
+groups and the capacity cumsum run over the groups this rank's tokens fall
+in, and the rank keeps its own tokens' outputs. A slot's FFN sees that
+slot alone, so a slot a remote token fills touches no local output, and
+the gradients flow through the local tokens' gates only.
+
+Expert parallelism (the ep axis, parallel/collectives.py): each ep rank
+holds E / ep experts (the leading axis of lin1 / lin2) and computes them
+on the tokens of its dp shard, which every ep rank of the group holds; the
+combine over its experts is a partial sum, all-reduced over ep (under this
+batch layout no all-to-all is needed). Within an expert, tp splits lin1 by
+columns and lin2 by rows as the dense FFN; lin2's bias, replicated over
+tp, is combined apart and reduced over ep alone. The inputs of the split
+region (the tokens and the gates) pass through copy_to, so the replicated
+router gets its whole gradient on every rank.
 """
 
 import math
@@ -84,16 +102,56 @@ def _top_k(probs, k: int):
     return torch.cat(vals, dim=-1), torch.cat(idx, dim=-1)
 
 
-def _expert_ffn(p, ctx: nn.Ctx, h, dropout_p: float):
+def _splits(e_dim: int, f_dim: int, h, n_experts: int) -> tuple:
+    """nn.dropout's split record of an expert hidden h whose dim e_dim
+    holds this rank's experts (of n_experts) and f_dim its hidden units."""
+    ep = C.axis_size("ep")
+    out = () if ep == 1 else (
+        (e_dim, n_experts, C.axis_rank("ep") * h.shape[e_dim]),)
+    return out + C.split_of(h, f_dim)
+
+
+def _local_experts(n_experts: int) -> slice:
+    """The experts of this ep rank."""
+    k = n_experts // C.axis_size("ep")
+    return slice(C.axis_rank("ep") * k, (C.axis_rank("ep") + 1) * k)
+
+
+def _combine(eq: str, gates, y, b2):
+    """The gated sum over this rank's experts of their outputs y (partial
+    over tp when tp > 1, the bias b2 [E_loc, D] then left out of y), as
+    einsum(eq, gates, .) with `gates` over every expert: the gates' local
+    experts taken through copy_to, the partial sums reduced over tp and
+    ep; lin2's bias, replicated over tp, combined apart and reduced over
+    ep alone."""
+    local = _local_experts(gates.shape[-1 if eq.startswith("bte") else -2])
+    pick = ((lambda g: g[..., local]) if eq.startswith("bte")
+            else (lambda g: g[..., local, :]))
+    out = C.reduce_from(torch.einsum(
+        eq, pick(C.copy_to(gates, ("tp", "ep"))).to(y.dtype), y), ("tp", "ep"))
+    if b2 is None:
+        return out
+    gb = pick(C.copy_to(gates, "ep")).to(y.dtype)
+    bias = (torch.einsum("bte,ed->btd", gb, b2) if eq.startswith("bte")
+            else torch.einsum("...ec,ed->...d", gb, b2))
+    return out + C.reduce_from(bias, "ep")
+
+
+def _expert_ffn(p, ctx: nn.Ctx, h, dropout_p: float, n_experts: int):
     """unast_tpu/models/moe.py::_expert_ffn: h [..., E, C, D] dispatched
-    tokens -> the same shape, through each expert's relu FFN."""
+    tokens -> the same shape, through each expert's relu FFN. Under tp
+    (lin1 a column split, lin2 a row split) returns (the partial products
+    without lin2's bias, the bias [E, D]); else (the outputs, None)."""
     w1 = nn.weight(p["lin1"], h.dtype)
     b1 = p["lin1"]["b"].to(h.dtype)
     y = torch.relu(torch.einsum("...ecd,edf->...ecf", h, w1) + b1[..., None, :])
-    y = nn.dropout(ctx, y, dropout_p)
+    y = nn.dropout(ctx, y, dropout_p, split=_splits(-3, -1, y, n_experts))
     w2 = nn.weight(p["lin2"], h.dtype)
     b2 = p["lin2"]["b"].to(h.dtype)
-    return torch.einsum("...ecf,efd->...ecd", y, w2) + b2[..., None, :]
+    out = torch.einsum("...ecf,efd->...ecd", y, w2)
+    if C.axis_size("tp") > 1:
+        return out, b2
+    return out + b2[..., None, :], None
 
 
 def _top1_round(remaining, valid, counts, capacity: int):
@@ -162,13 +220,26 @@ def moe_ffn(p, ctx: nn.Ctx, x, pad_mask, dropout_p: float, opts=MoeOpts()):
 def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
                   opts: MoeOpts):
     """unast_tpu/models/moe.py::_moe_dispatch: GShard grouped one-hot
-    dispatch. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E])."""
+    dispatch. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E]).
+    Under data parallelism the groups are those of the global batch's
+    tokens (see the module docstring): the rounds run over the groups
+    [g0, g1) that hold this rank's tokens, the remote tokens of those
+    groups in from the gathered probabilities (without gradients) and out
+    of the expert input (zeros)."""
     n, d = xf.shape
     e = probs.shape[-1]
-    s = _auto_group(n, opts.group_size)
-    g = n // s
+    s = _auto_group(n * C.ranks(), opts.group_size)
     cap = max(1, int(math.ceil(opts.top_k * s / e * opts.capacity_factor)))
-    remaining = (probs * valid[:, None]).reshape(g, s, e)
+    rem = probs * valid[:, None]
+    lo = C.rank() * n                  # this rank's first global token
+    g0, g1 = lo // s, -(-(lo + n) // s)
+    off, g = lo - g0 * s, g1 - g0
+    if C.ranks() > 1:
+        every = C.gather_rows(torch.cat([rem, valid[:, None]], dim=1))
+        ahead, after = every[g0 * s:lo], every[lo + n:g1 * s]
+        rem = torch.cat([ahead[:, :e], rem, after[:, :e]])
+        valid = torch.cat([ahead[:, e], valid, after[:, e]])
+    remaining = rem.reshape(g, s, e)
     valid_g = valid.reshape(g, s)
     counts = torch.zeros((g, e), device=xf.device)
     rounds = []
@@ -177,19 +248,22 @@ def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
         onehot, gate, disp, counts = _top1_round(remaining, valid_g, counts,
                                                  cap)
         if top1_assign is None:
-            top1_assign = onehot.reshape(n, e)
+            top1_assign = onehot.reshape(g * s, e)[off:off + n]
         rounds.append((gate, disp))
         remaining = remaining * (1.0 - onehot)
     if opts.top_k > 1:  # normalize the selected gates; top-1 keeps the prob
         denom = sum(gt for gt, _ in rounds) + 1e-9
         rounds = [(gt / denom, disp) for gt, disp in rounds]
     combine = sum(gt[..., None, None] * disp for gt, disp in rounds)
-    dispatch = sum(disp for _, disp in rounds)
-    xg = xf.reshape(g, s, d)
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xf.dtype), xg)
-    expert_out = _expert_ffn(p, ctx, expert_in, dropout_p)
-    out = torch.einsum("gsec,gecd->gsd", combine.to(xf.dtype), expert_out)
-    return out.reshape(n, d), top1_assign
+    dispatch = sum(disp for _, disp in rounds)[:, :, _local_experts(e)]
+    xg = C.copy_to(xf, ("tp", "ep"))
+    if g * s != n:   # the remote tokens of this rank's groups: zeros
+        xg = F.pad(xg, (0, 0, off, g * s - off - n))
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xf.dtype),
+                             xg.reshape(g, s, d))
+    expert_out, b2 = _expert_ffn(p, ctx, expert_in, dropout_p, e)
+    out = _combine("gsec,gecd->gsd", combine, expert_out, b2)
+    return out.reshape(g * s, d)[off:off + n], top1_assign
 
 
 def _moe_ragged(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
@@ -208,20 +282,38 @@ def _moe_ragged(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
     flat_e = idx.reshape(-1)
     flat_g = vals.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    tok = order // top_k                               # source token ids
-    xs = xf[tok]                                       # [N*K, D]
     sizes = torch.bincount(flat_e, minlength=e).tolist()   # one host sync
+    starts = [sum(sizes[:i]) for i in range(e + 1)]
+    # this ep rank's experts: their contiguous run of the sorted rows
+    local = _local_experts(e)
+    lo, hi = starts[local.start], starts[local.stop]
+    tok = order[lo:hi] // top_k                        # source token ids
+    xs = C.copy_to(xf, ("tp", "ep"))[tok]              # [rows, D]
     w1 = nn.weight(p["lin1"], xs.dtype)
     b1 = p["lin1"]["b"].to(xs.dtype)
     w2 = nn.weight(p["lin2"], xs.dtype)
     b2 = p["lin2"]["b"].to(xs.dtype)
-    runs = [(ei, a, a + m) for ei, (a, m) in
-            enumerate(zip([sum(sizes[:i]) for i in range(e)], sizes)) if m]
+    # an ep rank whose experts got no token runs one empty product, so
+    # that its copy_to still reaches the loss and joins the backward's
+    # all-reduce
+    runs = [(ei - local.start, a - lo, a + sizes[ei] - lo)
+            for ei, a in zip(range(local.start, local.stop), starts[local])
+            if sizes[ei]] or [(0, 0, 0)]
     h = torch.cat([torch.relu(xs[a:z] @ w1[ei] + b1[ei]) for ei, a, z in runs])
-    h = nn.dropout(ctx, h, dropout_p)
-    y = torch.cat([h[a:z] @ w2[ei] + b2[ei] for ei, a, z in runs])
-    y = y * flat_g[order, None].to(y.dtype)
-    out = torch.zeros_like(xf).index_add(0, tok, y)
+    h = nn.dropout(ctx, h, dropout_p,
+                   split=((((0, len(order), lo),) if hi - lo < len(order) else ())
+                          + C.split_of(h, -1)))
+    split_tp = C.axis_size("tp") > 1
+    y = torch.cat([h[a:z] @ w2[ei] + (0 if split_tp else b2[ei])
+                   for ei, a, z in runs])
+    gate = C.copy_to(flat_g, ("tp", "ep"))[order[lo:hi], None].to(y.dtype)
+    out = C.reduce_from(torch.zeros_like(xf).index_add(0, tok, y * gate),
+                        ("tp", "ep"))
+    if split_tp:   # lin2's bias, replicated over tp, reduced over ep alone
+        bias = torch.cat([b2[ei].expand(z - a, -1) for ei, a, z in runs])
+        gb = C.copy_to(flat_g, "ep")[order[lo:hi], None].to(y.dtype)
+        out = out + C.reduce_from(
+            torch.zeros_like(xf).index_add(0, tok, bias * gb), "ep")
     top1_assign = F.one_hot(idx[:, 0], e).float() * valid[:, None]
     return out, top1_assign
 
@@ -238,9 +330,12 @@ def _moe_dense(p, ctx: nn.Ctx, x, dropout_p: float, top_k: int):
     gates = (F.one_hot(idx, e).float() * vals[..., None]).sum(dim=-2)
     w1 = nn.weight(p["lin1"], x.dtype)
     b1 = p["lin1"]["b"].to(x.dtype)
-    h = torch.relu(torch.einsum("btd,edf->btef", x, w1) + b1[None, None])
-    h = nn.dropout(ctx, h, dropout_p)
+    h = torch.relu(torch.einsum("btd,edf->btef", C.copy_to(x, ("tp", "ep")), w1)
+                   + b1[None, None])
+    h = nn.dropout(ctx, h, dropout_p, split=_splits(-2, -1, h, e))
     w2 = nn.weight(p["lin2"], x.dtype)
     b2 = p["lin2"]["b"].to(x.dtype)
-    y = torch.einsum("btef,efd->bted", h, w2) + b2[None, None]
-    return torch.einsum("bte,bted->btd", gates.to(x.dtype), y)
+    y = torch.einsum("btef,efd->bted", h, w2)
+    if C.axis_size("tp") > 1:
+        return _combine("bte,bted->btd", gates, y, b2)
+    return _combine("bte,bted->btd", gates, y + b2[None, None], None)

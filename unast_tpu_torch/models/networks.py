@@ -42,11 +42,11 @@ from . import transformer as T
 
 def check_ported(cfg: ModelConfig):
     """Raise on a configuration the port does not run yet: pipeline stages
-    (pp > 1) come with the next slice, the model-parallel one."""
+    (pp > 1) come with the second half of model parallelism."""
     if cfg.pp > 1:
         raise NotImplementedError(
             "pp > 1: not in the port yet; pipeline stages come with the "
-            "next slice, model parallelism (ROADMAP.md queue 1 item 7c)")
+            "second half of model parallelism (ROADMAP.md queue 1 item 7c)")
 
 
 def _stack_kw(cfg: ModelConfig):

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from .. import nn
 from ..ops.attention import flash_attention
+from ..parallel import collectives as C
 
 NEG_INF = -1e9
 
@@ -64,7 +65,7 @@ def _fused_proj(ps, x: torch.Tensor) -> List[torch.Tensor]:
 
 
 def attention_core(q, k, v, bias, ctx: nn.Ctx, dropout_p: float,
-                   weights_out=None):
+                   weights_out=None, head_split=()):
     """unast_tpu/models/transformer.py::attention_core.
 
     q: [B, Tq, H, Dh], k/v: [B, Tk, H, Dh], bias: additive [B|1, 1|H, Tq, Tk]
@@ -72,7 +73,9 @@ def attention_core(q, k, v, bias, ctx: nn.Ctx, dropout_p: float,
     preferred_element_type=f32 does); the probabilities are cast to v's
     dtype and the product accumulates in float32 before the cast back. If
     `weights_out` is a list, the float32 pre-dropout probabilities
-    [B, H, Tq, Tk] are appended (the guided-attention loss reads them)."""
+    [B, H, Tq, Tk] are appended (the guided-attention loss reads them).
+    head_split: under tensor parallelism, nn.dropout's split record of the
+    local heads (dim 1 of the probabilities)."""
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(dh))
@@ -81,9 +84,26 @@ def attention_core(q, k, v, bias, ctx: nn.Ctx, dropout_p: float,
     w = torch.softmax(scores, dim=-1)
     if weights_out is not None:
         weights_out.append(w)
-    w = nn.dropout(ctx, w, dropout_p)
+    w = nn.dropout(ctx, w, dropout_p, split=head_split)
     out = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def local_heads(nhead: int) -> int:
+    """The heads of this rank: nhead over the active tp axis (its q/k/v
+    column slices hold nhead / tp whole heads)."""
+    return nhead // C.axis_size("tp")
+
+
+def row_linear(p, x: torch.Tensor) -> torch.Tensor:
+    """nn.linear of a layer split by rows over the active tp axis (the
+    attention out-projection, the FFN down-projections): the partial
+    products all-reduced, then the bias, replicated, added once. Plain
+    nn.linear without the axis."""
+    if C.axis_size("tp") == 1:
+        return nn.linear(p, x)
+    y = C.reduce_from(x @ nn.weight(p, x.dtype))
+    return y + p["b"].to(x.dtype) if "b" in p else y
 
 
 def mha(p, ctx: nn.Ctx, q_in, kv_in, bias, nhead: int, dropout_p: float,
@@ -93,20 +113,33 @@ def mha(p, ctx: nn.Ctx, q_in, kv_in, bias, nhead: int, dropout_p: float,
     impl='flash' runs ops/attention.py::flash_attention with (kv_lens,
     causal) in place of the additive bias, unless `weights_out` asks for
     the probabilities, which the kernel never forms (attention_core then);
-    attention-weight dropout is not applied on the flash path."""
-    if q_in is kv_in:
+    attention-weight dropout is not applied on the flash path.
+
+    Under tensor parallelism (parallel/collectives.py's tp axis) q/k/v are
+    this rank's column slices and `out` its row slice: the rank attends
+    with its nhead / tp heads (a per-head bias takes their slice), and the
+    out-projection's partial sums are all-reduced; `weights_out` then gets
+    the local heads' probabilities."""
+    self_attn = q_in is kv_in
+    q_in = C.copy_to(q_in)
+    kv_in = q_in if self_attn else C.copy_to(kv_in)
+    if self_attn:
         q, k, v = _fused_proj([p["q"], p["k"], p["v"]], q_in)
     else:
         q = nn.linear(p["q"], q_in)
         k, v = _fused_proj([p["k"], p["v"]], kv_in)
-    q, k, v = (_split_heads(x, nhead) for x in (q, k, v))
+    heads = local_heads(nhead)
+    q, k, v = (_split_heads(x, heads) for x in (q, k, v))
     if impl == "flash" and weights_out is None:
         o = flash_attention(q, k, v, kv_lens, causal=causal)
     else:
+        if bias is not None and bias.shape[1] > 1:
+            bias = C.take(bias, 1)
         o = attention_core(q, k, v, bias, ctx, dropout_p,
-                           weights_out=weights_out)
+                           weights_out=weights_out,
+                           head_split=C.split_of(q, 2, at=1))
     b, t, h, dh = o.shape
-    return nn.linear(p["out"], o.reshape(b, t, h * dh))
+    return row_linear(p["out"], o.reshape(b, t, h * dh))
 
 
 # ---------------------------------------------------------------------------
@@ -179,13 +212,16 @@ def encoder_init(gen: torch.Generator, d_model: int, nhead: int, ffn_dim: int,
 def _ffn(p, ctx: nn.Ctx, x, dropout_p: float, pad_mask=None,
          moe_opts=(1, 1.25)):
     """unast_tpu/models/transformer.py::_ffn: the dense relu FFN, or the
-    MoE FFN when the layer carries expert params."""
+    MoE FFN when the layer carries expert params. Under tensor parallelism
+    lin1 is a column split and lin2 a row split (the hidden's dropout
+    draws the whole mask and keeps this rank's columns)."""
     if "moe" in p:
         from . import moe as MoE
         return MoE.moe_ffn(p["moe"], ctx, x, pad_mask, dropout_p,
                            opts=moe_opts)
-    h = nn.dropout(ctx, torch.relu(nn.linear(p["lin1"], x)), dropout_p)
-    return nn.linear(p["lin2"], h)
+    h = torch.relu(nn.linear(p["lin1"], C.copy_to(x)))
+    h = nn.dropout(ctx, h, dropout_p, split=C.split_of(h, -1))
+    return row_linear(p["lin2"], h)
 
 
 def _has_moe(p) -> bool:
@@ -414,14 +450,17 @@ class DecodeCache(NamedTuple):
 
 def init_cache(p, memory: torch.Tensor, max_len: int, nhead: int) -> DecodeCache:
     """unast_tpu/models/transformer.py::init_cache: allocate the self caches
-    and project the cross-attention K/V once per sequence."""
+    and project the cross-attention K/V once per sequence (this rank's
+    heads under tensor parallelism)."""
     b, _, d = memory.shape
     nlayers = len(p["layers"])
+    heads = local_heads(nhead)
+    memory = C.copy_to(memory)
     kv = [_fused_proj([lp["cross"]["k"], lp["cross"]["v"]], memory)
           for lp in p["layers"]]
-    cross_k = torch.stack([_split_heads(k, nhead) for k, _ in kv])
-    cross_v = torch.stack([_split_heads(v, nhead) for _, v in kv])
-    shape = (nlayers, b, max_len, nhead, d // nhead)
+    cross_k = torch.stack([_split_heads(k, heads) for k, _ in kv])
+    cross_v = torch.stack([_split_heads(v, heads) for _, v in kv])
+    shape = (nlayers, b, max_len, heads, d // nhead)
     return DecodeCache(torch.zeros(shape, dtype=memory.dtype, device=memory.device),
                        torch.zeros(shape, dtype=memory.dtype, device=memory.device),
                        cross_k, cross_v)
@@ -438,22 +477,26 @@ def decoder_step(p, ctx: nn.Ctx, x, pos: int, cache: DecodeCache, mem_bias,
     carry weight exp(-1e9 - m) = 0 exactly in float32, so the result is
     the same up to the order of the sums. JAX's scan_layers form of the
     step is the same loop. An MoE layer's FFN takes the exact dense
-    path here (T == 1)."""
+    path here (T == 1). Under tensor parallelism the cache holds this
+    rank's heads and the projections are split as in mha."""
+    heads = local_heads(nhead)
     for li, lp in enumerate(p["layers"]):
-        q, k_t, v_t = (_split_heads(y, nhead) for y in _fused_proj(
-            [lp["self"]["q"], lp["self"]["k"], lp["self"]["v"]], x))
+        q, k_t, v_t = (_split_heads(y, heads) for y in _fused_proj(
+            [lp["self"]["q"], lp["self"]["k"], lp["self"]["v"]], C.copy_to(x)))
+        split = C.split_of(q, 2, at=1)
         cache.self_k[li, :, pos] = k_t[:, 0]
         cache.self_v[li, :, pos] = v_t[:, 0]
         a = attention_core(q, cache.self_k[li, :, :pos + 1],
-                           cache.self_v[li, :, :pos + 1], None, ctx, dropout_p)
+                           cache.self_v[li, :, :pos + 1], None, ctx, dropout_p,
+                           head_split=split)
         b_, t_, h_, dh_ = a.shape
-        a = nn.linear(lp["self"]["out"], a.reshape(b_, t_, h_ * dh_))
+        a = row_linear(lp["self"]["out"], a.reshape(b_, t_, h_ * dh_))
         x = nn.layernorm(lp["ln1"], x + nn.dropout(ctx, a, dropout_p))
 
-        q = _split_heads(nn.linear(lp["cross"]["q"], x), nhead)
+        q = _split_heads(nn.linear(lp["cross"]["q"], C.copy_to(x)), heads)
         a = attention_core(q, cache.cross_k[li], cache.cross_v[li],
-                           mem_bias, ctx, dropout_p)
-        a = nn.linear(lp["cross"]["out"], a.reshape(b_, t_, h_ * dh_))
+                           mem_bias, ctx, dropout_p, head_split=split)
+        a = row_linear(lp["cross"]["out"], a.reshape(b_, t_, h_ * dh_))
         x = nn.layernorm(lp["ln2"], x + nn.dropout(ctx, a, dropout_p))
 
         f = _ffn(lp, ctx, x, dropout_p, moe_opts=moe_opts)

@@ -240,16 +240,27 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def dropout(ctx: Ctx, x: torch.Tensor, p: float) -> torch.Tensor:
+def dropout(ctx: Ctx, x: torch.Tensor, p: float, split=()) -> torch.Tensor:
     """unast_tpu/nn/core.py::dropout (inverted, torch semantics): in train
     mode each element is kept with probability 1 - p and scaled by
     1 / (1 - p); a no-op in eval mode or at p = 0. The mask is drawn from
-    ctx.next_rng(), so its bits differ from JAX's."""
+    ctx.next_rng(), so its bits differ from JAX's.
+
+    split: for x a slice of a tensor split over a model-parallel axis,
+    ((dim, whole size, start), ...) per split dim: the mask of the whole
+    tensor is drawn and x takes its slice, so every rank of the axis
+    advances the generator alike and the ranks' masks are those of the
+    unsplit tensor."""
     if not ctx.train or p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=ctx.next_rng(),
+    shape = list(x.shape)
+    for d, n, _ in split:
+        shape[d] = n
+    mask = torch.rand(shape, generator=ctx.next_rng(),
                       device=x.device) < keep
+    for d, _, s in split:
+        mask = mask.narrow(d, s, x.shape[d])
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

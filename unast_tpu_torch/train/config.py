@@ -329,19 +329,20 @@ def parse_with_config(argv=None) -> argparse.Namespace:
 def apply_runtime_flags(args):
     """unast_tpu/train/config.py::apply_runtime_flags: check the flags that
     configure the runtime rather than the model. --fast_prng selects JAX's
-    hardware RNG and means nothing here. Data parallelism runs one process
-    per device under torchrun (parallel/multihost.py): --dp must equal the
-    launch's world size (WORLD_SIZE), --zero 1 or 3 shards the optimizer
-    state (and the params) over the dp ranks (0 and dp 1 leave it whole,
-    as in JAX). The model-parallel axes (--tp, --sp, --ep above 1) come
-    with the next slice and raise NotImplementedError; a JAX launcher's
-    JAX_COORDINATOR_ADDRESS raises ValueError."""
-    later = [f"--{k} {getattr(args, k)}" for k in ("tp", "sp", "ep")
-             if (getattr(args, k, 1) or 1) > 1]
-    if later:
+    hardware RNG and means nothing here. The mesh runs one process per
+    device under torchrun (parallel/multihost.py): --dp x --tp x --ep must
+    equal the launch's world size (WORLD_SIZE); --tp must divide nhead and
+    ffn_dim and --ep moe_experts (ValueError, parallel/mesh.py::
+    check_mesh); --zero 1 or 3 shards the optimizer state (and the params)
+    over the dp ranks (0 and dp 1 leave it whole, as in JAX). --sp above 1
+    (the sharded time axis) comes with the next slice and raises
+    NotImplementedError; a JAX launcher's JAX_COORDINATOR_ADDRESS raises
+    ValueError."""
+    sp = getattr(args, "sp", 1) or 1
+    if sp > 1:
         raise NotImplementedError(
-            f"{', '.join(later)}: the port has data parallelism only; the "
-            "model-parallel axes come with the next slice (ROADMAP.md "
+            f"--sp {sp}: the port's mesh has the dp, tp and ep axes; "
+            "sequence parallelism comes with the next slice (ROADMAP.md "
             "queue 1 item 7c)")
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise ValueError("JAX_COORDINATOR_ADDRESS is the JAX package's "
@@ -351,12 +352,15 @@ def apply_runtime_flags(args):
     if zero not in (0, 1, 3):
         raise ValueError(f"--zero must be 0, 1 or 3, got {zero}")
     dp = getattr(args, "dp", 1) or 1
+    tp, ep = getattr(args, "tp", 1) or 1, getattr(args, "ep", 1) or 1
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if dp != world:
+    if dp * tp * ep != world:
         raise ValueError(
-            f"--dp {dp} with a multihost launch of {world} processes: the "
-            "port runs one process per device, so --dp must equal "
-            f"torchrun's --nproc_per_node")
+            f"--dp {dp} x --tp {tp} x --ep {ep} with a multihost launch of "
+            f"{world} processes: the port runs one process per device, so "
+            "the mesh must equal torchrun's --nproc_per_node")
+    from ..parallel.mesh import check_mesh
+    check_mesh(model_config_from_args(args), tp, ep)
 
 
 def train_args(path=None, **overrides) -> argparse.Namespace:

@@ -46,14 +46,24 @@ def init_ctc_state(gen: torch.Generator, cfg: ModelConfig, args,
     return CtcTrainState(params, net_state, tx.init(params), 0)
 
 
-def make_ctc_step(cfg: ModelConfig, args):
+def make_ctc_step(cfg: ModelConfig, args, plan=None):
     """unast_tpu/train/ctc.py::make_ctc_step: step(ts, gen, batch) -> (new
     ts, metrics {'ctc/loss', 'grad_norm'}); batch holds 'text', 'text_len',
     'mel', 'mel_len' tensors on the params' device, gen a torch.Generator
-    there (train-mode draws)."""
+    there (train-mode draws). plan: None, or a parallel/mesh.py::MeshPlan
+    (shard_family_step makes it): then batch is this rank's dp rows, ts
+    its tp slices, and the loss, the gradient and the metrics are the
+    global batch's (the loss's mean and the BatchNorm statistics through
+    parallel/collectives.py)."""
     tx = make_optimizer(args, make_schedule(args))
 
     def step(ts: CtcTrainState, gen: torch.Generator, batch):
+        if plan is None:
+            return run(ts, gen, batch)
+        with plan.axes():
+            return run(ts, gen, batch)
+
+    def run(ts: CtcTrainState, gen: torch.Generator, batch):
         live = tree_map(lambda x: x.detach().requires_grad_(True), ts.params)
         ctx = nn.Ctx(generator=gen, train=True)
         logits, pad, ns = C.ctc_logits(live, ts.net_state, ctx, cfg,
@@ -65,9 +75,16 @@ def make_ctc_step(cfg: ModelConfig, args):
             grads = tree_unflatten(live, [
                 torch.zeros_like(x) if g is None else g
                 for x, g in zip(leaves, grads)])
-            updates, opt = tx.update(grads, ts.opt, ts.params)
-            params = apply_updates(ts.params, updates)
-            metrics = {"ctc/loss": loss.detach(), "grad_norm": global_norm(grads)}
+            metrics = {"ctc/loss": loss.detach()}
+            if plan is None:
+                updates, opt = tx.update(grads, ts.opt, ts.params)
+                params = apply_updates(ts.params, updates)
+                metrics["grad_norm"] = global_norm(grads)
+            else:
+                params, opt, metrics["grad_norm"] = plan.apply(
+                    tx, "opt", grads, ts.opt, ts.params)
+                metrics.update(plan.reduce_metrics(
+                    {"ctc/loss": metrics["ctc/loss"]}))
         return CtcTrainState(params, ns, opt, ts.step + 1), metrics
 
     return step

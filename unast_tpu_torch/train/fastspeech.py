@@ -34,6 +34,7 @@ from ..models import networks as N
 from ..models import unast as U
 from ..models.config import ModelConfig
 from ..models.modules import lens_to_mask
+from ..parallel import collectives as PC
 from . import losses as L
 from .ctc import batch_to
 from .optim import (apply_updates, global_norm, make_optimizer, make_schedule,
@@ -113,24 +114,37 @@ def teacher_durations(source: str, t_params, t_state, teacher_cfg, args,
     U.tts(t_params, t_state, ectx, teacher_cfg, text, text_len, mel, mel_len,
           cross_weights_out=ws)
     attn = torch.stack(ws)
+    if teacher_cfg.model_type == "transformer":
+        attn = PC.gather(attn, 2)   # every head, under tensor parallelism
     if source == "mas":
         return F.mas_durations(attn, mel_len, text_len)
     return F.durations_from_attention(attn, mel_len, text_len,
                                       soft=(source == "soft"))
 
 
-def make_distill_step(cfg: ModelConfig, teacher_cfg: ModelConfig, args):
+def make_distill_step(cfg: ModelConfig, teacher_cfg: ModelConfig, args,
+                      plan=None):
     """unast_tpu/train/fastspeech.py::make_distill_step: step(fs,
     teacher_params, teacher_state, gen, batch) -> (new fs, metrics
     {'nar/pre', 'nar/post', 'nar/dur'[, 'nar/pitch', 'nar/energy'],
     'grad_norm'}). batch holds 'text', 'text_len', 'mel', 'mel_len' (and
     'f0' for nar_pitch, optionally 'durs') tensors on the params' device;
-    gen is a torch.Generator there (train-mode draws)."""
+    gen is a torch.Generator there (train-mode draws). plan: None, or a
+    parallel/mesh.py::MeshPlan (shard_family_step makes it): then batch is
+    this rank's dp rows, fs and the teacher's params its tp slices
+    (plan.place_tree), and every loss normaliser, the gradient and the
+    metrics are the global batch's."""
     tx = make_optimizer(args, make_schedule(args))
     dur_w = float(getattr(args, "nar_dur_weight", 1.0) or 1.0)
     source = dur_source(args)
 
     def step(fs: FSTrainState, t_params, t_state, gen: torch.Generator, batch):
+        if plan is None:
+            return run(fs, t_params, t_state, gen, batch)
+        with plan.axes():
+            return run(fs, t_params, t_state, gen, batch)
+
+    def run(fs: FSTrainState, t_params, t_state, gen: torch.Generator, batch):
         text, text_len = batch["text"], batch["text_len"]
         mel, mel_len = batch["mel"], batch["mel_len"]
         with torch.no_grad():
@@ -155,14 +169,14 @@ def make_distill_step(cfg: ModelConfig, teacher_cfg: ModelConfig, args):
         logd, logf, ener = F.predict_variances(live, fs.net_state, cfg,
                                                text, text_len)
         d_err = (logd - torch.log1p(dur.float())) ** 2
-        n_tok = torch.clamp(tv.sum(), min=1.0)
+        n_tok = torch.clamp(PC.total(tv.sum()), min=1.0)
         l_dur = (d_err * tv).sum() / n_tok
         loss = l_pre + l_post + dur_w * l_dur
         metrics = {"nar/pre": l_pre, "nar/post": l_post, "nar/dur": l_dur}
         if cfg.nar_pitch:
             voiced = (pitch_tgt > 0).float() * tv
             l_pitch = (((logf - pitch_tgt) ** 2) * voiced).sum() / torch.clamp(
-                voiced.sum(), min=1.0)
+                PC.total(voiced.sum()), min=1.0)
             loss = loss + dur_w * l_pitch
             metrics["nar/pitch"] = l_pitch
         if cfg.nar_energy:
@@ -175,10 +189,15 @@ def make_distill_step(cfg: ModelConfig, teacher_cfg: ModelConfig, args):
             grads = tree_unflatten(live, [
                 torch.zeros_like(x) if g is None else g
                 for x, g in zip(leaves, grads)])
-            updates, opt = tx.update(grads, fs.opt, fs.params)
-            params = apply_updates(fs.params, updates)
             metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["grad_norm"] = global_norm(grads)
+            if plan is None:
+                updates, opt = tx.update(grads, fs.opt, fs.params)
+                params = apply_updates(fs.params, updates)
+                metrics["grad_norm"] = global_norm(grads)
+            else:
+                metrics = plan.reduce_metrics(metrics)
+                params, opt, metrics["grad_norm"] = plan.apply(
+                    tx, "opt", grads, fs.opt, fs.params)
         return FSTrainState(params, ns, opt, fs.step + 1), metrics
 
     return step

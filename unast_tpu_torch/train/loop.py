@@ -8,22 +8,28 @@ one.
     python -m unast_tpu_torch.train.loop --config configs/transformer_test.json \\
         --synthetic --epochs 1 --device cpu
 
-Runs on the card unless --device names another device. Data parallelism:
+Runs on the card unless --device names another device. The mesh:
 
-    torchrun --nproc_per_node N -m unast_tpu_torch.train.loop --dp N [--zero 1|3]
+    torchrun --nproc_per_node N -m unast_tpu_torch.train.loop --dp D \
+        [--tp T] [--ep E] [--zero 1|3]          # N = D * T * E
 
 runs one rank per device (cuda:LOCAL_RANK under NCCL; gloo with --device
-cpu), each reading its strided shard of the corpus with train_batch_size / N
-rows a micro-batch, through parallel/mesh.py's sharded step; only rank 0
-writes metrics and checkpoints, and a checkpoint holds the whole state
-whatever the ZeRO level. Randomness: step `i` draws from a generator seeded
-from (seed + 17, i), warm-start step `s` from (seed + 29, s) and eval batch
-`b` from (0, b), the counterparts of the JAX loop's fold_in keys; under dp
-rank r of N seeds from (seed + 17, i * N + r) and (seed + 29, s * N + r)
-instead, so no two ranks draw the same dropout masks; the weights come from
-a CPU generator seeded with `seed`. A resumed run (load_path or auto_resume) also advances the
-data streams past the batches the saved epochs consumed, so it trains on
-what an unbroken run would have (the JAX loop restarts its streams).
+cpu) through parallel/mesh.py's sharded step, laid out over (dp, tp[, ep])
+as the JAX loop's mesh. The ranks of one dp coordinate read the same
+strided shard of the corpus (1/D of it) with train_batch_size / D rows a
+micro-batch; each keeps its tp / ep slices of the state. Only rank 0 writes
+metrics and checkpoints, and a checkpoint holds the whole state whatever
+the splits and the ZeRO level (a resumed run places it again).
+Randomness: step `i` draws from a generator seeded from (seed + 17, i),
+warm-start step `s` from (seed + 29, s) and eval batch `b` from (0, b), the
+counterparts of the JAX loop's fold_in keys; under dp, dp coordinate r of D
+seeds from (seed + 17, i * D + r) and (seed + 29, s * D + r) instead, so no
+two dp ranks draw the same dropout masks, while the tp and ep ranks of one
+dp coordinate share its stream (a replicated activation draws the same
+mask on each); the weights come from a CPU generator seeded with `seed`. A
+resumed run (load_path or auto_resume) also advances the data streams past
+the batches the saved epochs consumed, so it trains on what an unbroken
+run would have (the JAX loop restarts its streams).
 """
 
 import copy
@@ -126,19 +132,23 @@ def train(args):
     device = resolve_device(MH.maybe_initialize_distributed(args.device))
     cfg = model_config_from_args(args)
     datasets = initialize_datasets(args)
-    n_proc, rank = MH.process_count(), MH.process_index()
-    if n_proc > 1:
-        # each rank reads a strided corpus shard and contributes
-        # train_batch_size / n_proc rows per micro-batch
-        assert args.train_batch_size % n_proc == 0, (
+    rank = MH.process_index()
+    # the mesh's dp coordinate of this rank (row-major over dp, tp, ep):
+    # its tp and ep peers read the same shard and draw the same streams
+    n_dp = args.dp
+    r_dp = rank // (MH.process_count() // n_dp)
+    if n_dp > 1:
+        # each dp coordinate reads a strided corpus shard and contributes
+        # train_batch_size / dp rows per micro-batch
+        assert args.train_batch_size % n_dp == 0, (
             f"global batch {args.train_batch_size} must divide over "
-            f"{n_proc} processes")
-        args.train_batch_size //= n_proc
+            f"dp={n_dp}")
+        args.train_batch_size //= n_dp
         for k in ("labeled", "unlabeled", "full"):
-            if len(datasets[k]) < n_proc:   # a rank's shard would be empty
+            if len(datasets[k]) < n_dp:   # a rank's shard would be empty
                 raise ValueError(f"the {k} set has {len(datasets[k])} items, "
-                                 f"fewer than the {n_proc} processes sharding it")
-            datasets[k] = MH.HostShardedDataset(datasets[k])
+                                 f"fewer than the dp={n_dp} ranks sharding it")
+            datasets[k] = MH.HostShardedDataset(datasets[k], r_dp, n_dp)
     batch_getter = BatchGetter(args, datasets["labeled"],
                                datasets["unlabeled"], datasets["full"],
                                n_mels=args.num_mels)
@@ -161,27 +171,31 @@ def train(args):
 
     n_params = sum(x.numel() for x in tree_leaves(ts.params))
     train_step = make_train_step(cfg, args)
-    dp = None
-    if args.dp > 1:
+    plan = None
+    if MH.process_count() > 1:
         from ..parallel.mesh import make_mesh, shard_train_step
-        mesh = make_mesh(args.dp)
-        print(f"mesh: dp {args.dp} over {n_proc} processes, zero {args.zero}")
+        tp, ep = args.tp or 1, args.ep or 1
+        mesh = make_mesh(args.dp, tp, ep=ep)
+        print(f"mesh: dp {args.dp} tp {tp} ep {ep} over "
+              f"{MH.process_count()} processes, zero {args.zero}")
         train_step, ts = shard_train_step(train_step, mesh, ts,
                                           zero=args.zero)
-        dp = train_step.dp
+        plan = train_step.plan
 
     def whole():
-        # the whole state (a collective under ZeRO: every rank gathers)
-        return dp.whole(ts) if dp is not None and dp.zero else ts
+        # the whole state (a collective under ZeRO or a model split: every
+        # rank gathers)
+        return (plan.whole(ts) if plan is not None
+                and (plan.zero or plan.model_split) else ts)
 
     def generator(seed, i):
-        return seeded_generator(seed, i * n_proc + rank, device)
+        return seeded_generator(seed, i * n_dp + r_dp, device)
 
     wargs, wcfg = _warm_start(args, cfg)
     if args.sp_warmup_steps and s_epoch == 0:
         # grounding curriculum: supervised-only steps anchor the
         # cross-modal alignment before the joint mixture
-        wstep = make_train_step(wcfg, wargs, dp=dp)
+        wstep = make_train_step(wcfg, wargs, plan=plan)
         t0 = time.time()
         for s in range(args.sp_warmup_steps):
             wb = _to_device(batch_getter.step_batches(wargs, False), device)

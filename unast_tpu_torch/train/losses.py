@@ -96,7 +96,10 @@ def stop_label_from_lens(mel_len, max_len: int):
 def guided_attention_loss(attn, q_len, k_len, sigma: float = 0.2):
     """unast_tpu/train/losses.py::guided_attention_loss: the mean over valid
     (q, k) positions of attn * (1 - exp(-(q/Ql - k/Kl)^2 / (2 sigma^2))).
-    attn: [..., B, H, Tq, Tk] probabilities; q_len, k_len: [B]."""
+    attn: [..., B, H, Tq, Tk] probabilities; q_len, k_len: [B]. Under
+    tensor parallelism attn holds this rank's H / tp heads: the numerator
+    is summed over the tp ranks (collectives.reduce_from) and the
+    denominator counts every head."""
     tq, tk = attn.shape[-2], attn.shape[-1]
     dev = attn.device
     qs = torch.arange(tq, dtype=torch.float32, device=dev)[:, None]
@@ -107,6 +110,7 @@ def guided_attention_loss(attn, q_len, k_len, sigma: float = 0.2):
     valid = ((qs < ql) & (ks < kl)).float()              # [B, Tq, Tk]
     w = w[:, None, :, :]
     valid = valid[:, None, :, :]
-    num = (attn.float() * w * valid).sum()
-    den = C.total(torch.broadcast_to(valid, attn.shape).sum()).clamp(min=1.0)
+    num = C.reduce_from((attn.float() * w * valid).sum())
+    den = C.total(torch.broadcast_to(valid, attn.shape).sum()
+                  * C.axis_size("tp")).clamp(min=1.0)
     return num / den

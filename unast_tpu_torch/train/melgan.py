@@ -22,6 +22,7 @@ import torch
 from ..audio.dsp import frame_signal
 from ..device import resolve_device
 from ..models import melgan as G
+from ..parallel import collectives as C
 from .optim import (Optimizer, apply_updates, global_norm, tree_leaves,
                     tree_map, tree_unflatten)
 
@@ -48,7 +49,8 @@ def stft_mag(y, n_fft: int, hop: int):
 def mr_stft_loss(pred, gold):
     """unast_tpu/train/melgan.py::mr_stft_loss: the mean over RESOLUTIONS
     of spectral convergence plus the mean log-magnitude L1. Returns (loss,
-    mean spectral convergence)."""
+    mean spectral convergence); under data parallelism each rank's share
+    of the global batch's (parallel/collectives.py)."""
     eps = 1e-7
     scs, mags = [], []
     for n_fft, hop in RESOLUTIONS:
@@ -58,8 +60,8 @@ def mr_stft_loss(pred, gold):
         sc = (torch.linalg.vector_norm((gm - pm).reshape(b, -1), dim=1)
               / torch.clamp(torch.linalg.vector_norm(gm.reshape(b, -1), dim=1),
                             min=eps))
-        scs.append(sc.mean())
-        mags.append(torch.abs(torch.log(gm + eps) - torch.log(pm + eps)).mean())
+        scs.append(C.mean(sc))
+        mags.append(C.mean(torch.abs(torch.log(gm + eps) - torch.log(pm + eps))))
     sc_mean = sum(scs) / len(scs)
     return sc_mean + sum(mags) / len(mags), sc_mean
 
@@ -103,23 +105,38 @@ def _live(tree):
     return tree_map(lambda x: x.detach().requires_grad_(True), tree)
 
 
-def make_vocoder_step(args, wav_l1_weight: float = 1.0):
+def make_vocoder_step(args, wav_l1_weight: float = 1.0, plan=None):
     """unast_tpu/train/melgan.py::make_vocoder_step: step(vs, mel [B, F,
     n_mels], wav [B, F*hop]) -> (new vs, metrics {'voc/stft', 'voc/sc',
-    'voc/l1', 'grad_norm'})."""
+    'voc/l1', 'grad_norm'}). plan: None, or a parallel/mesh.py::MeshPlan
+    of a dp mesh (shard_family_step makes it): then mel and wav are this
+    rank's rows and the losses, the gradient and the metrics are the
+    global batch's."""
     tx = _voc_tx(args)
 
     def step(vs: VocTrainState, mel, wav):
+        if plan is None:
+            return run(vs, mel, wav)
+        with plan.axes():
+            return run(vs, mel, wav)
+
+    def run(vs: VocTrainState, mel, wav):
         live = _live(vs.params)
         pred = G.generator_forward(live, mel)
         stft, sc = mr_stft_loss(pred, wav)
-        l1 = torch.abs(_wide(pred) - _wide(wav)).mean()
+        l1 = C.mean(torch.abs(_wide(pred) - _wide(wav)))
         grads = _grads(stft + wav_l1_weight * l1, live)
         with torch.no_grad():
-            updates, opt = tx.update(grads, vs.opt, vs.params)
-            params = apply_updates(vs.params, updates)
             metrics = {"voc/stft": stft.detach(), "voc/sc": sc.detach(),
-                       "voc/l1": l1.detach(), "grad_norm": global_norm(grads)}
+                       "voc/l1": l1.detach()}
+            if plan is None:
+                updates, opt = tx.update(grads, vs.opt, vs.params)
+                params = apply_updates(vs.params, updates)
+                metrics["grad_norm"] = global_norm(grads)
+            else:
+                metrics = plan.reduce_metrics(metrics)
+                params, opt, metrics["grad_norm"] = plan.apply(
+                    tx, "opt", grads, vs.opt, vs.params)
         return VocTrainState(params, opt, vs.step + 1), metrics
 
     return step
@@ -151,7 +168,7 @@ def _d_loss(disc, wav, fake):
     loss = 0.0
     for (_, lr_), (_, lf) in zip(G.adv_disc_forward(disc, wav),
                                  G.adv_disc_forward(disc, fake)):
-        loss = loss + (torch.relu(1.0 - lr_).mean() + torch.relu(1.0 + lf).mean())
+        loss = loss + (C.mean(torch.relu(1.0 - lr_)) + C.mean(torch.relu(1.0 + lf)))
     return loss
 
 
@@ -181,9 +198,9 @@ def make_adversarial_step(args, fm_weight: float = 10.0,
         stft, sc = mr_stft_loss(pred, wav)
         adv = fm = 0.0
         for (fr, _), (ff, lf) in zip(real_outs, G.adv_disc_forward(disc, pred)):
-            adv = adv - lf.mean()
+            adv = adv - C.mean(lf)
             for a, b in zip(fr, ff):
-                fm = fm + torch.abs(a - b).mean()
+                fm = fm + C.mean(torch.abs(a - b))
         g_grads = _grads(stft_weight * stft + adv + fm_weight * fm, live_g)
         with torch.no_grad():
             g_up, g_opt = g_tx.update(g_grads, ts.gen_opt, ts.gen)

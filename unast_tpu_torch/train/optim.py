@@ -19,6 +19,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import collectives as C
+
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # optax.scale_by_factored_rms defaults (unast_tpu/train/optim.py uses them)
 FACTOR_DECAY, FACTOR_MIN_DIM, FACTOR_EPS = 0.8, 128, 1e-30
@@ -150,10 +152,17 @@ class EmaState(NamedTuple):
     ema: Any
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, axes=None) -> torch.Tensor:
     """unast_tpu/train/optim.py::global_norm: sqrt of the sum of squares of
-    every leaf, in float32."""
-    return torch.sqrt(sum((x.float() ** 2).sum() for x in tree_leaves(tree)))
+    every leaf, in float32. axes: under a model-parallel mesh, per leaf (in
+    tree_leaves order) the axes it is split over (parallel/mesh.py's
+    MeshPlan); the squares of a split leaf are then summed over those
+    axes' ranks (parallel/collectives.py's active axes), and a replicated
+    leaf counts once."""
+    squares = [(x.float() ** 2).sum() for x in tree_leaves(tree)]
+    if axes is None:
+        return torch.sqrt(sum(squares))
+    return torch.sqrt(C.reduce_grouped(squares, axes))
 
 
 def _factored_dims(shape):

@@ -449,7 +449,7 @@ def _accumulate(loss_fn, params, wrt, net_state, gen, stacked_batches):
     return grads, st, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
 
 
-def make_train_step(cfg: ModelConfig, args, dp=None):
+def make_train_step(cfg: ModelConfig, args, plan=None):
     """unast_tpu/train/steps.py::make_train_step: train_step(ts, gen,
     batches) -> (new ts, metrics).
 
@@ -462,35 +462,45 @@ def make_train_step(cfg: ModelConfig, args, dp=None):
     NotImplementedError, before any step runs, on model options of later
     slices (networks.check_ported).
 
-    dp: None, or a parallel/mesh.py::DataParallel (shard_train_step makes
-    it): then `batches` are this rank's rows of the global batch, every
-    loss, normaliser and BatchNorm statistic is the global batch's
-    (parallel/collectives.py), the gradients and the metrics are summed
-    over the ranks, and the update goes through dp (ZeRO)."""
+    plan: None, or a parallel/mesh.py::MeshPlan (shard_train_step makes
+    it): then `batches` are this rank's dp rows of the global batch and
+    ts holds its tp / ep slices (and dp slices under ZeRO); every loss,
+    normaliser and BatchNorm statistic is the global batch's and the
+    split layers run their collectives (parallel/collectives.py), the
+    gradients and the metrics are summed over the dp ranks only (a tp or
+    ep rank's gradient slice is whole for its slice, and its losses are
+    its dp peer's), the clip's norm counts each split leaf over its axes,
+    and the update goes through the plan (ZeRO)."""
     N.check_ported(cfg)
     gen_tx, disc_tx = make_optimizers(cfg, args)
     scale = 1.0 / (args.ae_steps + args.cm_steps + args.sp_steps)
 
-    def update(tx, opt_dims, grads, opt_state, params, norm):
-        if dp is not None:
-            return dp.update(tx, opt_dims, grads, opt_state, params, norm)
+    def update(tx, field, grads, opt_state, params, norm):
+        if plan is not None:
+            return plan.update(tx, field, grads, opt_state, params, norm)
         updates, opt_state = tx.update(grads, opt_state, params, norm)
         return apply_updates(params, updates), opt_state
 
+    def norm_of(grads, field):
+        return (global_norm(grads) if plan is None
+                else plan.global_norm(grads, field))
+
     def reduce_metrics(metrics: dict):
         # each rank's losses are its shares of the global batch's
-        if dp is None or not metrics:
+        if plan is None or not metrics:
             return metrics
         keys = list(metrics)
-        return dict(zip(keys, dp.all_reduce([metrics[k] for k in keys])))
+        return dict(zip(keys, plan.all_reduce([metrics[k] for k in keys])))
 
     def train_step(ts: TrainState, gen: torch.Generator, batches):
-        with C.data_parallel(None if dp is None else dp.group):
+        if plan is None:
+            return step(ts, gen, batches)
+        with plan.axes():
             return step(ts, gen, batches)
 
     def step(ts: TrainState, gen: torch.Generator, batches):
         metrics = {}
-        params_in = ts.params if dp is None else dp.params_in(ts.params)
+        params_in = ts.params if plan is None else plan.params_in(ts.params)
         gen_params, disc_params = split_params(params_in)
         live = tree_map(lambda x: x.detach().requires_grad_(True), gen_params)
         params = dict(live)
@@ -514,12 +524,12 @@ def make_train_step(cfg: ModelConfig, args, dp=None):
         gen_opt = ts.gen_opt
         with torch.no_grad(), record_function("unast/train/gen_update"):
             if total is not None:
-                if dp is not None:
-                    total = dp.all_reduce(total)
+                if plan is not None:
+                    total = plan.all_reduce(total)
                 gen_grads = tree_unflatten(gen_params, total)
-                metrics["grad_norm"] = global_norm(gen_grads)
+                metrics["grad_norm"] = norm_of(gen_grads, "gen_opt")
                 gen_params, gen_opt = update(
-                    gen_tx, dp and dp.dims.gen_opt, gen_grads, gen_opt,
+                    gen_tx, "gen_opt", gen_grads, gen_opt,
                     gen_params, metrics["grad_norm"])
         new_params = dict(gen_params)
         disc_opt = ts.disc_opt
@@ -538,24 +548,26 @@ def make_train_step(cfg: ModelConfig, args, dp=None):
                                                 tree_leaves(d_live), net_state,
                                                 gen, batches["d"])
             with torch.no_grad():
-                if dp is not None:
-                    d_grads = dp.all_reduce(d_grads)
+                if plan is not None:
+                    d_grads = plan.all_reduce(d_grads)
                 d_grads = tree_unflatten(disc_params, d_grads)
                 disc_params, disc_opt = update(
-                    disc_tx, dp and dp.dims.disc_opt, d_grads, disc_opt,
-                    disc_params, global_norm(d_grads))
+                    disc_tx, "disc_opt", d_grads, disc_opt,
+                    disc_params, norm_of(d_grads, "disc_opt"))
             metrics.update(reduce_metrics(
                 {f"d/{k}": v.mean() for k, v in d_aux.items()}))
 
         if disc_params is not None:
             new_params["discriminator"] = disc_params
         if getattr(args, "param_sum_metric", False):
-            metrics["param_sum"] = sum(x.abs().sum()
-                                       for x in tree_leaves(new_params))
-        if dp is not None:
-            new_params = dp.params_out(new_params)
+            metrics["param_sum"] = (
+                sum(x.abs().sum() for x in tree_leaves(new_params))
+                if plan is None else
+                plan.split_sum(new_params, lambda x: x.abs().sum()))
+        if plan is not None:
+            new_params = plan.params_out(new_params)
         return TrainState(new_params, net_state, gen_opt, disc_opt,
                           ts.step + 1), metrics
 
-    train_step.config, train_step.dp = (cfg, args), dp
+    train_step.config, train_step.plan = (cfg, args), plan
     return train_step
