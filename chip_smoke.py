@@ -167,27 +167,32 @@ Phases (each that fails exits non-zero; nothing is caught):
      against a direct call; the flagship trees and phase 12's CBHG vocoder
      through export_state_dict / import_state_dict bit-equal, and the two
      compat CLIs round-tripping the flagship checkpoint;
-  20. data, tensor and expert parallelism on the one card (its worlds
+  20. data, tensor, expert, sequence and pipeline parallelism on the one
+     card (its worlds
      are started before phase 17 and run beside phases 17-19): a world of two
      processes (this script with --dp-worker) under gloo sharing the H100
      (NCCL refuses two ranks on one device; the device line still says
      count 1), each joined, a failing rank failing the phase: at TINY f32
      one dp step per ZeRO level 0, 1 and 3, the dp = 2 dispatch-MoE step
-     whose capacity overflows, a tp = 2 and an ep = 2 step, each against
-     the single-process step (phase 8's tolerances), and
-     Synthesizer(mesh=) against the single-process one; at flagship width
-     one bf16 joint step with zero=1, one with zero=3 and one at tp = 2,
-     each rank's launches and backward calls as flash_calls_per_step
-     counts them, its peak memory, param and optimizer bytes (a tp
-     rank's as the split rule counts them), the step's seconds; in every
-     sharded step the kernel against its plain version on each q/k/v
-     layout the rank gave it; then a world of four ranks: a TINY dp 2 x
-     tp 2 zero-1 step against the single-process step;
+     whose capacity overflows, a tp = 2, an ep = 2, an sp = 2 and a pp =
+     2 step, each against the single-process step (phase 8's
+     tolerances), and Synthesizer(mesh=) against the single-process one;
+     at flagship width one bf16 joint step with zero=1, one with zero=3,
+     one at tp = 2, one at sp = 2 (each rank half of every sequence's
+     frames) and one at pp = 2 (each rank 2 of the 4 layers of every
+     pipelined stack), each rank's launches and backward calls as
+     flash_calls_per_step counts them, its peak memory, param and
+     optimizer bytes (a tp rank's as the split rule counts them, an sp
+     or pp rank's whole), the step's seconds; in every sharded step the
+     kernel against its plain version on each q/k/v layout the rank gave
+     it (an sp rank's causal queries at their q_start); then a world of
+     four ranks: TINY dp 2 x tp 2 zero-1 and dp 2 x pp 2 steps against
+     the single-process step;
   then one `{"kernels": [...]}` line (both routes, with their launches on
      the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
      beam, CTC train, hybrid, NAR serve, distill, NAR + MelGAN serve,
-     wide step and serve, family step, serve and TINY, export and dp
-     paths), a
+     wide step and serve, family step, serve and TINY, export, dp, tp,
+     sp and pp paths), a
      `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
      `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`,
      a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a `{"melgan":
@@ -235,7 +240,9 @@ class Case(NamedTuple):
     down to about a third of it; layout as in attention_inputs; one_hot_v:
     v of key j is the unit vector e_(j mod D), so each output column sums
     the weights of its own keys and a key order on which P and V disagree
-    moves weight between columns."""
+    moves weight between columns. q_start: the causal mask's offset of
+    query 0 (a sequence-parallel rank's queries against the gathered
+    keys)."""
     name: str
     dtype: torch.dtype
     b: int
@@ -248,6 +255,7 @@ class Case(NamedTuple):
     layout: str = "separate"
     lens: Optional[List[int]] = None
     one_hot_v: bool = False
+    q_start: int = 0
 
 
 bf16, f32 = torch.bfloat16, torch.float32
@@ -288,6 +296,17 @@ FLASH_CASES = [
     Case("tp_encoder_t816_h2", bf16, 4, 816, 816, 2, 64, False, 51, "qkv"),
     Case("tp_cross_304x816_h2", bf16, 4, 304, 816, 2, 64, False, 52, "cross"),
     Case("tp_cross_816x304_h2", bf16, 4, 816, 304, 2, 64, False, 53, "cross"),
+    # an sp = 2 rank's causal self-attention (phase 20): its half of the
+    # queries at their offset against the gathered keys, k/v views of one
+    # gathered [B, T, 2 * 256] tensor, in both dtypes
+    Case("sp_self_q408_at408_k816", bf16, 4, 408, 816, 4, 64, True, 54, "cross",
+         q_start=408),
+    Case("sp_self_q152_at152_k304", bf16, 4, 152, 304, 4, 64, True, 55, "cross",
+         q_start=152),
+    Case("sp_self_q408_at408_k816_f32", f32, 4, 408, 816, 4, 64, True, 56, "cross",
+         q_start=408),
+    Case("sp_self_q152_at152_k304_f32", f32, 4, 152, 304, 4, 64, True, 57, "cross",
+         q_start=152),
     # phase 17's wide encoder: d 1024 over 8 heads of 128
     Case("wide_encoder_qkv_d128", bf16, 8, 815, 815, 8, 128, False, 47, "qkv"),
     Case("tiny_asr_encoder_f32", f32, 2, 24, 24, 2, 16, False, 37, "qkv",
@@ -404,16 +423,17 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(q, k, kv_lens, causal):
+def attention_bound(q, k, kv_lens, causal, q_start: int = 0):
     """Least time (ms) the card could take for one flash_attention call on
     these inputs, what bounds it, and for float32 the same on the CUDA
     cores: the score and P.V products over the (query, key) pairs this data
-    keeps, against the bytes of q, the kept k/v rows, o and kv_lens, each
-    moved once. The float32 work at float32 accuracy on the tensor cores is
-    three TF32 products (split-TF32), as the float32 kernel does it."""
+    keeps (query i sees keys up to i + q_start when causal), against the
+    bytes of q, the kept k/v rows, o and kv_lens, each moved once. The
+    float32 work at float32 accuracy on the tensor cores is three TF32
+    products (split-TF32), as the float32 kernel does it."""
     b, tq, h, d = q.shape
     lens = kv_lens.cpu().numpy().astype(np.int64)
-    rows = np.arange(tq)
+    rows = np.arange(tq) + q_start
     pairs = sum(int(np.minimum(rows + 1, n).sum()) if causal else tq * int(n)
                 for n in lens)
     flops = 4 * h * d * pairs
@@ -583,15 +603,17 @@ def case_kv_lens(c: Case):
     return torch.tensor(c.lens, dtype=torch.int32, device="cuda")
 
 
-def sdpa_call(q, k, v, kv_lens, causal):
+def sdpa_call(q, k, v, kv_lens, causal, q_start: int = 0):
     """fn() computing the same function with one PyTorch call,
-    scaled_dot_product_attention under a boolean mask."""
+    scaled_dot_product_attention under a boolean mask (the causal one
+    offset by q_start)."""
     b, tq, _, _ = q.shape
     tk = k.shape[1]
     keep = torch.arange(tk, device=q.device)[None, :] < kv_lens[:, None]
     mask = keep[:, None, None, :].expand(b, 1, tq, tk)
     if causal:
-        mask = mask & torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()
+        mask = mask & torch.ones((tq, tk), dtype=torch.bool,
+                                 device=q.device).tril(diagonal=q_start)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask)
@@ -612,16 +634,18 @@ def flash_agreement(out, ref, scale=None):
     return float(err.max()), tol, bool((err <= bound).all()), float((err / bound).max())
 
 
-def attention_f64(q, k, v, kv_lens, causal: bool):
+def attention_f64(q, k, v, kv_lens, causal: bool, q_start: int = 0):
     """(o, P.|V|): the flash function of q, k, v in float64 (the same
-    kv_lens and causal mask), and its weights applied to |v|."""
+    kv_lens and causal mask, offset by q_start), and its weights applied
+    to |v|."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / q.shape[-1] ** 0.5
     kpos = torch.arange(k.shape[1], device=q.device)
     keep = torch.ones_like(s, dtype=torch.bool)
     if kv_lens is not None:
         keep = keep & (kpos[None, :] < kv_lens.to(q.device)[:, None])[:, None, None, :]
     if causal:
-        keep = keep & (kpos[None, :] <= torch.arange(q.shape[1], device=q.device)[:, None])
+        keep = keep & (kpos[None, :] <= torch.arange(q.shape[1], device=q.device)[:, None]
+                       + q_start)
     p = torch.softmax(s.masked_fill(~keep, -1e9), dim=-1)
     return (torch.einsum("bhqk,bkhd->bqhd", p, v.double()),
             torch.einsum("bhqk,bkhd->bqhd", p, v.double().abs()))
@@ -630,19 +654,21 @@ def attention_f64(q, k, v, kv_lens, causal: bool):
 @contextlib.contextmanager
 def recorded_flash_inputs(seen: dict):
     """Within the block the transformer's flash_attention calls run as
-    before, and the first (q, k, v, kv_lens, causal) of each distinct
-    layout (shapes, strides, dtype, causal) lands in `seen`, detached:
+    before, and the first (q, k, v, kv_lens, causal, q_start) of each
+    distinct layout (shapes, strides, dtype, causal, q_start) lands in
+    `seen`, detached:
     the very views a step gave the kernel, to hold it against its plain
     version afterwards (check_recorded_flash)."""
     from unast_tpu_torch.models import transformer
     inner = transformer.flash_attention
 
-    def record(q, k, v, kv_lens=None, causal=False):
+    def record(q, k, v, kv_lens=None, causal=False, q_start=0):
         key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
-               v.stride(), q.dtype, causal)
+               v.stride(), q.dtype, causal, q_start)
         if key not in seen:
-            seen[key] = (q.detach(), k.detach(), v.detach(), kv_lens, causal)
-        return inner(q, k, v, kv_lens, causal=causal)
+            seen[key] = (q.detach(), k.detach(), v.detach(), kv_lens, causal,
+                         q_start)
+        return inner(q, k, v, kv_lens, causal=causal, q_start=q_start)
 
     transformer.flash_attention = record
     try:
@@ -663,16 +689,17 @@ def check_recorded_flash(seen: dict) -> list:
     ('self' when q and k are views of one fused projection)."""
     from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
     recs = []
-    for q, k, v, kv_lens, causal in seen.values():
-        out = flash_attention(q, k, v, kv_lens, causal=causal)
-        ref = flash_attention_plain(q, k, v, kv_lens, causal=causal)
-        exact, weighted = attention_f64(q, k, v, kv_lens, causal)
+    for q, k, v, kv_lens, causal, q_start in seen.values():
+        out = flash_attention(q, k, v, kv_lens, causal=causal, q_start=q_start)
+        ref = flash_attention_plain(q, k, v, kv_lens, causal=causal,
+                                    q_start=q_start)
+        exact, weighted = attention_f64(q, k, v, kv_lens, causal, q_start)
         err, tol, ok, ratio = flash_agreement(out, ref, ref.float().abs() + weighted.float())
         model = (2.0 ** -8 * (exact.abs() + weighted)).clamp(min=1e-30)
         rec = {
             "dtype": str(q.dtype).replace("torch.", ""), "q": list(q.shape),
             "k": list(k.shape), "q_stride": list(q.stride()),
-            "k_stride": list(k.stride()), "causal": causal,
+            "k_stride": list(k.stride()), "causal": causal, "q_start": q_start,
             "self": q.untyped_storage().data_ptr() == k.untyped_storage().data_ptr(),
             "max_abs_v": float(v.float().abs().max()),
             "max_abs_err": err, "tol": tol, "err_over_bound": ratio,
@@ -691,28 +718,29 @@ def flash_case(c: Case):
     """Kernel vs plain (and SDPA as a yardstick) on case c's inputs."""
     from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
     q, k, v, kv_lens = case_inputs(c)
-    out = flash_attention(q, k, v, kv_lens, causal=c.causal)
+    out = flash_attention(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v, kv_lens, causal=c.causal)
+    ref = flash_attention_plain(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
     max_err, tol, ok, _ = flash_agreement(out, ref)
     iters = 50 if c.tq * c.tk <= 300 * 815 else 20
-    bound_ms, bound_by, bound_cuda_core_ms = attention_bound(q, k, kv_lens, c.causal)
+    bound_ms, bound_by, bound_cuda_core_ms = attention_bound(q, k, kv_lens, c.causal,
+                                                             c.q_start)
     symbols = ROUTE_KERNELS[c.dtype]
 
     def kernel():
-        return flash_attention(q, k, v, kv_lens, causal=c.causal)
-    library = sdpa_call(q, k, v, kv_lens, c.causal)
+        return flash_attention(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
+    library = sdpa_call(q, k, v, kv_lens, c.causal, c.q_start)
     per_kernel = device_ms(kernel, symbols, iters)
     case = {
         "case": c.name, "dtype": str(c.dtype).replace("torch.", ""),
         "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
-        "causal": c.causal, "kv_lens": kv_lens.tolist(),
+        "causal": c.causal, "q_start": c.q_start, "kv_lens": kv_lens.tolist(),
         "one_hot_v": c.one_hot_v,
         "max_abs_err": max_err, "tol": tol, "ok": ok,
         "ms": cuda_ms(kernel, iters),
         "device_ms": sum(per_kernel.values()),
-        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, kv_lens,
-                                                          causal=c.causal), iters),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(
+            q, k, v, kv_lens, causal=c.causal, q_start=c.q_start), iters),
         "library_ms": cuda_ms(library, iters),
         "library_device_ms": device_ms(library, (), iters)[""],
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2905,6 +2933,8 @@ MESH_TINY_CASES = {
                           moe_group_size=16), 1),
     "tp": ("tp", {}, 0),
     "ep": ("ep", dict(moe_experts=4, moe_group_size=16), 0),
+    "sp": ("sp", {}, 0),
+    "pp": ("pp", dict(pp=2), 0),
 }
 
 
@@ -2987,6 +3017,13 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         c = tiny_case(mesh, tiny_t, 1, mesh.get_local_rank("dp"))
         out["tiny_dp2_tp2_zero1"] = c
         assert c["ok"] and c["opt_state_bytes"] < 0.5 * c["opt_state_bytes_whole"], c
+        # dp 2 x pp 2 (JAX's test_pp_train_step_matches_unsharded layout)
+        t = time.perf_counter()
+        mesh = make_mesh(2, pp=2)
+        c = tiny_case(mesh, tiny_t.replace(pp=2), 0, mesh.get_local_rank("dp"))
+        c["s"] = time.perf_counter() - t
+        out["tiny_dp2_pp2"] = c
+        assert c["ok"], c
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -2994,7 +3031,8 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         return 0
 
     mesh = make_mesh(DP_RANKS)
-    meshes = {"dp": mesh, "tp": make_mesh(1, DP_RANKS), "ep": make_mesh(1, 1, ep=DP_RANKS)}
+    meshes = {"dp": mesh, "tp": make_mesh(1, DP_RANKS), "ep": make_mesh(1, 1, ep=DP_RANKS),
+              "sp": make_mesh(1, sp=DP_RANKS), "pp": make_mesh(1, pp=DP_RANKS)}
     # (a) TINY, float32, every dropout at 0: one dp step per ZeRO level
     # against the single-process step on the whole batch, on the card
     tiny = {}
@@ -3003,9 +3041,13 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
     # the MoE capacity under dp, tp = 2 and ep = 2 (the tp and ep ranks
     # share dp coordinate 0's stream)
     for name, (m, over, zero) in MESH_TINY_CASES.items():
+        t = time.perf_counter()
         tiny[name] = tiny_case(meshes[m], tiny_t.replace(**over), zero,
                                rank if m == "dp" else 0)
+        tiny[name]["s"] = time.perf_counter() - t
     assert all(c["ok"] for c in tiny.values()), tiny
+    assert rank == 0 or any(r["q_start"] > 0 for r in tiny["sp"]["flash_vs_plain"]), \
+        tiny["sp"]
     assert all(r["q"][2] == tiny_t.nhead // DP_RANKS
                for r in tiny["tp"]["flash_vs_plain"]), tiny["tp"]
     # Synthesizer(mesh=) against the single-process one (3 requests, padded
@@ -3027,22 +3069,28 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
     # the 4 rows of the config's batch
     cfg = ModelConfig.from_json(CONFIG).replace(attn_impl="flash")
     args = train_args(CONFIG)
-    fwd, bwd = flash_calls_per_step(cfg, args)
     flag = {}
     whole_batches = train_batches(np.random.default_rng(0), args, cfg,
                                   args.train_batch_size, args.data_text_len,
                                   args.data_mel_len, "cuda")
     # the dp steps under ZeRO 1 and 3 (each rank 2 of the 4 rows), then one
-    # tp = 2 step (each rank all 4 rows and 2 of the 4 heads)
+    # tp = 2 step (each rank all 4 rows and 2 of the 4 heads), one sp = 2
+    # step (each rank all 4 rows and half of every sequence's frames) and
+    # one pp = 2 step (each rank its stage's 2 of the 4 layers of every
+    # pipelined stack, 4 micro-batches of 1 row)
     for key, m, zero in [(f"zero{z}", mesh, z) for z in DP_FLAGSHIP_ZEROS] + [
-            ("tp2", meshes["tp"], 0)]:
-        ts = init_train_state(torch.Generator().manual_seed(0), cfg, args, "cuda")
+            ("tp2", meshes["tp"], 0), ("sp2", meshes["sp"], 0),
+            ("pp2", meshes["pp"], 0)]:
+        cfg_k = cfg.replace(pp=axis_size(m, "pp"))
+        fwd, bwd = flash_calls_per_step(cfg_k, args, rows=args.train_batch_size,
+                                        staged=axis_size(m, "pp") > 1)
+        ts = init_train_state(torch.Generator().manual_seed(0), cfg_k, args, "cuda")
         whole_bytes = state_bytes(ts.gen_opt) + state_bytes(ts.disc_opt)
         whole_params = state_bytes(ts.params)
         tp = axis_size(m, "tp")
         split_params = split_bytes(ts.params, tp)
         split_opt = split_bytes(ts.gen_opt, tp) + split_bytes(ts.disc_opt, tp)
-        step, placed = shard_train_step(make_train_step(cfg, args), m, ts, zero=zero)
+        step, placed = shard_train_step(make_train_step(cfg_k, args), m, ts, zero=zero)
         del ts
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3058,6 +3106,10 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         rec = {"s": time.perf_counter() - t,
                "rows": args.train_batch_size // (DP_RANKS if m is mesh else 1),
                "heads": cfg.nhead // tp,
+               "frames_text_mel": [-(-n // axis_size(m, "sp")) for n in
+                                   (args.data_text_len, args.data_mel_len)],
+               "layers_per_pipelined_stack": cfg.num_layers // axis_size(m, "pp"),
+               "flash_counted": [fwd, bwd],
                "flash_launches_bf16": fa.launches_bf16, "flash_launches_f32": fa.launches_f32,
                "backward_calls": fa.backward_calls - bwd0,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -3076,9 +3128,20 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
                 rec["backward_calls"]) == (fwd, 0, bwd), (rec, fwd, bwd)
         assert all(r["ok"] and r["q"][2] == rec["heads"]
                    for r in rec["flash_vs_plain"]), rec["flash_vs_plain"]
-        assert {(True, True), (True, False), (False, False)} <= kinds, kinds
+        if key == "sp2":   # the rank's queries against the gathered keys
+            assert {r["q"][1] for r in rec["flash_vs_plain"]} <= {
+                -(-n // axis_size(m, "sp")) for n in (
+                    args.data_text_len, args.data_mel_len, cfg.max_text_len,
+                    cfg.max_mel_len)}, rec["flash_vs_plain"]
+            assert rank == 0 or any(r["causal"] and r["q_start"] > 0
+                                    for r in rec["flash_vs_plain"]), kinds
+        else:
+            assert {(True, True), (True, False), (False, False)} <= kinds, kinds
         if m is mesh:
             assert rec["opt_state_bytes"] < 0.6 * whole_bytes, rec
+        elif key in ("sp2", "pp2"):   # replicated over sp and pp, as in JAX
+            assert (rec["param_bytes"], rec["opt_state_bytes"]) == (
+                whole_params, whole_bytes), rec
         else:   # each tp-split leaf's half, every other leaf whole
             assert (rec["param_bytes"], rec["opt_state_bytes"]) == (
                 split_params, split_opt), rec
@@ -3142,26 +3205,33 @@ def _world(n: int) -> list:
 
 
 def dp_phase():
-    """Phase 20: data, tensor and expert parallelism on the one card. A
+    """Phase 20: data, tensor, expert, sequence and pipeline parallelism on
+    the one card. A
     world of two processes (`dp_worker`) under gloo, both ranks on the one
     H100 (NCCL refuses two ranks on one device): (a) at TINY in float32
     with every dropout at 0, one dp step per ZeRO level 0, 1 and 3, the
     dp = 2 dispatch-MoE step whose capacity overflows in groups straddling
     the ranks (zero 1), a tp = 2 step and an ep = 2 step (E 4), each
     against the single-process step on the whole batch on the card (phase
-    8's tolerances), and Synthesizer(mesh=) TTS mels and ASR ids against
-    the single-process Synthesizer; (b) at flagship width in bf16, one dp
-    joint step with zero=1 and one with zero=3 (each rank 2 of the
-    config's 4 rows) and one tp = 2 step (each rank the 4 rows and 2 of
-    the 4 heads): each rank's flash launches and backward calls
-    (flash_calls_per_step: the counts depend on neither the rows nor the
-    heads), its peak memory, the bytes of its params and optimizer state
-    against the whole state's (a tp rank's equal to the split rule's
-    count), the step's seconds. Every sharded step also holds the kernel
-    against flash_attention_plain on each q/k/v layout it gave the
-    kernel on that rank (recorded_flash_inputs: the fused views of the
-    rank's heads). Then a world of four ranks: a dp 2 x tp 2 zero-1 step
-    at TINY against the single-process step."""
+    8's tolerances), an sp = 2 and a pp = 2 step likewise, and
+    Synthesizer(mesh=) TTS mels and ASR ids against the single-process
+    Synthesizer; (b) at flagship width in bf16, one dp joint step with
+    zero=1 and one with zero=3 (each rank 2 of the config's 4 rows), one
+    tp = 2 step (each rank the 4 rows and 2 of the 4 heads), one sp = 2
+    step (each rank the 4 rows and 152 / 408 of the 304 / 816 frames) and
+    one pp = 2 step (each rank its stage's 2 of the 4 layers of every
+    pipelined stack, 4 micro-batches of 1 row): each rank's flash
+    launches and backward calls (flash_calls_per_step: the counts depend
+    on neither the rows, the heads nor the frames; a pp rank's on its
+    stage and the micro-batches), its peak memory, the bytes of its
+    params and optimizer state against the whole state's (a tp rank's
+    equal to the split rule's count, an sp or pp rank's whole), the
+    step's seconds. Every sharded step also holds the kernel against
+    flash_attention_plain on each q/k/v layout it gave the kernel on that
+    rank (recorded_flash_inputs: the fused views of the rank's heads, an
+    sp rank's queries at their q_start). Then a world of four ranks: a
+    dp 2 x tp 2 zero-1 and a dp 2 x pp 2 step at TINY against the
+    single-process step."""
     t_phase = time.perf_counter()
     ranks = _world(DP_RANKS)
     t_four = time.perf_counter()
@@ -3585,6 +3655,8 @@ def main() -> int:
         dp_flag = [r["flagship"][f"zero{z}"] for r in dp_run["per_rank"]
                    for z in DP_FLAGSHIP_ZEROS]
         tp_flag = [r["flagship"]["tp2"] for r in dp_run["per_rank"]]
+        sp_flag = [r["flagship"]["sp2"] for r in dp_run["per_rank"]]
+        pp_flag = [r["flagship"]["pp2"] for r in dp_run["per_rank"]]
         slice10_counts = {
             "launches_export": sum(c[key] for c in ex_calls.values()),
             "launches_export_counted_on":
@@ -3605,7 +3677,22 @@ def main() -> int:
             "launches_tp_flagship_counted_on":
                 "one tp = 2 joint step at flagship width, each rank the 4 rows "
                 "and 2 of the 4 heads, both ranks' counts, bf16 (phase 20; the "
-                "TINY float32 tp, ep and dp x tp checks are not counted)"}
+                "TINY float32 tp, ep and dp x tp checks are not counted)",
+            "launches_sp_flagship_per_rank": [r[f"flash_{key}"] for r in sp_flag],
+            "bwd_calls_sp_flagship_per_rank": [
+                r["backward_calls"] if dtype == "bfloat16" else 0 for r in sp_flag],
+            "launches_sp_flagship_counted_on":
+                "one sp = 2 joint step at flagship width, each rank the 4 rows "
+                "and its half of every sequence's frames (q_start at the "
+                "second rank's), bf16 (phase 20)",
+            "launches_pp_flagship_per_rank": [r[f"flash_{key}"] for r in pp_flag],
+            "bwd_calls_pp_flagship_per_rank": [
+                r["backward_calls"] if dtype == "bfloat16" else 0 for r in pp_flag],
+            "launches_pp_flagship_counted_on":
+                "one pp = 2 joint step at flagship width, each rank its stage's "
+                "2 of the 4 layers of every pipelined stack on 4 micro-batches "
+                "of 1 row, the guided-attention decoders whole, bf16 (phase 20; "
+                "the TINY float32 sp, pp and dp x pp checks are not counted)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",

@@ -15,7 +15,9 @@ float32 route each kernel apart, the pre-pass first), max abs error
 against the plain version, for bf16 whether every element is within one
 bf16 rounding of the output, SDPA's device ms and the bounds; and each
 library's ptxas report. Prints one JSON line per measurement and writes
-them all to chiprun_out/flash_ab.json. Needs a CUDA card and nvcc.
+them all to chiprun_out/flash_ab.json. Needs a CUDA card and nvcc. Both
+trees' C entry points must take the same arguments (`q_start` after
+`causal`, which the kernels took in PR 12).
 """
 
 import argparse
@@ -113,18 +115,20 @@ def main():
              or str(c.dtype) == f"torch.{args.dtype}"]
     for c in cases:
         q, k, v, kv_lens = case_inputs(c)
-        ref = flash_attention_plain(q, k, v, kv_lens, causal=c.causal).float()
-        bound_ms, bound_by, bound_cuda_core_ms = attention_bound(q, k, kv_lens, c.causal)
+        ref = flash_attention_plain(q, k, v, kv_lens, causal=c.causal,
+                                    q_start=c.q_start).float()
+        bound_ms, bound_by, bound_cuda_core_ms = attention_bound(q, k, kv_lens, c.causal,
+                                                                 c.q_start)
         head = {"case": c.name, "dtype": str(c.dtype), "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_cuda_core_ms": bound_cuda_core_ms,
-                "sdpa_device_ms": device_ms(sdpa_call(q, k, v, kv_lens, c.causal),
-                                            (), args.iters)[""]}
+                "sdpa_device_ms": device_ms(sdpa_call(q, k, v, kv_lens, c.causal,
+                                                      c.q_start), (), args.iters)[""]}
         print(json.dumps(head))
         rows.append(head)
         tree = "bf16" if c.dtype == torch.bfloat16 else "f32"
         for label in (f"base_{tree}", tree, tree, f"base_{tree}"):
             def run(launch=launchers[label]):
-                return launch(q, k, v, kv_lens, c.causal)
+                return launch(q, k, v, kv_lens, c.causal, c.q_start)
             out = run()
             torch.cuda.synchronize()
             err = (out.float() - ref).abs()

@@ -215,36 +215,34 @@ def test_parser_matches_jax():
 @pytest.mark.parametrize("flags,env,match", [
     (["--dp", "2"], {"WORLD_SIZE": "2"}, "--dp 2"),
     (["--tp", "2"], {"WORLD_SIZE": "2"}, "--tp 2"),
-    (["--sp", "2"], {}, "--sp 2"),
+    (["--sp", "2"], {"WORLD_SIZE": "2"}, "--sp 2"),
     (["--ep", "4", "--moe_experts", "4"], {"WORLD_SIZE": "4"}, "--ep 4"),
     (["--zero", "1"], {}, "--zero 1"),
     ([], {"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, "multihost"),
     ([], {"WORLD_SIZE": "2"}, "multihost"),
 ])
 def test_unported_runtime_options_raise(monkeypatch, flags, env, match):
-    """--sp above 1 raises NotImplementedError naming the next slice (item
-    7c). --dp, --tp, --ep, --zero and a multi-process launch are taken:
-    --dp 2 and --tp 2 under a 2-process launch (WORLD_SIZE 2), --ep 4
-    with 4 experts under a 4-process one, and --zero 1 pass; a launch
-    whose world is not dp x tp x ep, a tp that does not divide the heads,
-    an ep that does not divide the experts, and a JAX launcher's
-    coordinator raise ValueError (tests/test_torch_parallel.py runs the
+    """--dp, --tp, --sp, --ep, --zero and a multi-process launch are
+    taken: --dp 2, --tp 2 and --sp 2 under a 2-process launch (WORLD_SIZE
+    2), --ep 4 with 4 experts under a 4-process one, and --zero 1 pass; a
+    launch whose world is not dp x tp x ep x sp, a tp that does not divide
+    the heads, an ep that does not divide the experts, an sp over MoE
+    layers, and a JAX launcher's coordinator raise ValueError
+    (tests/test_torch_parallel.py and tests/test_torch_sp_pp.py run the
     2-rank steps)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     args = TC.parse_with_config(flags)
-    if match in ("--dp 2", "--tp 2", "--ep 4", "--zero 1"):
+    if match != "multihost":
         assert TC.apply_runtime_flags(args) is None
-        if match in ("--tp 2", "--ep 4"):   # the axis must divide the model
-            bad = TC.parse_with_config(flags + (["--nhead", "3"] if match == "--tp 2"
-                                                else ["--moe_experts", "6"]))
-            with pytest.raises(ValueError, match="must divide"):
+        if match in ("--tp 2", "--ep 4", "--sp 2"):   # the axis must fit the model
+            bad = TC.parse_with_config(flags + {
+                "--tp 2": ["--nhead", "3"], "--ep 4": ["--moe_experts", "6"],
+                "--sp 2": ["--moe_experts", "4"]}[match])
+            with pytest.raises(ValueError, match="must divide|not with moe"):
                 TC.apply_runtime_flags(bad)
-    elif match == "multihost":
-        with pytest.raises(ValueError, match=match):
-            TC.apply_runtime_flags(args)
     else:
-        with pytest.raises(NotImplementedError, match=f"{match}.*7c"):
+        with pytest.raises(ValueError, match=match):
             TC.apply_runtime_flags(args)
 
 

@@ -215,19 +215,34 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     ({"moe_experts": 4}, {}, "moe_experts"),
 ])
 def test_unported_train_options_raise(cfg_kw, args_kw, match):
-    """pp > 1 raises NotImplementedError naming the next slice (item 7c,
-    the model-parallel axes). The
-    conformer, remat, scan_layers and MoE options raised until the family
-    slice; now check_ported passes them and they make a train step
-    (tests/test_torch_remat.py runs one for each recipe)."""
+    """Every option is ported: pp > 1 (GPipe stages) raised until the
+    model-parallel slice's second half, the conformer, remat, scan_layers
+    and MoE options until the family slice; now check_ported passes them
+    and they make a train step (tests/test_torch_remat.py runs one for
+    each family recipe, tests/test_torch_sp_pp.py the pp steps). pp = 2
+    takes the pipeline: the encoder calls parallel/pipeline.py::
+    gpipe_stack, and pp = 3 over 2 layers raises ValueError."""
     cfg = TINY.replace(use_discriminator=True, **cfg_kw)
-    if match == "pp":
-        with pytest.raises(NotImplementedError, match="pp.*7c"):
-            make_train_step(cfg, train_args(**args_kw))
-        return
     from unast_tpu_torch.models import networks as N
     assert N.check_ported(cfg) is None
     assert callable(make_train_step(cfg, train_args(**args_kw)))
+    if match == "pp":
+        import torch
+        from unast_tpu_torch import nn
+        from unast_tpu_torch.models import transformer as T
+        from unast_tpu_torch.parallel import pipeline as PL
+        calls, real = [], PL.gpipe_stack
+        PL.gpipe_stack = lambda *a, **k: calls.append(a[2]) or real(*a, **k)
+        try:
+            p = T.encoder_init(torch.Generator().manual_seed(0), 16, 2, 32, 2)
+            x = torch.randn((4, 5, 16))
+            y = T.encoder(p, nn.Ctx.eval(), x, torch.zeros((4, 5), dtype=torch.bool),
+                          2, 0.0, pp=2)
+        finally:
+            PL.gpipe_stack = real
+        assert calls == [2] and y.shape == x.shape
+        with pytest.raises(ValueError, match="pp=3"):
+            N.check_ported(cfg.replace(pp=3))
 
 
 @pytest.mark.parametrize("objective,args_kw", [

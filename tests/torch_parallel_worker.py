@@ -1,6 +1,7 @@
-"""One rank of the 2-process gloo world of tests/test_torch_parallel.py.
+"""One rank of the 2-process gloo world of tests/test_torch_parallel.py,
+or, with the mode `sp_pp`, of tests/test_torch_sp_pp.py's.
 
-    python tests/torch_parallel_worker.py RANK PORT OUT_DIR
+    python tests/torch_parallel_worker.py RANK PORT OUT_DIR [sp_pp]
 
 Imports only torch and the port. Both ranks run every case of the port's
 data parallelism at TINY and write their records to OUT_DIR/rank<R>.pt:
@@ -11,13 +12,15 @@ placed again; the collectives and the speech decode's global stop test;
 HostShardedDataset's shards; Synthesizer(mesh=), also with
 nar_pv, melgan_params, ctc_pv and quantize='int8', and on rank 0 the
 single-process Synthesizer while rank 1 takes the single-process step on
-the whole batch. Exit code 0 when every case ran.
+the whole batch. The sp_pp mode runs sp_pp_cases instead. Exit code 0
+when every case ran.
 """
 
 import os
 import sys
 
 RANK, PORT, OUT = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+MODE = sys.argv[4] if len(sys.argv) > 4 else "dp"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -189,6 +192,130 @@ def record(key, ts, metrics):
                 "params": flat(ts.params), "state": flat(ts.net_state),
                 "gen_mu": moment(ts.gen_opt), "disc_mu": moment(ts.disc_opt)}
 
+
+def sp_pp_cases():
+    """The sequence- and pipeline-parallel cases at TINY, each a sharded
+    step from the same weights on both ranks against the single-process
+    step (case i's records written by rank i % 2, which takes its
+    reference once every sharded step has ran): sp = 2 with flash, and in
+    train mode on the xla route with the conformer on odd lengths (padded
+    frames: 11 tokens, 19 frames, cm decoding 15 and 23); pp = 2 with
+    flash and in train mode (ae, sp and d without guided attention, so
+    that every decoder pipelines), against the one-process schedule (cfg.pp 2)
+    and, for flash, the sequential stack too; the flash backward calls of
+    each rank. Then the halo convs and BatchNorm on an odd T against the
+    unsplit ops, pipeline_encoder on the golden's case, and the meshes'
+    coordinates."""
+    import contextlib
+
+    import torch_sp_pp_golden as SG
+    from unast_tpu_torch import nn as tnn
+    from unast_tpu_torch.models import conformer as CF
+    from unast_tpu_torch.ops import attention as A
+    from unast_tpu_torch.parallel import collectives as C
+    from unast_tpu_torch.parallel import pipeline as PL
+    from unast_tpu_torch.parallel.mesh import mesh_axis
+    meshes = {"sp": make_mesh(1, sp=2), "pp": make_mesh(1, pp=2)}
+    base = {k: tuple(torch.from_numpy(a).long() if a.dtype == np.int32
+                     else torch.from_numpy(a) for a in v)
+            for k, v in PG.batches_np().items()}
+    odd = {k: (t[..., :11], m[..., :19, :], tl.clamp(max=11), ml.clamp(max=19))
+           for k, (t, m, tl, ml) in base.items()}
+    cases = {   # name: (mesh, config overrides, every dropout at 0, args, batches)
+        "sp/flash": ("sp", {}, True, {}, base),
+        "sp/train_mode": ("sp", dict(attn_impl="xla", speech_encoder="conformer"),
+                          False, dict(cm_infer_mel_len=23, cm_infer_text_len=15), odd),
+        "pp/flash": ("pp", dict(pp=2), True, {}, base),
+        "pp/train_mode": ("pp", dict(attn_impl="xla", pp=2), False,
+                          dict(cm_steps=0, ga_weight=0.0),
+                          {k: v for k, v in base.items() if k != "cm"}),
+    }
+    refs = []
+    for i, (name, (m, over, zero_drop, aover, b)) in enumerate(cases.items()):
+        c = (TINY.replace(**PG.model_overrides(), **over) if zero_drop
+             else TINY.replace(use_discriminator=True, **over))
+        args = train_args(PG.CONFIG, **{**PG.ARGS, **aover})
+        p0, s0 = unast_init(torch.Generator().manual_seed(0), c)
+        start = TS.train_state(p0, s0, c, args)
+        fixed = TS.zero_fixed_dropouts if zero_drop else contextlib.nullcontext
+        with fixed():
+            step, placed = shard_train_step(TS.make_train_step(c, args),
+                                            meshes[m], start)
+            bwd = A.flash_attention.backward_calls
+            new, metrics = step(placed, TS.seeded_generator(0, 0, "cpu"),
+                                batch_shardings(meshes[m], b))
+            bwd = A.flash_attention.backward_calls - bwd
+        out[f"{name}/bwd"] = (bwd, TS.flash_calls_per_step(
+            c, args, rows=PG.B, staged=m == "pp")[1] if c.attn_impl == "flash" else 0)
+        if RANK == i % 2:
+            record(f"{name}/mesh", new, metrics)
+            out[f"{name}/init"] = flat(start.params)
+            refs.append((name, c, args, start, fixed, b))
+    for name, c, args, start, fixed, b in refs:
+        with fixed():
+            single, sm = TS.make_train_step(c, args)(
+                start, TS.seeded_generator(0, 0, "cpu"), b)
+            record(f"{name}/single", single, sm)
+            if name == "pp/flash":   # the sequential stack
+                c1 = c.replace(pp=1)
+                seq, qm = TS.make_train_step(c1, args)(
+                    TS.train_state(*unast_init(torch.Generator().manual_seed(0), c1),
+                                   c1, args), TS.seeded_generator(0, 0, "cpu"), b)
+                record(f"{name}/sequential", seq, qm)
+
+    # the halo convs, BatchNorm and the depthwise conv on T = 7 (4 frames a
+    # rank, one padding) against the unsplit ops; the loss 1/sp a rank,
+    # the gradients summed over sp
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((3, 7, 4), generator=g, requires_grad=True)
+    conv = {"w": torch.randn((5, 4, 4), generator=g, requires_grad=True),
+            "b": torch.randn((4,), generator=g, requires_grad=True)}
+    dw = {"w": torch.randn((3, 1, 4), generator=g, requires_grad=True),
+          "b": torch.randn((4,), generator=g, requires_grad=True)}
+    bn_p = {"scale": torch.rand((4,), generator=g) + 0.5, "bias": torch.randn((4,), generator=g)}
+    bn_p = {k: v.requires_grad_(True) for k, v in bn_p.items()}
+    bn_s = {"mean": torch.zeros(4), "var": torch.ones(4)}
+    w_out = torch.randn((4, 3, 7, 4), generator=g)
+    leaves = [x, *conv.values(), *dw.values(), *bn_p.values()]
+
+    def ops(x):
+        a = tnn.conv1d(conv, x, (2, 2))
+        b = tnn.conv1d(conv, x, (4, 0))
+        c, st = tnn.batchnorm(bn_p, bn_s, x, True)
+        d = CF._depthwise_conv(dw, x, 3)
+        return [C.gather_time(y) for y in (a, b, c, d)], st
+
+    sp_ax = mesh_axis(meshes["sp"], "sp")
+    with C.mesh_axes(sp=sp_ax, dp_sp=sp_ax.group), C.sequence(7):
+        split, st = ops(C.split_time(x))
+    loss = sum((y * w).sum() for y, w in zip(split, w_out)) / 2
+    grads = [C.all_reduce(gr, sp_ax.group) for gr in torch.autograd.grad(loss, leaves)]
+    whole, st1 = ops(x)
+    loss1 = sum((y * w).sum() for y, w in zip(whole, w_out))
+    grads1 = torch.autograd.grad(loss1, leaves)
+    out["halo"] = {"out": [float((a - b).detach().abs().max())
+                           for a, b in zip(split, whole)],
+                   "grad": [float((a - b).abs().max()) for a, b in zip(grads, grads1)],
+                   "state": [float((st[k] - st1[k]).abs().max()) for k in st1],
+                   "scale": float(max(y.detach().abs().max() for y in whole))}
+
+    # pipeline_encoder on the golden's case: output and input gradient
+    p, xe, pad = SG.encoder_case()
+    xe = torch.from_numpy(xe).requires_grad_(True)
+    y = PL.pipeline_encoder(PL.stack_for_pipeline(p, SG.ENC["pp"]), tnn.Ctx.eval(),
+                            xe, torch.from_numpy(pad), SG.ENC["nhead"], 0.0,
+                            meshes["pp"], SG.ENC["n_micro"])
+    (gx,) = torch.autograd.grad(y.sum(), xe)
+    out["pipeline_encoder"] = {"out": y.detach(), "grad": gx}
+    out["coords"] = {k: meshes[k].get_coordinate() for k in meshes}
+
+
+if MODE == "sp_pp":
+    sp_pp_cases()
+    torch.save(out, os.path.join(OUT, f"rank{RANK}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    sys.exit(0)
 
 cfg = TINY.replace(**PG.model_overrides())
 args = train_args(PG.CONFIG, **PG.ARGS)

@@ -9,7 +9,8 @@
 //   o = softmax(q k^T / sqrt(D) + mask) v
 // over q [B, Tq, H, D], k and v [B, Tk, H, D] and writes o [B, Tq, H, D].
 // Key j of batch row b is kept when j < kv_lens[b] and, if causal, when
-// j <= i (query i). Masked scores are -1e9 (set on the unscaled product
+// j <= i + q_start (query i; q_start is the keys' position of query 0, a
+// sequence-parallel rank's first frame, else 0). Masked scores are -1e9 (set on the unscaled product
 // as -1e9 * sqrt(D)). The softmax state (m, l) and the accumulator are
 // float32; o = acc / max(l, 1e-30). No log-sum-exp is written.
 //
@@ -229,6 +230,7 @@ struct Params {
   long long q_sb, q_st, q_sh;  // element strides of q's b, t, h dims
   long long o_sb, o_st, o_sh;
   int H, Tq, Tk, causal;
+  int q_start;       // keys' position of query 0 (causal mask)
   float scale_log2;  // log2(e) / sqrt(D)
   float mask_raw;    // -1e9 * sqrt(D): a masked score before the scale
 };
@@ -253,7 +255,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_k,
   int kv_len = p.Tk;
   if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.Tk);
   int n_keys = kv_len;
-  if (p.causal) n_keys = min(n_keys, min(p.Tq, q0 + P::kBlockM));
+  if (p.causal) n_keys = min(n_keys, p.q_start + min(p.Tq, q0 + P::kBlockM));
   const int n_tiles = (n_keys + P::kBlockN - 1) / P::kBlockN;
 
   const int warp = threadIdx.x / 32;
@@ -370,12 +372,13 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_k,
     // Mask only where the tile needs it.
     const int k0 = i * P::kBlockN;
     if (k0 + P::kBlockN > kv_len ||
-        (p.causal && k0 + P::kBlockN - 1 > q0 + 64 * wg)) {
+        (p.causal && k0 + P::kBlockN - 1 > p.q_start + q0 + 64 * wg)) {
 #pragma unroll
       for (int e = 0; e < kS; ++e) {
         const int col = k0 + 8 * (e / 4) + col0 + (e % 2);
         const int row = row0 + 8 * ((e / 2) % 2);
-        const bool keep = col < kv_len && (!p.causal || col <= row);
+        const bool keep =
+            col < kv_len && (!p.causal || col <= row + p.q_start);
         s_acc[e] = keep ? s_acc[e] : p.mask_raw;
       }
     }
@@ -501,7 +504,7 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            const int32_t* kv_lens, float* ws, int B, int H, int Tq, int Tk,
            Strides qs, Strides ks, Strides vs, Strides os, int causal,
-           float sm_scale, cudaStream_t stream) {
+           int q_start, float sm_scale, cudaStream_t stream) {
   using P = Plan<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
@@ -538,6 +541,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
   p.Tq = Tq;
   p.Tk = Tk;
   p.causal = causal;
+  p.q_start = q_start;
   p.scale_log2 = sm_scale * kLog2e;
   p.mask_raw = kMaskValue / sm_scale;
   dim3 grid((Tq + P::kBlockM - 1) / P::kBlockM, BH);
@@ -566,7 +570,7 @@ extern "C" int flash_attn_fwd_f32(
     int B, int H, int Tq, int Tk, int D, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, long long o_sb,
-    long long o_st, long long o_sh, int causal, float sm_scale,
+    long long o_st, long long o_sh, int causal, int q_start, float sm_scale,
     void* stream, void* workspace) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -582,16 +586,16 @@ extern "C" int flash_attn_fwd_f32(
   switch (D) {
     case 16:
       return launch<16>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                        os, causal, sm_scale, s);
+                        os, causal, q_start, sm_scale, s);
     case 32:
       return launch<32>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                        os, causal, sm_scale, s);
+                        os, causal, q_start, sm_scale, s);
     case 64:
       return launch<64>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                        os, causal, sm_scale, s);
+                        os, causal, q_start, sm_scale, s);
     case 128:
       return launch<128>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                         os, causal, sm_scale, s);
+                         os, causal, q_start, sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,7 +9,8 @@
 //   o = softmax(q k^T / sqrt(D) + mask) v
 // over q [B, Tq, H, D], k and v [B, Tk, H, D] and writes o [B, Tq, H, D].
 // Key j of batch row b is kept when j < kv_lens[b] and, if causal, when
-// j <= i (query i). Masked scores are -1e9 (set on the unscaled product
+// j <= i + q_start (query i; q_start is the keys' position of query 0, a
+// sequence-parallel rank's first frame, else 0). Masked scores are -1e9 (set on the unscaled product
 // as -1e9 * sqrt(D)). The softmax state (m, l) and the accumulator are
 // float32; o = acc / max(l, 1e-30), cast to bfloat16. P keeps float32
 // precision in P.V, as in the TPU kernel (which casts V to float32 and
@@ -108,6 +109,7 @@ struct Params {
   const int32_t* kv_lens;
   long long o_sb, o_st, o_sh;  // element strides of o's b, t, h dims
   int H, Tq, Tk, causal;
+  int q_start;       // keys' position of query 0 (causal mask)
   float scale_log2;  // log2(e) / sqrt(D)
   float mask_raw;    // -1e9 * sqrt(D): a masked score before the scale
 };
@@ -144,7 +146,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   int kv_len = p.Tk;
   if (p.kv_lens != nullptr) kv_len = min(max(p.kv_lens[b], 0), p.Tk);
   int n_keys = kv_len;
-  if (p.causal) n_keys = min(n_keys, min(p.Tq, q0 + kBlockM));
+  if (p.causal) n_keys = min(n_keys, p.q_start + min(p.Tq, q0 + kBlockM));
   const int n_tiles = (n_keys + kBlockN - 1) / kBlockN;
 
   const int warp = threadIdx.x / 32;
@@ -229,12 +231,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // Mask only where the tile needs it.
     const int kb = i * kBlockN;
     if (kb + kBlockN > kv_len ||
-        (p.causal && kb + kBlockN - 1 > q0 + 64 * wg)) {
+        (p.causal && kb + kBlockN - 1 > p.q_start + q0 + 64 * wg)) {
 #pragma unroll
       for (int e = 0; e < kS; ++e) {
         const int col = kb + 8 * (e / 4) + col0 + (e % 2);
         const int row = row0 + 8 * ((e / 2) % 2);
-        const bool keep = col < kv_len && (!p.causal || col <= row);
+        const bool keep =
+            col < kv_len && (!p.causal || col <= row + p.q_start);
         s_acc[e] = keep ? s_acc[e] : p.mask_raw;
       }
     }
@@ -344,8 +347,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const void* kv_lens, int B, int H, int Tq, int Tk, Strides qs,
-           Strides ks, Strides vs, Strides os, int causal, float sm_scale,
-           cudaStream_t stream) {
+           Strides ks, Strides vs, Strides os, int causal, int q_start,
+           float sm_scale, cudaStream_t stream) {
   using P = Plan<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
@@ -372,6 +375,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   p.Tq = Tq;
   p.Tk = Tk;
   p.causal = causal;
+  p.q_start = q_start;
   p.scale_log2 = sm_scale * kLog2e;
   p.mask_raw = kMaskValue / sm_scale;
   dim3 grid((Tq + kBlockM - 1) / kBlockM, B * H);
@@ -392,7 +396,7 @@ extern "C" int flash_attn_fwd_wgmma(
     int B, int H, int Tq, int Tk, int D, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, long long o_sb,
-    long long o_st, long long o_sh, int causal, float sm_scale,
+    long long o_st, long long o_sh, int causal, int q_start, float sm_scale,
     void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -402,16 +406,16 @@ extern "C" int flash_attn_fwd_wgmma(
   switch (D) {
     case 16:
       return launch<16>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                        causal, sm_scale, s);
+                        causal, q_start, sm_scale, s);
     case 32:
       return launch<32>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                        causal, sm_scale, s);
+                        causal, q_start, sm_scale, s);
     case 64:
       return launch<64>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                        causal, sm_scale, s);
+                        causal, q_start, sm_scale, s);
     case 128:
       return launch<128>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                         causal, sm_scale, s);
+                         causal, q_start, sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,6 +26,11 @@ those d/tp channels with their replicated per-channel leaves sliced at use
 (their gradients all-reduced into the whole), and the new running
 statistics are gathered whole. BatchNorm's statistics are per channel, so
 the tp split needs no reduction of them (the dp one stays).
+Inside a time-split region (parallel/collectives.py's sequence) x holds a
+sequence-parallel rank's frames: attention gathers K and V, the
+depthwise conv takes halos of k // 2 and k - 1 - k // 2 frames after the
+pad mask, BatchNorm the whole sequences' statistics and each dropout the
+whole sequence's mask.
 """
 
 import torch
@@ -45,8 +50,9 @@ def _ffn_init(gen: torch.Generator, d: int, ffn_dim: int):
 def _half_ffn(p, ctx: nn.Ctx, x, dropout_p: float):
     """unast_tpu/models/conformer.py::_half_ffn: x + 1/2 FFN(LN(x))."""
     h = F.silu(nn.linear(p["up"], C.copy_to(nn.layernorm(p["ln"], x))))
-    h = nn.dropout(ctx, h, dropout_p, split=C.split_of(h, -1))
-    return x + 0.5 * nn.dropout(ctx, T.row_linear(p["down"], h), dropout_p)
+    h = nn.dropout(ctx, h, dropout_p,
+                   split=C.split_of(h, -1) + C.time_split(h))
+    return x + 0.5 * T._drop(ctx, T.row_linear(p["down"], h), dropout_p)
 
 
 def _depthwise_init(gen: torch.Generator, d: int, kernel: int):
@@ -59,9 +65,10 @@ def _depthwise_init(gen: torch.Generator, d: int, kernel: int):
 def _depthwise_conv(p, x, kernel: int):
     """unast_tpu/models/conformer.py::_depthwise_conv: a per-channel conv
     over time of x [B, T, C], F.conv1d(groups=C) with lax's asymmetric
-    'same' pads (k // 2 left, k - 1 - k // 2 right)."""
+    'same' pads (k // 2 left, k - 1 - k // 2 right); inside a time-split
+    region the pads are the neighbouring ranks' frames (collectives.halo)."""
     c = x.shape[-1]
-    xt = F.pad(x.transpose(1, 2), (kernel // 2, kernel - 1 - kernel // 2))
+    xt = C.halo(x, kernel // 2, kernel - 1 - kernel // 2).transpose(1, 2)
     w = nn.weight(p, x.dtype).permute(2, 1, 0)             # [C, 1, k]
     return F.conv1d(xt, w, groups=c).transpose(1, 2) + p["b"].to(x.dtype)
 
@@ -89,13 +96,15 @@ def conformer_layer(p, s, ctx: nn.Ctx, x, pad_mask, bias, nhead: int,
                     dropout_p: float, kernel: int, impl: str = "xla",
                     kv_lens=None):
     """unast_tpu/models/conformer.py::conformer_layer. x: [B, T, D],
-    pad_mask bool [B, T] True = PAD. Returns (y, new_state)."""
+    pad_mask bool [B, T] True = PAD (this rank's frames of it inside a
+    time-split region, the padding frames PAD; bias and kv_lens are the
+    whole sequence's). Returns (y, new_state)."""
     x = _half_ffn(p["ff1"], ctx, x, dropout_p)
 
     h = nn.layernorm(p["attn_ln"], x)
     a = T.mha(p["attn"], ctx, h, h, bias, nhead, dropout_p,
               impl=impl, kv_lens=kv_lens)
-    x = x + nn.dropout(ctx, a, dropout_p)
+    x = x + T._drop(ctx, a, dropout_p)
 
     h = nn.layernorm(p["conv_ln"], x)
     h = h * (~pad_mask)[..., None].to(h.dtype)   # no pad leak into the conv
@@ -109,7 +118,7 @@ def conformer_layer(p, s, ctx: nn.Ctx, x, pad_mask, bias, nhead: int,
     if C.axis_size("tp") > 1:
         bn_s = {k: C.gather(v, -1) for k, v in bn_s.items()}
     h = T.row_linear(p["conv_pw2"], F.silu(h))
-    x = x + nn.dropout(ctx, h, dropout_p)
+    x = x + T._drop(ctx, h, dropout_p)
 
     x = _half_ffn(p["ff2"], ctx, x, dropout_p)
     return nn.layernorm(p["out_ln"], x), {"bn": bn_s}
@@ -138,8 +147,10 @@ def conformer_encoder(p, s, ctx: nn.Ctx, x, pad_mask, nhead: int,
     kv_lens = ((~pad_mask).sum(dim=1, dtype=torch.int32)
                if impl == "flash" else None)
 
+    local_pad = ~C.split_time(~pad_mask)
+
     def layer(lp, ls, c, x):
-        return conformer_layer(lp, ls, c, x, pad_mask, bias, nhead, dropout_p,
+        return conformer_layer(lp, ls, c, x, local_pad, bias, nhead, dropout_p,
                                kernel, impl=impl, kv_lens=kv_lens)
 
     if scan_layers or remat:

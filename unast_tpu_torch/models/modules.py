@@ -2,7 +2,11 @@
 text prenets (with the RNN text decoder's incremental causal prenet) and
 postnets, the highway network and the CBHG of the vocoder. Mirrors
 `unast_tpu/models/modules.py`; all activations are [B, T, C]
-channels-last.
+channels-last. Inside a time-split region (parallel/collectives.py's
+sequence) they hold a sequence-parallel rank's frames: the convs take
+halos (nn.conv1d), BatchNorm the whole sequences' statistics and each
+dropout the whole sequence's mask (collectives.time_split); the caller
+gives positional_encoding the rank's first frame as its offset.
 """
 
 import functools
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import nn
+from ..parallel import collectives as C
 from .config import ModelConfig, VOCAB_SIZE, PAD_IDX
 
 
@@ -59,7 +64,8 @@ def _pe_table(d_model: int, device: torch.device) -> torch.Tensor:
 def positional_encoding(ctx: nn.Ctx, x, dropout_p: float = 0.1, offset: int = 0,
                         scale: bool = True):
     """unast_tpu/models/modules.py::positional_encoding. x: [B, T, D];
-    `offset` is the position of x[:, 0] (incremental decode)."""
+    `offset` is the position of x[:, 0] (incremental decode, or a
+    sequence-parallel rank's first frame)."""
     d = x.shape[-1]
     t = x.shape[1]
     if torch.compiler.is_compiling():
@@ -72,7 +78,7 @@ def positional_encoding(ctx: nn.Ctx, x, dropout_p: float = 0.1, offset: int = 0,
     if scale:
         x = x * math.sqrt(d)
     x = x + pos[None, :, :].to(x.dtype)
-    return nn.dropout(ctx, x, dropout_p)
+    return nn.dropout(ctx, x, dropout_p, split=C.time_split(x))
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +99,8 @@ def speech_prenet(p, ctx: nn.Ctx, x, cfg: ModelConfig):
     duplicate-dropout quirk: fc1 -> relu -> dropout -> fc2 -> relu (no
     trailing dropout). Casts to cfg.dtype, the speech activation entry."""
     x = x.to(cfg.dtype)
-    x = nn.dropout(ctx, torch.relu(nn.linear(p["fc1"], x)), cfg.s_pre_drop)
+    h = torch.relu(nn.linear(p["fc1"], x))
+    x = nn.dropout(ctx, h, cfg.s_pre_drop, split=C.time_split(h))
     return torch.relu(nn.linear(p["fc2"], x))
 
 
@@ -128,12 +135,13 @@ def speech_postnet(p, s, ctx: nn.Ctx, x, cfg: ModelConfig):
     new_bn = {}
     h = nn.conv1d(p["conv1"], x, padding=(4, 0))
     h, new_bn["bn0"] = nn.batchnorm(p["bn"]["bn0"], s["bn"]["bn0"], h, ctx.train)
-    h = nn.dropout(ctx, torch.tanh(h), cfg.s_post_drop)
+    h = nn.dropout(ctx, torch.tanh(h), cfg.s_post_drop, split=C.time_split(h))
     for i, cp in enumerate(p["convs"]):
         h2 = nn.conv1d(cp, h, padding=(4, 0))
         h2, new_bn[f"bn{i+1}"] = nn.batchnorm(
             p["bn"][f"bn{i+1}"], s["bn"][f"bn{i+1}"], h2, ctx.train)
-        h = nn.dropout(ctx, torch.tanh(h2), cfg.s_post_drop)
+        h = nn.dropout(ctx, torch.tanh(h2), cfg.s_post_drop,
+                       split=C.time_split(h2))
     h = nn.conv1d(p["conv2"], h, padding=(4, 0))
     return h, {"bn": new_bn}
 
@@ -216,7 +224,8 @@ def text_prenet_convs(p, s, ctx: nn.Ctx, x, cfg: ModelConfig, causal=False):
         x = nn.conv1d(p[f"conv{i}"], x, padding=pad)
         x, new_bn[f"bn{i}"] = nn.batchnorm(
             p["bn"][f"bn{i}"], s["bn"][f"bn{i}"], x, ctx.train)
-        x = nn.dropout(ctx, torch.relu(x), cfg.t_pre_drop)
+        x = nn.dropout(ctx, torch.relu(x), cfg.t_pre_drop,
+                       split=C.time_split(x))
     return x, {"bn": new_bn}
 
 
@@ -232,7 +241,8 @@ def text_postnet_init(gen: torch.Generator, cfg: ModelConfig):
 
 def text_postnet(p, ctx: nn.Ctx, x, cfg: ModelConfig):
     """unast_tpu/models/modules.py::text_postnet."""
-    return nn.linear(p["fc"], nn.dropout(ctx, x, cfg.t_post_drop))
+    return nn.linear(p["fc"], nn.dropout(ctx, x, cfg.t_post_drop,
+                                         split=C.time_split(x)))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,21 @@ generator, as JAX folds the step index into its key (_fold_ctx). With
 speech_encoder='conformer' the speech side encodes through
 models/conformer.py, its BN state under state["encoder"]. Every stack
 takes the config's moe_experts / moe_opts, scan_layers, remat and
-remat_policy as JAX passes them.
+remat_policy as JAX passes them, and the transformer stacks pp and
+pp_micro (GPipe stages, parallel/pipeline.py; the KV-cached decodes never
+pipeline, as in JAX).
+
+Under a sequence-parallel axis (parallel/collectives.py's 'sp') each
+transformer encode and teacher-forced decode takes the whole sequence,
+runs its embedding, the denoising noise and the decoder's right shift on
+it, and splits the time axis at the prenets (collectives.sequence /
+split_time, the last rank's frames padded); the prenets, the stack and
+the postnets run on the rank's frames, and the outputs (the memory, the
+logits, the mels and stop logits, the cross-attention weights) are
+gathered whole again (collectives.gather_time, whose backward keeps the
+rank's share). So everything outside these functions (the greedy
+decodes, the losses, the discriminator) sees whole sequences, the same
+on every sp rank.
 
 The RNN text decoder reads its gold inputs through the text prenet's
 CAUSAL convs (once over the sequence), and its greedy decode evaluates the
@@ -41,18 +55,34 @@ from . import transformer as T
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise on a configuration the port does not run yet: pipeline stages
-    (pp > 1) come with the second half of model parallelism."""
-    if cfg.pp > 1:
-        raise NotImplementedError(
-            "pp > 1: not in the port yet; pipeline stages come with the "
-            "second half of model parallelism (ROADMAP.md queue 1 item 7c)")
+    """Raise ValueError on pipeline stages that do not divide the layers
+    (JAX asserts num_layers % pp == 0); every option of the JAX package is
+    ported."""
+    if cfg.pp < 1 or cfg.num_layers % cfg.pp:
+        raise ValueError(f"pp={cfg.pp} must divide num_layers={cfg.num_layers}")
 
 
 def _stack_kw(cfg: ModelConfig):
-    """The stacking and MoE options every transformer stack takes."""
+    """The stacking, pipeline and MoE options every transformer stack
+    takes."""
     return dict(scan_layers=cfg.scan_layers, remat=cfg.remat,
-                remat_policy=cfg.remat_policy, moe_opts=cfg.moe_opts)
+                remat_policy=cfg.remat_policy, moe_opts=cfg.moe_opts,
+                pp=cfg.pp, pp_micro=cfg.pp_micro)
+
+
+def _start() -> int:
+    """The first frame of this rank in the active time-split region (0
+    outside one): the positional encoding's offset."""
+    seq = C.seq()
+    return 0 if seq is None else seq.start
+
+
+def _gathered(ws_local, ws_out):
+    """Append to ws_out each of a decoder's local cross-attention weights
+    [B, H, Tq_local, Tk] (ws_local) gathered over the queries' time axis;
+    nothing when they were not asked for (None)."""
+    if ws_out is not None:
+        ws_out.extend(C.gather_time(w, dim=2) for w in ws_local)
 
 
 # ===========================================================================
@@ -84,10 +114,13 @@ def text_tr_encode(p, s, ctx, cfg: ModelConfig, ids, lens, noise_in=False):
     x = M.text_embed(p["prenet"], ctx, ids, cfg)
     if noise_in:
         x = M.noise_fn(ctx, x, cfg.noise_mask_p)
-    x, prenet_s = M.text_prenet_convs(p["prenet"], s["prenet"], ctx, x, cfg)
-    x = M.positional_encoding(ctx, x)
-    memory = T.encoder(p["encoder"], ctx, x, pad_mask, cfg.nhead, cfg.e_drop,
-                       impl=cfg.attn_impl, **_stack_kw(cfg))
+    with C.sequence(ids.shape[1]):
+        x = C.split_time(x)
+        x, prenet_s = M.text_prenet_convs(p["prenet"], s["prenet"], ctx, x, cfg)
+        x = M.positional_encoding(ctx, x, offset=_start())
+        memory = T.encoder(p["encoder"], ctx, x, pad_mask, cfg.nhead, cfg.e_drop,
+                           impl=cfg.attn_impl, **_stack_kw(cfg))
+        memory = C.gather_time(memory)
     return (memory, pad_mask), {"prenet": prenet_s}
 
 
@@ -102,11 +135,15 @@ def text_tr_decode_sequence(p, ctx, cfg: ModelConfig, tgt, tgt_lens,
     tgt_in = torch.cat([sos, tgt[:, :-1]], dim=1)
     tgt_pad_mask = ~M.lens_to_mask(tgt_lens, tgt.shape[1])
     x = M.text_embed(p["prenet"], ctx, tgt_in, cfg)
-    x = M.positional_encoding(ctx, x)
-    h = T.decoder(p["decoder"], ctx, x, memory, tgt_pad_mask, mem_pad_mask,
-                  cfg.nhead, cfg.d_drop, impl=cfg.attn_impl,
-                  cross_weights_out=cross_weights_out, **_stack_kw(cfg))
-    return M.text_postnet(p["postnet"], ctx, h, cfg)
+    ws = None if cross_weights_out is None else []
+    with C.sequence(tgt.shape[1]):
+        x = M.positional_encoding(ctx, C.split_time(x), offset=_start())
+        h = T.decoder(p["decoder"], ctx, x, memory, tgt_pad_mask, mem_pad_mask,
+                      cfg.nhead, cfg.d_drop, impl=cfg.attn_impl,
+                      cross_weights_out=ws, **_stack_kw(cfg))
+        logits = C.gather_time(M.text_postnet(p["postnet"], ctx, h, cfg))
+        _gathered(ws, cross_weights_out)
+    return logits
 
 
 def text_tr_infer(p, ctx, cfg: ModelConfig, memory, mem_pad_mask,
@@ -320,16 +357,30 @@ def speech_tr_encode(p, s, ctx, cfg: ModelConfig, mel, lens, noise_in=False,
     check_ported(cfg)
     pad_mask = ~M.lens_to_mask(lens, mel.shape[1])
     x = M.noise_fn(ctx, mel, cfg.noise_mask_p) if noise_in else mel
+    if extra_bias is not None and C.axis_size("sp") > 1:
+        raise ValueError("a chunk-masked or relative-position encoding "
+                         "(extra_bias) does not run under sequence parallelism")
+    with C.sequence(mel.shape[1]):
+        (memory, pad_mask), s = _speech_tr_stack(
+            p, s, ctx, cfg, C.split_time(x), pad_mask, extra_bias, add_pe)
+        memory = C.gather_time(memory)
+    return (memory, pad_mask), s
+
+
+def _speech_tr_stack(p, s, ctx, cfg: ModelConfig, x, pad_mask, extra_bias,
+                     add_pe):
+    """speech_tr_encode from the prenet on: the frames x (this rank's, in a
+    time-split region) against the whole pad mask."""
     x = M.speech_prenet(p["prenet"], ctx, x, cfg)
     if add_pe:
-        x = M.positional_encoding(ctx, x)
+        x = M.positional_encoding(ctx, x, offset=_start())
     if cfg.speech_encoder == "conformer":
         if extra_bias is not None:
             raise ValueError(
                 "chunk-masked (streaming) encoding requires the transformer "
                 "speech encoder: the conformer's depthwise conv is non-causal")
-        from . import conformer as C
-        memory, enc_s = C.conformer_encoder(
+        from . import conformer as CF
+        memory, enc_s = CF.conformer_encoder(
             p["encoder"], s["encoder"], ctx, x, pad_mask, cfg.nhead,
             cfg.e_drop, cfg.conformer_kernel, impl=cfg.attn_impl,
             scan_layers=cfg.scan_layers, remat=cfg.remat,
@@ -357,16 +408,23 @@ def speech_tr_decode_sequence(p, s, ctx, cfg: ModelConfig, tgt, tgt_lens,
     tgt_in = torch.cat([go, tgt[:, r - 1:t - 1:r]], dim=1)
     group_lens = -(-tgt_lens // r) if r > 1 else tgt_lens
     tgt_pad_mask = ~M.lens_to_mask(group_lens, t // r)
-    x = M.speech_prenet(p["prenet"], ctx, tgt_in, cfg)
-    x = M.positional_encoding(ctx, x)
-    h = T.decoder(p["decoder"], ctx, x, memory, tgt_pad_mask, mem_pad_mask,
-                  cfg.nhead, cfg.d_drop, impl=cfg.attn_impl,
-                  cross_weights_out=cross_weights_out, **_stack_kw(cfg))
-    pre, stop = M.speech_mel_and_stop(p["postnet"], h)
-    pre = pre.reshape(b, t, cfg.num_mels)
-    resid, postnet_s = M.speech_postnet(p["postnet"], s["postnet"], ctx, pre, cfg)
-    return ((pre, pre + resid, stop.reshape(b, t), tgt_lens),
-            dict(s, postnet=postnet_s))
+    ws = None if cross_weights_out is None else []
+    with C.sequence(t // r) as groups:
+        x = M.speech_prenet(p["prenet"], ctx, C.split_time(tgt_in), cfg)
+        x = M.positional_encoding(ctx, x, offset=_start())
+        h = T.decoder(p["decoder"], ctx, x, memory, tgt_pad_mask, mem_pad_mask,
+                      cfg.nhead, cfg.d_drop, impl=cfg.attn_impl,
+                      cross_weights_out=ws, **_stack_kw(cfg))
+        _gathered(ws, cross_weights_out)
+        pre, stop = M.speech_mel_and_stop(p["postnet"], h)
+    n = h.shape[1] * r   # this rank's frames: its groups' r frames each
+    with C.sequence(t, local=None if groups is None else n):
+        pre = pre.reshape(b, n, cfg.num_mels)
+        resid, postnet_s = M.speech_postnet(p["postnet"], s["postnet"], ctx,
+                                            pre, cfg)
+        pre, post, stop = (C.gather_time(y) for y in
+                           (pre, pre + resid, stop.reshape(b, n)))
+    return ((pre, post, stop, tgt_lens), dict(s, postnet=postnet_s))
 
 
 def speech_tr_infer(p, s, ctx, cfg: ModelConfig, memory, mem_pad_mask,

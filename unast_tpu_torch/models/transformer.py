@@ -12,8 +12,16 @@ fold_in(base, li) of _layer_ctx). `remat` wraps each layer in
 torch.utils.checkpoint (non-reentrant) with those per-layer generators, so
 the recompute draws the same dropout masks; `remat_policy` picks what a
 layer saves (_ckpt). MoE aux losses of a scanned or checkpointed layer are
-its output and reach the outer ctx once (_take_aux). Pipeline stages come
-with a later slice.
+its output and reach the outer ctx once (_take_aux).
+
+`pp > 1` runs a stack as GPipe stages (parallel/pipeline.py::gpipe_stack,
+as JAX's encoder and decoder call it): over the mesh's pp axis when the
+step has one, else the same schedule in one process; MoE stacks and a
+decoder that returns its cross-attention weights take the plain stack,
+as in JAX. Inside a time-split region (parallel/collectives.py's
+sequence) x holds a sequence-parallel rank's frames against whole-
+sequence pad masks and memory: self-attention gathers K and V over the
+sp ranks and a causal one offsets its queries by the rank's first frame.
 """
 
 import functools
@@ -74,8 +82,9 @@ def attention_core(q, k, v, bias, ctx: nn.Ctx, dropout_p: float,
     dtype and the product accumulates in float32 before the cast back. If
     `weights_out` is a list, the float32 pre-dropout probabilities
     [B, H, Tq, Tk] are appended (the guided-attention loss reads them).
-    head_split: under tensor parallelism, nn.dropout's split record of the
-    local heads (dim 1 of the probabilities)."""
+    head_split: nn.dropout's split record of the probabilities: under
+    tensor parallelism the local heads (dim 1), inside a time-split region
+    the rank's queries (dim 2)."""
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(dh))
@@ -119,7 +128,13 @@ def mha(p, ctx: nn.Ctx, q_in, kv_in, bias, nhead: int, dropout_p: float,
     this rank's column slices and `out` its row slice: the rank attends
     with its nhead / tp heads (a per-head bias takes their slice), and the
     out-projection's partial sums are all-reduced; `weights_out` then gets
-    the local heads' probabilities."""
+    the local heads' probabilities.
+
+    Inside a time-split region q_in holds this rank's frames: a
+    self-attention gathers its K and V over the sp ranks (the whole
+    sequence's keys; kv_lens and the bias are the whole sequence's), and a
+    causal one offsets its queries by the rank's first frame (q_start);
+    cross-attention reads the whole memory."""
     self_attn = q_in is kv_in
     q_in = C.copy_to(q_in)
     kv_in = q_in if self_attn else C.copy_to(kv_in)
@@ -128,16 +143,21 @@ def mha(p, ctx: nn.Ctx, q_in, kv_in, bias, nhead: int, dropout_p: float,
     else:
         q = nn.linear(p["q"], q_in)
         k, v = _fused_proj([p["k"], p["v"]], kv_in)
+    seq = C.seq()
+    if self_attn and seq is not None:
+        k, v = C.gather_time(torch.cat([k, v], dim=-1)).chunk(2, dim=-1)
+    q_start = seq.start if seq is not None and causal else 0
     heads = local_heads(nhead)
     q, k, v = (_split_heads(x, heads) for x in (q, k, v))
     if impl == "flash" and weights_out is None:
-        o = flash_attention(q, k, v, kv_lens, causal=causal)
+        o = flash_attention(q, k, v, kv_lens, causal=causal, q_start=q_start)
     else:
         if bias is not None and bias.shape[1] > 1:
             bias = C.take(bias, 1)
         o = attention_core(q, k, v, bias, ctx, dropout_p,
                            weights_out=weights_out,
-                           head_split=C.split_of(q, 2, at=1))
+                           head_split=C.split_of(q, 2, at=1)
+                           + C.time_split(q, dim=2))
     b, t, h, dh = o.shape
     return row_linear(p["out"], o.reshape(b, t, h * dh))
 
@@ -154,9 +174,13 @@ def padding_bias(pad_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(pad_mask, zero + NEG_INF, zero)[:, None, None, :]
 
 
-def causal_bias(t: int, device=None) -> torch.Tensor:
-    """unast_tpu/models/transformer.py::causal_bias: additive [1, 1, T, T]."""
-    m = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
+def causal_bias(t: int, device=None, q_start: int = 0, tq=None) -> torch.Tensor:
+    """unast_tpu/models/transformer.py::causal_bias: additive [1, 1, T, T];
+    with q_start / tq, the rows of queries [q_start, q_start + tq) (a
+    sequence-parallel rank's) against the T keys: [1, 1, tq, T]."""
+    tq = t if tq is None else tq
+    m = (torch.arange(t, device=device)[None, :]
+         <= torch.arange(q_start, q_start + tq, device=device)[:, None])
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(m, zero, zero + NEG_INF)[None, None]
 
@@ -220,7 +244,8 @@ def _ffn(p, ctx: nn.Ctx, x, dropout_p: float, pad_mask=None,
         return MoE.moe_ffn(p["moe"], ctx, x, pad_mask, dropout_p,
                            opts=moe_opts)
     h = torch.relu(nn.linear(p["lin1"], C.copy_to(x)))
-    h = nn.dropout(ctx, h, dropout_p, split=C.split_of(h, -1))
+    h = nn.dropout(ctx, h, dropout_p,
+                   split=C.split_of(h, -1) + C.time_split(h))
     return row_linear(p["lin2"], h)
 
 
@@ -318,15 +343,21 @@ def encoder_layer(p, ctx: nn.Ctx, x, bias, nhead: int, dropout_p: float,
     """unast_tpu/models/transformer.py::encoder_layer (post-LN)."""
     a = mha(p["attn"], ctx, x, x, bias, nhead, dropout_p,
             impl=impl, kv_lens=kv_lens)
-    x = nn.layernorm(p["ln1"], x + nn.dropout(ctx, a, dropout_p))
+    x = nn.layernorm(p["ln1"], x + _drop(ctx, a, dropout_p))
     f = _ffn(p, ctx, x, dropout_p, pad_mask=pad_mask, moe_opts=moe_opts)
-    return nn.layernorm(p["ln2"], x + nn.dropout(ctx, f, dropout_p))
+    return nn.layernorm(p["ln2"], x + _drop(ctx, f, dropout_p))
+
+
+def _drop(ctx: nn.Ctx, x, dropout_p: float):
+    """A layer's residual-branch dropout of x [B, T, D] (the whole
+    sequence's mask inside a time-split region)."""
+    return nn.dropout(ctx, x, dropout_p, split=C.time_split(x))
 
 
 def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
             impl: str = "xla", scan_layers: bool = False,
             remat: bool = False, moe_opts=(1, 1.25), remat_policy: str = "",
-            extra_bias=None):
+            extra_bias=None, pp: int = 1, pp_micro: int = 0):
     """unast_tpu/models/transformer.py::encoder. x: [B, T, D], pad_mask:
     bool [B, T] True = PAD. impl='flash' passes the per-row valid lengths
     (kv_lens) to the kernel instead of the bias. extra_bias: an additive
@@ -334,7 +365,9 @@ def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
     (chunk_bias, the CTC encoder's relative bias); it needs impl='xla'
     (ValueError otherwise: the kernel takes only kv_lens and causal, as
     JAX asserts). scan_layers / remat / remat_policy: see the module
-    docstring; moe_opts: models/moe.py::MoeOpts for MoE layers."""
+    docstring; moe_opts: models/moe.py::MoeOpts for MoE layers. pp > 1:
+    GPipe stages of pp_micro micro-batches (0: pipeline.default_micro),
+    an MoE stack excepted (module docstring)."""
     if extra_bias is not None and impl == "flash":
         raise ValueError("extra_bias requires the xla attention path")
     bias = padding_bias(pad_mask) if impl != "flash" else None
@@ -342,6 +375,16 @@ def encoder(p, ctx: nn.Ctx, x, pad_mask, nhead: int, dropout_p: float,
         bias = bias + extra_bias
     kv_lens = ((~pad_mask).sum(dim=1, dtype=torch.int32)
                if impl == "flash" else None)
+    if pp > 1 and not _has_moe(p):
+        from ..parallel.pipeline import gpipe_stack
+
+        def one(lp, lctx, x_mb, bias_mb, kvl_mb, pad_mb):
+            return encoder_layer(lp, lctx, x_mb, bias_mb, nhead, dropout_p,
+                                 impl=impl, kv_lens=kvl_mb, pad_mask=pad_mb,
+                                 moe_opts=moe_opts)
+
+        return gpipe_stack(p["layers"], len(p["layers"]), pp, ctx, x,
+                           (bias, kv_lens, pad_mask), one, n_micro=pp_micro)
     layer = functools.partial(encoder_layer, bias=bias, nhead=nhead,
                               dropout_p=dropout_p, impl=impl, kv_lens=kv_lens,
                               pad_mask=pad_mask, moe_opts=moe_opts)
@@ -389,18 +432,19 @@ def decoder_layer(p, ctx: nn.Ctx, x, memory, self_bias, cross_bias,
     self-attention, cross-attention over memory, FFN."""
     a = mha(p["self"], ctx, x, x, self_bias, nhead, dropout_p,
             impl=impl, kv_lens=tgt_lens, causal=True)
-    x = nn.layernorm(p["ln1"], x + nn.dropout(ctx, a, dropout_p))
+    x = nn.layernorm(p["ln1"], x + _drop(ctx, a, dropout_p))
     a = mha(p["cross"], ctx, x, memory, cross_bias, nhead, dropout_p,
             impl=impl, kv_lens=mem_lens, weights_out=cross_weights_out)
-    x = nn.layernorm(p["ln2"], x + nn.dropout(ctx, a, dropout_p))
+    x = nn.layernorm(p["ln2"], x + _drop(ctx, a, dropout_p))
     f = _ffn(p, ctx, x, dropout_p, pad_mask=pad_mask, moe_opts=moe_opts)
-    return nn.layernorm(p["ln3"], x + nn.dropout(ctx, f, dropout_p))
+    return nn.layernorm(p["ln3"], x + _drop(ctx, f, dropout_p))
 
 
 def decoder(p, ctx: nn.Ctx, x, memory, tgt_pad_mask, mem_pad_mask,
             nhead: int, dropout_p: float, impl: str = "xla",
             scan_layers: bool = False, cross_weights_out=None,
-            remat: bool = False, moe_opts=(1, 1.25), remat_policy: str = ""):
+            remat: bool = False, moe_opts=(1, 1.25), remat_policy: str = "",
+            pp: int = 1, pp_micro: int = 0):
     """unast_tpu/models/transformer.py::decoder: teacher-forced parallel
     decode. x: [B, Tt, D], memory: [B, Ts, D], pad masks bool True = PAD.
     impl='flash' passes the target and memory valid lengths to the kernel
@@ -409,15 +453,34 @@ def decoder(p, ctx: nn.Ctx, x, memory, tgt_pad_mask, mem_pad_mask,
     appended (that attention then runs through attention_core), and the
     stack is not rematerialised, as in JAX (the guided-attention loss
     needs the probabilities saved). scan_layers / remat / remat_policy /
-    moe_opts: as in encoder."""
-    t = x.shape[1]
-    self_bias = causal_bias(t, x.device) + padding_bias(tgt_pad_mask)
+    moe_opts / pp / pp_micro: as in encoder; the pipelined stack falls
+    back to the plain one when cross_weights_out is asked for, as JAX's.
+    Inside a time-split region x holds the rank's frames and
+    tgt_pad_mask is the whole sequence's."""
+    seq = C.seq()
+    t = tgt_pad_mask.shape[1]
+    self_bias = (causal_bias(t, x.device, seq.start, x.shape[1])
+                 if seq is not None else causal_bias(t, x.device)
+                 ) + padding_bias(tgt_pad_mask)
     cross_bias = padding_bias(mem_pad_mask)
     tgt_lens = mem_lens = None
     if impl == "flash":
         tgt_lens = (~tgt_pad_mask).sum(dim=1, dtype=torch.int32)
         mem_lens = (~mem_pad_mask).sum(dim=1, dtype=torch.int32)
     remat = remat and cross_weights_out is None
+    if pp > 1 and cross_weights_out is None and not _has_moe(p):
+        from ..parallel.pipeline import gpipe_stack
+        sb = self_bias.expand((x.shape[0],) + self_bias.shape[1:])
+
+        def one(lp, lctx, x_mb, mem_mb, sb_mb, cb_mb, tl_mb, ml_mb, pad_mb):
+            return decoder_layer(lp, lctx, x_mb, mem_mb, sb_mb, cb_mb, nhead,
+                                 dropout_p, impl=impl, tgt_lens=tl_mb,
+                                 mem_lens=ml_mb, pad_mask=pad_mb,
+                                 moe_opts=moe_opts)
+
+        return gpipe_stack(p["layers"], len(p["layers"]), pp, ctx, x,
+                           (memory, sb, cross_bias, tgt_lens, mem_lens,
+                            tgt_pad_mask), one, n_micro=pp_micro)
     layer = functools.partial(decoder_layer, memory=memory,
                               self_bias=self_bias, cross_bias=cross_bias,
                               nhead=nhead, dropout_p=dropout_p, impl=impl,

@@ -176,9 +176,16 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 def conv1d(p, x: torch.Tensor, padding) -> torch.Tensor:
     """unast_tpu/nn/core.py::conv1d. x: [B, T, Cin] -> [B, T', Cout];
-    padding: int (symmetric) or (left, right); `w` is [k, Cin, Cout]."""
+    padding: int (symmetric) or (left, right); `w` is [k, Cin, Cout].
+    Inside a time-split region (parallel/collectives.py's sequence) x holds
+    this rank's frames: the padding comes from the neighbouring ranks'
+    frames (collectives.halo, which zeroes the frames past the sequence),
+    so the result is this rank's frames of the conv of the whole."""
     if isinstance(padding, int):
         padding = (padding, padding)
+    if C.seq() is not None:
+        x = C.halo(x, *padding)
+        padding = (0, 0)
     xt = F.pad(x.transpose(1, 2), tuple(padding))           # [B, Cin, T+l+r]
     w = weight(p, x.dtype).permute(2, 1, 0)                  # [Cout, Cin, k]
     y = F.conv1d(xt, w).transpose(1, 2)
@@ -206,12 +213,21 @@ def batchnorm(p, s, x: torch.Tensor, train: bool):
     statistics (biased variance, gradients flow through them) and move the
     running state toward them (unbiased variance), detached as JAX's state
     output is. Under data parallelism (parallel/collectives.py) the
-    statistics are the global batch's. Returns (y, new_state)."""
+    statistics are the global batch's; inside a time-split region x [B,
+    local, C] holds this rank's frames and the statistics are those of the
+    global batch's whole sequences, the frames past the sequence left out.
+    Returns (y, new_state)."""
     dims = tuple(range(x.ndim - 1))
     if train:
         xf = x.float()
         n = x.numel() // x.shape[-1]
-        if C.active():   # the global batch's statistics, as GSPMD's under dp
+        seq = C.seq()
+        if seq is not None:   # this rank's frames of dp x sp's sequences
+            n = x.shape[0] * (C.ranks() // C.axis_size("sp")) * seq.whole
+            w = C.valid_frames(x.device)[:, None].float()
+            mean = C.sum_grad((xf * w).sum(dim=dims)) / n
+            var = C.sum_grad((((xf - mean) ** 2) * w).sum(dim=dims)) / n
+        elif C.active():   # the global batch's statistics, as GSPMD's under dp
             n *= C.ranks()
             mean = C.sum_grad(xf.sum(dim=dims)) / n
             var = C.sum_grad(((xf - mean) ** 2).sum(dim=dims)) / n
@@ -250,7 +266,8 @@ def dropout(ctx: Ctx, x: torch.Tensor, p: float, split=()) -> torch.Tensor:
     ((dim, whole size, start), ...) per split dim: the mask of the whole
     tensor is drawn and x takes its slice, so every rank of the axis
     advances the generator alike and the ranks' masks are those of the
-    unsplit tensor."""
+    unsplit tensor. A slice reaching past the whole (the padding frames of
+    the last sequence-parallel rank) keeps those elements."""
     if not ctx.train or p == 0.0:
         return x
     keep = 1.0 - p
@@ -259,7 +276,12 @@ def dropout(ctx: Ctx, x: torch.Tensor, p: float, split=()) -> torch.Tensor:
         shape[d] = n
     mask = torch.rand(shape, generator=ctx.next_rng(),
                       device=x.device) < keep
-    for d, _, s in split:
+    for d, n, s in split:
+        over = s + x.shape[d] - n
+        if over > 0:
+            pad = list(mask.shape)
+            pad[d] = over
+            mask = torch.cat([mask, mask.new_ones(pad)], dim=d)
         mask = mask.narrow(d, s, x.shape[d])
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 

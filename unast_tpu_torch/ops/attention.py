@@ -38,9 +38,10 @@ _LIBRARY = {torch.float32: "flash_attn_fwd_f32",
 _TMA_REFUSED = -1   # the TMA unit refused a layout
 
 
-def _keep(q, k, kv_lens, causal: bool):
+def _keep(q, k, kv_lens, causal: bool, q_start: int = 0):
     """bool [B|1, 1, Tq|1, Tk]: key j is visible to query i of row b when
-    j < kv_lens[b] and, if causal, j <= i."""
+    j < kv_lens[b] and, if causal, j <= i + q_start (query i sits at
+    position q_start + i of the keys' sequence)."""
     b, tq = q.shape[:2]
     tk = k.shape[1]
     kpos = torch.arange(tk, device=q.device)
@@ -48,28 +49,33 @@ def _keep(q, k, kv_lens, causal: bool):
     if kv_lens is not None:
         keep = kpos[None, None, None, :] < kv_lens.to(q.device)[:, None, None, None]
     if causal:
-        qpos = torch.arange(tq, device=q.device)
+        qpos = torch.arange(tq, device=q.device) + q_start
         keep = keep & (kpos[None, :] <= qpos[:, None])[None, None]
     return keep
 
 
-def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False):
+def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False,
+                          q_start: int = 0):
     """Plain PyTorch version of the kernel, the same function
     (unast_tpu/ops/attention.py::_flash_fwd): float32 scores of the
     pre-scaled q against k, -1e9 where key j >= kv_lens[b] or (causal)
-    j > i, float32 softmax and float32 P.V, cast to q's dtype.
+    j > i + q_start, float32 softmax and float32 P.V, cast to q's dtype.
 
-    q: [B, Tq, H, D]; k, v: [B, Tk, H, D]; kv_lens: [B] or None."""
+    q: [B, Tq, H, D]; k, v: [B, Tk, H, D]; kv_lens: [B] or None; q_start:
+    the keys' position of query 0 (a sequence-parallel rank's first
+    frame; 0 when q and k are one sequence)."""
     d = q.shape[-1]
     qf = q.float() * (1.0 / math.sqrt(d))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
-    s = torch.where(_keep(q, k, kv_lens, causal), s, torch.full_like(s, NEG_INF))
+    s = torch.where(_keep(q, k, kv_lens, causal, q_start), s,
+                    torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do):
+def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do,
+                              q_start: int = 0):
     """(dq, dk, dv) of flash attention, step for step the JAX package's
     recompute backward (unast_tpu/ops/attention.py::_flash_vjp_bwd with
     _ref_scores), on the [B, T, H, D] layout: float32 scores of q against k
@@ -77,11 +83,13 @@ def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do):
     dV = P^T dO, dP = dO V^T, delta = rowsum(dO * o) from the forward output
     o, dS = P (dP - delta) scale, dQ = dS K, dK = dS^T Q, each cast to its
     input's dtype. Every operand is read in float32. Materialises float32
-    [B, H, Tq, Tk] scores, probabilities and their gradients."""
+    [B, H, Tq, Tk] scores, probabilities and their gradients. q_start: as
+    in flash_attention_plain."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    s = torch.where(_keep(q, k, kv_lens, causal), s, torch.full_like(s, NEG_INF))
+    s = torch.where(_keep(q, k, kv_lens, causal, q_start), s,
+                    torch.full_like(s, NEG_INF))
     p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -93,7 +101,7 @@ def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do):
 
 
 def bind(lib_path, name: str):
-    """launch(q, k, v, kv_lens, causal) -> o through the C entry point
+    """launch(q, k, v, kv_lens, causal, q_start=0) -> o through the C entry point
     `name` of the kernel library at `lib_path`, on the current stream.
     Where the library exports `<name>_workspace` (floats of scratch for
     B, H, Tk, D), launch allocates that much and passes it after the
@@ -106,13 +114,13 @@ def bind(lib_path, name: str):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
                    + [ctypes.c_void_p] * (workspace is not None))
     if workspace is not None:
         workspace.restype = ctypes.c_longlong
         workspace.argtypes = [ctypes.c_int] * 4
 
-    def launch(q, k, v, kv_lens, causal):
+    def launch(q, k, v, kv_lens, causal, q_start=0):
         b, tq, h, d = q.shape
         tk = k.shape[1]
         o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
@@ -120,7 +128,7 @@ def bind(lib_path, name: str):
                 None if kv_lens is None else kv_lens.data_ptr(),
                 b, h, tq, tk, d,
                 *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-                int(causal), 1.0 / math.sqrt(d),
+                int(causal), int(q_start), 1.0 / math.sqrt(d),
                 torch.cuda.current_stream(q.device).cuda_stream]
         if workspace is not None:
             ws = torch.empty(workspace(b, h, tk, d), dtype=torch.float32,
@@ -156,7 +164,7 @@ def _strides(x):
     return sb, st, sh
 
 
-def _check(q, k, v, kv_lens):
+def _check(q, k, v, kv_lens, q_start: int = 0):
     if q.dtype not in _LIBRARY:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -177,6 +185,8 @@ def _check(q, k, v, kv_lens):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
+    if q_start < 0:
+        raise ValueError(f"q_start must be >= 0, got {q_start}")
     if kv_lens is not None and kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be [{b}], got {tuple(kv_lens.shape)}")
     if q.dtype == torch.bfloat16:  # the wgmma kernel reads through TMA
@@ -191,19 +201,19 @@ def _check(q, k, v, kv_lens):
                         "needs a positive multiple of 16 below 2**40")
 
 
-def _forward(q, k, v, kv_lens, causal: bool):
+def _forward(q, k, v, kv_lens, causal: bool, q_start: int = 0):
     """The forward on q's device: the kernel for q's dtype on a CUDA tensor
     (counted in flash_attention's launch counts) or a raise, and the plain
     version on a CPU tensor, the only case in which it is taken."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_lens, causal)
+        return flash_attention_plain(q, k, v, kv_lens, causal, q_start)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k, v, kv_lens)
+    _check(q, k, v, kv_lens, q_start)
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    o = _kernel(_LIBRARY[q.dtype])(q, k, v, lens, causal)
+    o = _kernel(_LIBRARY[q.dtype])(q, k, v, lens, causal, q_start)
     flash_attention.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention.launches_bf16 += 1
@@ -212,15 +222,15 @@ def _forward(q, k, v, kv_lens, causal: bool):
     return o
 
 
-def _fake(q, k, v, kv_lens, causal):
+def _fake(q, k, v, kv_lens, causal, q_start=0):
     # the kernels write o as a contiguous [B, Tq, H, D] tensor of q's dtype
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def _setup_backward(ctx, inputs, output):
-    q, k, v, kv_lens, causal = inputs
+    q, k, v, kv_lens, causal, q_start = inputs
     ctx.save_for_backward(q, k, v, kv_lens, output)
-    ctx.causal = causal
+    ctx.causal, ctx.q_start = causal, q_start
 
 
 def _backward(ctx, do):
@@ -230,8 +240,9 @@ def _backward(ctx, do):
     q, k, v, kv_lens, o = ctx.saved_tensors
     flash_attention.backward_calls += 1
     with record_function("unast/flash_attention_bwd"):
-        dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal, o, do)
-    return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal,
+                                               o, do, ctx.q_start)
+    return dq, dk, dv, None, None, None
 
 
 # The forward as the registered operator unast::flash_attention_fwd (the
@@ -245,7 +256,7 @@ def _backward(ctx, do):
 # torch._dynamo, seconds in every process.)
 _LIB = torch.library.Library("unast", "DEF")
 _LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, "
-            "bool causal) -> Tensor")
+            "bool causal, int q_start=0) -> Tensor")
 _LIB.impl("flash_attention_fwd", lambda *a: _forward(*a), "CompositeExplicitAutograd")
 torch.library.register_fake("unast::flash_attention_fwd", _fake, lib=_LIB)
 torch.library.register_autograd("unast::flash_attention_fwd", _backward,
@@ -253,13 +264,17 @@ torch.library.register_autograd("unast::flash_attention_fwd", _backward,
 flash_attention_fwd = torch.ops.unast.flash_attention_fwd.default
 
 
-def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
+def flash_attention(q, k, v, kv_lens=None, causal: bool = False,
+                    q_start: int = 0):
     """Flash attention with its gradient
     (unast_tpu/ops/attention.py::flash_attention).
 
     q: [B, Tq, H, D]; k, v: [B, Tk, H, D] (float32 or bfloat16, last dim
     contiguous, D in 16/32/64/128); kv_lens: [B] valid key counts (None =
-    all Tk valid). Returns [B, Tq, H, D] in q's dtype.
+    all Tk valid); q_start: the keys' position of query 0 under the causal
+    mask (key j visible to query i when j <= i + q_start): a sequence-
+    parallel rank's queries [q_start, q_start + Tq) against the gathered
+    keys. Returns [B, Tq, H, D] in q's dtype.
 
     On a CUDA tensor the forward launches the kernel for q's dtype (for
     float32, a pre-pass and the kernel), adding one to
@@ -270,6 +285,8 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False):
     gradient, the backward is `flash_attention_bwd_plain` on either device,
     adding one to `flash_attention.backward_calls`. Precondition: every
     kv_len >= 1; a row with no visible key has no defined output."""
+    if q_start:
+        return flash_attention_fwd(q, k, v, kv_lens, causal, int(q_start))
     return flash_attention_fwd(q, k, v, kv_lens, causal)
 
 

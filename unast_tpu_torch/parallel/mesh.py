@@ -1,5 +1,6 @@
 """The device mesh, the sharding rules and the sharded train steps of the
-port, mirroring `unast_tpu/parallel/mesh.py` for the dp, tp and ep axes.
+port, mirroring `unast_tpu/parallel/mesh.py` for the dp, tp, ep, sp and pp
+axes.
 
 JAX shards one program over a mesh and lets GSPMD insert the collectives.
 Torch runs one process per device, so each mesh axis is a process group
@@ -38,17 +39,35 @@ and the steps keep GSPMD's semantics by hand (parallel/collectives.py):
     are gathered for the update and sliced back. The BatchNorm state
     stays replicated.
 
-The tp and ep ranks of one dp group hold the same rows and the same
-dropout stream (the loop seeds it from the dp coordinate), so every
+  - sp: the time axis. Each sp rank of a dp coordinate takes the dp
+    rows whole (batch_shardings: the denoising noise, SpecAugment and the
+    decoders' right shift act on whole sequences) and the model splits
+    them at its prenets: the encoders and teacher-forced decoders run on
+    the rank's T/sp frames, attention gathers K and V, the convs exchange
+    halos and BatchNorm takes its statistics over dp x sp; their outputs
+    are gathered whole (models/networks.py, parallel/collectives.py), so
+    the greedy decodes, the losses and the discriminator run on whole
+    sequences, the same on every sp rank, and each rank differentiates
+    1/sp of them (train/steps.py). The gradients are summed over dp x sp.
+    Params and optimizer state stay replicated over sp, as in JAX.
+  - pp: GPipe stages of the transformer stacks (parallel/pipeline.py):
+    each pp rank runs L/pp layers of every pipelined stack; everything
+    else runs replicated on every pp rank, and the pipeline's backward
+    leaves every gradient whole on each, so they are summed over dp alone.
+    Params and optimizer state stay replicated over pp, as JAX's
+    train_state_shardings keeps them at rest. A pp axis combines with dp
+    only (ValueError otherwise: check_mesh).
+
+The tp, ep, sp and pp ranks of one dp group hold the same rows and the
+same dropout stream (the loop seeds it from the dp coordinate), so every
 replicated activation is the same on each of them; a split activation's
 dropout draws the whole mask and keeps the rank's slice (nn.dropout).
-
-sp and pp (the sharded time axis, GPipe) come with the next slice
-(ROADMAP.md queue 1 item 7c): make_mesh raises NotImplementedError for
-them.
+The family steps (shard_family_step) shard over dp and tp only, as JAX's
+(tests/test_sharded_families.py).
 """
 
 import dataclasses
+import math
 import re
 from typing import Any, Optional
 
@@ -60,33 +79,56 @@ from ..train.optim import (ParamsEma, apply_updates, global_norm, tree_leaves,
                            tree_unflatten)
 from . import collectives as C
 
-NEXT_SLICE = "ROADMAP.md queue 1 item 7c"
-
 
 def make_mesh(dp: int, tp: int = 1, sp: int = 1, ep: int = 1, pp: int = 1):
-    """unast_tpu/parallel/mesh.py::make_mesh for the dp, tp and ep axes: a
-    torch.distributed DeviceMesh over the initialized process group
-    (multihost.maybe_initialize_distributed), whose world size must be
-    dp * tp * ep, laid out row-major over ('dp', 'tp'[, 'ep']) as JAX's
-    (the 'ep' dim only when ep > 1): rank r's coordinates are JAX's device
-    r's. Its device type is the backend's: 'cuda' under NCCL, 'cpu' under
-    gloo (also when gloo carries CUDA tensors, as ranks sharing one card
-    do). sp or pp above 1 raise NotImplementedError."""
-    later = [f"{k}={v}" for k, v in (("sp", sp), ("pp", pp)) if v > 1]
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: the port's mesh has the dp, tp and ep axes; "
-            f"sp and pp come with the next slice ({NEXT_SLICE})")
+    """unast_tpu/parallel/mesh.py::make_mesh: a torch.distributed DeviceMesh
+    over the initialized process group (multihost.
+    maybe_initialize_distributed), whose world size must be dp * tp * ep *
+    sp * pp, laid out row-major over ('dp', 'tp'[, 'ep'][, 'sp'][, 'pp'])
+    as JAX's (each of the last three only when above 1): rank r's
+    coordinates are JAX's device r's. Its device type is the backend's:
+    'cuda' under NCCL, 'cpu' under gloo (also when gloo carries CUDA
+    tensors, as ranks sharing one card do)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialized "
                            "(parallel/multihost.py::maybe_initialize_distributed)")
-    if dist.get_world_size() != dp * tp * ep:
-        raise ValueError(f"dp={dp} x tp={tp} x ep={ep} but the process group "
-                         f"has {dist.get_world_size()} ranks")
-    dims = [("dp", dp), ("tp", tp)] + ([("ep", ep)] if ep > 1 else [])
+    if dist.get_world_size() != dp * tp * ep * sp * pp:
+        raise ValueError(f"dp={dp} x tp={tp} x ep={ep} x sp={sp} x pp={pp} but "
+                         f"the process group has {dist.get_world_size()} ranks")
+    dims = mesh_dims(dp, tp, sp, ep, pp)
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(kind, tuple(n for _, n in dims),
                             mesh_dim_names=tuple(k for k, _ in dims))
+
+
+def mesh_dims(dp: int, tp: int = 1, sp: int = 1, ep: int = 1, pp: int = 1):
+    """make_mesh's axes as [(name, size)], in JAX's order: 'dp', 'tp', then
+    'ep', 'sp' and 'pp' where above 1. Rank r sits at index r of the
+    row-major layout of these sizes."""
+    return [("dp", dp), ("tp", tp)] + [(k, n) for k, n in (
+        ("ep", ep), ("sp", sp), ("pp", pp)) if n > 1]
+
+
+def joint_group(mesh, names):
+    """The process group over the mesh's axes `names` (those it has) for
+    this rank's coordinates on the others, or None when they hold one
+    rank: every rank makes every such group, in one order (a
+    collective)."""
+    names = [n for n in names if axis_size(mesh, n) > 1]
+    if not names:
+        return None
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    order = [mesh.mesh_dim_names.index(n) for n in names]
+    rest = [i for i in range(len(mesh.mesh_dim_names)) if i not in order]
+    rows = mesh.mesh.permute(rest + order).reshape(
+        -1, math.prod(axis_size(mesh, n) for n in names))
+    mine = None
+    for row in rows.tolist():
+        g = dist.new_group(row)
+        if dist.get_rank() in row:
+            mine = g
+    return mine
 
 
 def axis_size(mesh, name: str) -> int:
@@ -269,9 +311,12 @@ def batch_shardings(mesh, batches, dim: int = 1) -> Any:
     """unast_tpu/parallel/mesh.py::batch_shardings as this rank's slice of
     stacked micro-batches [n, B, ...]: rows [r*B/dp, (r+1)*B/dp) of the B
     axis of every leaf of 2 or more dims, r the rank's dp coordinate (its
-    tp and ep peers take the same rows); other leaves are kept whole.
-    dim=0 slices a family step's flat batch [B, ...] (every leaf of 1 or
-    more dims)."""
+    tp, ep, sp and pp peers take the same rows); other leaves are kept
+    whole. JAX also splits the time axis over 'sp' here; an sp rank takes
+    its rows' whole sequences instead and the model splits them after the
+    whole-sequence noise, SpecAugment and right shift (models/
+    networks.py). dim=0 slices a family step's flat batch [B, ...] (every
+    leaf of 1 or more dims)."""
     r, n = dp_rank(mesh), dp_size(mesh)
 
     def take(_, x):
@@ -326,14 +371,19 @@ class MeshPlan:
         self.group = dp_group(mesh) if self.size > 1 else None
         self.rank = dp_rank(mesh) if self.size > 1 else 0
         self.tp, self.ep = mesh_axis(mesh, "tp"), mesh_axis(mesh, "ep")
+        self.sp, self.pp = mesh_axis(mesh, "sp"), mesh_axis(mesh, "pp")
+        # the gradients' group: dp x sp (an sp rank's share is its frames)
+        self.grad_group = (joint_group(mesh, ("dp", "sp")) if self.sp
+                           else self.group)
         self.dims = train_state_shardings(mesh, ts, zero)
         self.splits = model_shardings(mesh, ts)
 
     def axes(self):
         """The collectives context of a step on this mesh (a with-block):
-        the dp group of the global-batch reductions (none at dp 1) and the
-        tp and ep axes."""
-        return C.mesh_axes(dp=self.group, tp=self.tp, ep=self.ep)
+        the dp group of the global-batch reductions (none at dp 1), dp x sp
+        in a time-split region, and the tp, ep, sp and pp axes."""
+        return C.mesh_axes(dp=self.group, tp=self.tp, ep=self.ep, sp=self.sp,
+                           pp=self.pp, dp_sp=self.grad_group)
 
     @property
     def model_split(self) -> bool:
@@ -406,23 +456,29 @@ class MeshPlan:
                 tree = _map(lambda _, x, s: whole.get(id(x), x), tree, splits)
         return tree
 
-    def all_reduce(self, tensors: list) -> list:
-        """The sums over the dp ranks of a list of tensors, one all_reduce
-        per dtype over their flattened concatenation; the tensors
-        themselves at dp 1."""
-        if self.group is None:
+    def all_reduce(self, tensors: list, group=None) -> list:
+        """The sums over the dp ranks (or `group`'s) of a list of tensors,
+        one all_reduce per dtype over their flattened concatenation; the
+        tensors themselves at dp 1."""
+        group = self.group if group is None else group
+        if group is None:
             return list(tensors)
         out = list(tensors)
         for dtype in dict.fromkeys(t.dtype for t in tensors):
             idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
             flat = C.all_reduce(torch.cat([tensors[i].reshape(-1) for i in idx]),
-                                self.group)
+                                group)
             off = 0
             for i in idx:
                 n = tensors[i].numel()
                 out[i] = flat[off:off + n].reshape(tensors[i].shape)
                 off += n
         return out
+
+    def reduce_grads(self, grads: list) -> list:
+        """A step's gradients summed over the dp x sp ranks (dp alone
+        without sp; a pp rank's are whole already)."""
+        return self.all_reduce(grads, self.grad_group)
 
     # -- the step's hooks -------------------------------------------------
 
@@ -531,15 +587,32 @@ def state_bytes(tree) -> int:
                if torch.is_tensor(x))
 
 
-def check_mesh(cfg, tp: int = 1, ep: int = 1):
-    """Refuse a model the tp and ep axes cannot split (ValueError): tp
-    must divide nhead and ffn_dim, ep the experts (moe_experts)."""
+def check_mesh(cfg, tp: int = 1, ep: int = 1, sp: int = 1, pp: int = 1):
+    """Refuse a model or a mesh the axes cannot split (ValueError): tp must
+    divide nhead and ffn_dim, ep the experts (moe_experts); sp splits the
+    transformer backbone's time axis, without MoE layers (whose capacity
+    is counted over a group's tokens) and without remat; a pp axis must
+    equal cfg.pp, divide num_layers and combine with dp alone."""
     if tp > 1 and cfg.model_type == "transformer" and (
             cfg.nhead % tp or cfg.ffn_dim % tp):
         raise ValueError(f"--tp {tp} must divide nhead {cfg.nhead} and "
                          f"ffn_dim {cfg.ffn_dim}")
     if ep > 1 and cfg.moe_experts % ep:
         raise ValueError(f"--ep {ep} must divide moe_experts {cfg.moe_experts}")
+    if sp > 1:
+        refused = [k for k, bad in (
+            (f"model_type {cfg.model_type}", cfg.model_type != "transformer"),
+            ("moe_experts", cfg.moe_experts > 0), ("remat", cfg.remat),
+            ("a pp axis", pp > 1)) if bad]
+        if refused:
+            raise ValueError(f"--sp {sp} splits the transformer's time axis; "
+                             f"not with {', '.join(refused)}")
+    if pp > 1:
+        if cfg.pp != pp or cfg.num_layers % pp:
+            raise ValueError(f"a pp axis of {pp} needs cfg.pp == {pp} (got "
+                             f"{cfg.pp}) dividing num_layers {cfg.num_layers}")
+        if tp > 1 or ep > 1:
+            raise ValueError("a pp axis combines with dp only")
 
 
 def shard_train_step(train_step, mesh, ts, example_batches=None, zero: int = 0):
@@ -552,10 +625,12 @@ def shard_train_step(train_step, mesh, ts, example_batches=None, zero: int = 0):
     tp / ep slices, and dp slices under ZeRO) and the global batch's
     metrics, the same on every rank. `example_batches` is not needed
     (torch traces nothing ahead) and is accepted for the JAX signature.
-    zero in {0, 1, 3}."""
+    zero in {0, 1, 3}. An sp or pp axis: see the module docstring; the pp
+    axis reaches the stacks through the step's collectives context, where
+    JAX's shard_train_step installs it with set_pp_mesh."""
     from ..train.steps import make_train_step
     cfg, args = train_step.config
-    check_mesh(cfg, axis_size(mesh, "tp"), axis_size(mesh, "ep"))
+    check_mesh(cfg, *(axis_size(mesh, n) for n in ("tp", "ep", "sp", "pp")))
     plan = MeshPlan(mesh, ts, zero)
     return make_train_step(cfg, args, plan=plan), plan.place(ts)
 
@@ -567,6 +642,11 @@ def shard_family_step(make_step, mesh, ts):
     make_vocoder_step with their other arguments bound). Each rank gives
     it its dp rows of the flat batch (batch_shardings(mesh, batch,
     dim=0)) and keeps its tp slices of the params and the optimizer state
-    (plan.place_tree slices a teacher's params)."""
+    (plan.place_tree slices a teacher's params). A mesh with an sp or pp
+    axis raises ValueError: JAX shards the family steps over dp and tp
+    only (tests/test_sharded_families.py)."""
+    if axis_size(mesh, "sp") > 1 or axis_size(mesh, "pp") > 1:
+        raise ValueError("the family steps shard over dp and tp (and ep); "
+                         "not over an sp or pp axis")
     plan = MeshPlan(mesh, ts)
     return make_step(plan=plan), plan.place(ts), plan

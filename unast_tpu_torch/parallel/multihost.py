@@ -9,7 +9,10 @@ JAX initialises its distributed runtime from JAX_COORDINATOR_ADDRESS and
 assembles the global batch from each host's rows
 (make_array_from_process_local_data). Here each rank keeps its rows: the
 sharded train step (parallel/mesh.py) computes the global batch's
-losses from them, so global_batch_from_local is the identity.
+losses from them, so global_batch_from_local is the identity. Under a
+sequence-parallel axis a rank's rows hold whole sequences too: the model
+splits the time axis itself (models/networks.py), after the noise,
+SpecAugment and the decoders' right shift, which read whole sequences.
 """
 
 import os
@@ -88,5 +91,6 @@ class HostShardedDataset:
 def global_batch_from_local(mesh, local_batch, batch_axis: str = "dp"):
     """unast_tpu/parallel/multihost.py::global_batch_from_local: the
     batch the sharded step takes on this rank, which is the rank's own
-    rows, so `local_batch` itself."""
+    rows with their whole sequences (an sp rank's time split is the
+    model's), so `local_batch` itself."""
     return local_batch

@@ -167,19 +167,21 @@ def build_parser() -> argparse.ArgumentParser:
         help="data-parallel ranks, one process per device: launch with "
              "torchrun --nproc_per_node N and pass --dp N")
     add("--tp", type=int, default=1,
-        help="tensor-parallel mesh size (not in the port yet: > 1 raises)")
+        help="tensor-parallel mesh size: megatron splits of the attention "
+             "heads and FFNs over 'tp' (must divide nhead and ffn_dim)")
     add("--sp", type=int, default=1,
-        help="sequence-parallel mesh size (time axis sharded over 'sp'; "
-             "not in the port yet: > 1 raises)")
+        help="sequence-parallel mesh size: the transformer's time axis "
+             "split over 'sp' inside the train step (no MoE, no remat)")
     add("--ep", type=int, default=1,
         help="expert-parallel mesh size (MoE expert axis sharded over "
-             "'ep'; not in the port yet: > 1 raises)")
+             "'ep'; must divide moe_experts)")
     add("--pp", type=int, default=1,
         help="pipeline-parallel stages: GPipe-stage the transformer "
-             "encoder/decoder stacks inside the train step over the "
-             "mesh's 'pp' axis (requires num_layers %% pp == 0)")
+             "encoder/decoder stacks inside the train step (requires "
+             "num_layers %% pp == 0); the loop's mesh has no 'pp' axis, "
+             "so it runs the schedule in each process, as JAX's loop")
     add("--pp_micro", type=int, default=0,
-        help="micro-batches per pipelined stack call (0 = auto: largest "
+        help="micro-batches per pipelined stack call (0 = auto: the first "
              "of 4*pp/2*pp/pp dividing the batch)")
     add("--zero", type=int, default=0, choices=[0, 1, 3],
         help="ZeRO/FSDP state sharding over the dp axis: 1 shards the "
@@ -330,20 +332,16 @@ def apply_runtime_flags(args):
     """unast_tpu/train/config.py::apply_runtime_flags: check the flags that
     configure the runtime rather than the model. --fast_prng selects JAX's
     hardware RNG and means nothing here. The mesh runs one process per
-    device under torchrun (parallel/multihost.py): --dp x --tp x --ep must
-    equal the launch's world size (WORLD_SIZE); --tp must divide nhead and
-    ffn_dim and --ep moe_experts (ValueError, parallel/mesh.py::
-    check_mesh); --zero 1 or 3 shards the optimizer state (and the params)
-    over the dp ranks (0 and dp 1 leave it whole, as in JAX). --sp above 1
-    (the sharded time axis) comes with the next slice and raises
-    NotImplementedError; a JAX launcher's JAX_COORDINATOR_ADDRESS raises
-    ValueError."""
+    device under torchrun (parallel/multihost.py): --dp x --tp x --ep x
+    --sp must equal the launch's world size (WORLD_SIZE); --tp must divide
+    nhead and ffn_dim, --ep moe_experts, and --sp takes the transformer
+    without MoE or remat (ValueError, parallel/mesh.py::check_mesh); --zero
+    1 or 3 shards the optimizer state (and the params) over the dp ranks
+    (0 and dp 1 leave it whole, as in JAX). --pp is a model option: the
+    loop's mesh has no pp axis, so each process runs the GPipe schedule
+    itself, as JAX's loop does. A JAX launcher's JAX_COORDINATOR_ADDRESS
+    raises ValueError."""
     sp = getattr(args, "sp", 1) or 1
-    if sp > 1:
-        raise NotImplementedError(
-            f"--sp {sp}: the port's mesh has the dp, tp and ep axes; "
-            "sequence parallelism comes with the next slice (ROADMAP.md "
-            "queue 1 item 7c)")
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise ValueError("JAX_COORDINATOR_ADDRESS is the JAX package's "
                          "multihost launcher; launch the port with torchrun "
@@ -354,13 +352,13 @@ def apply_runtime_flags(args):
     dp = getattr(args, "dp", 1) or 1
     tp, ep = getattr(args, "tp", 1) or 1, getattr(args, "ep", 1) or 1
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if dp * tp * ep != world:
+    if dp * tp * ep * sp != world:
         raise ValueError(
-            f"--dp {dp} x --tp {tp} x --ep {ep} with a multihost launch of "
-            f"{world} processes: the port runs one process per device, so "
-            "the mesh must equal torchrun's --nproc_per_node")
+            f"--dp {dp} x --tp {tp} x --ep {ep} x --sp {sp} with a multihost "
+            f"launch of {world} processes: the port runs one process per "
+            "device, so the mesh must equal torchrun's --nproc_per_node")
     from ..parallel.mesh import check_mesh
-    check_mesh(model_config_from_args(args), tp, ep)
+    check_mesh(model_config_from_args(args), tp, ep, sp)
 
 
 def train_args(path=None, **overrides) -> argparse.Namespace:

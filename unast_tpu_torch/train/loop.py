@@ -11,20 +11,22 @@ one.
 Runs on the card unless --device names another device. The mesh:
 
     torchrun --nproc_per_node N -m unast_tpu_torch.train.loop --dp D \
-        [--tp T] [--ep E] [--zero 1|3]          # N = D * T * E
+        [--tp T] [--ep E] [--sp S] [--zero 1|3]   # N = D * T * E * S
 
 runs one rank per device (cuda:LOCAL_RANK under NCCL; gloo with --device
-cpu) through parallel/mesh.py's sharded step, laid out over (dp, tp[, ep])
-as the JAX loop's mesh. The ranks of one dp coordinate read the same
+cpu) through parallel/mesh.py's sharded step, laid out over (dp, tp[, ep]
+[, sp]) as the JAX loop's mesh (which has no pp axis: --pp runs the GPipe
+schedule in each process). The ranks of one dp coordinate read the same
 strided shard of the corpus (1/D of it) with train_batch_size / D rows a
-micro-batch; each keeps its tp / ep slices of the state. Only rank 0 writes
+micro-batch; each keeps its tp / ep slices of the state, and an sp rank
+runs the model on its 1/S of every sequence's frames. Only rank 0 writes
 metrics and checkpoints, and a checkpoint holds the whole state whatever
 the splits and the ZeRO level (a resumed run places it again).
 Randomness: step `i` draws from a generator seeded from (seed + 17, i),
 warm-start step `s` from (seed + 29, s) and eval batch `b` from (0, b), the
 counterparts of the JAX loop's fold_in keys; under dp, dp coordinate r of D
 seeds from (seed + 17, i * D + r) and (seed + 29, s * D + r) instead, so no
-two dp ranks draw the same dropout masks, while the tp and ep ranks of one
+two dp ranks draw the same dropout masks, while the tp, ep and sp ranks of one
 dp coordinate share its stream (a replicated activation draws the same
 mask on each); the weights come from a CPU generator seeded with `seed`. A
 resumed run (load_path or auto_resume) also advances the data streams past
@@ -133,8 +135,9 @@ def train(args):
     cfg = model_config_from_args(args)
     datasets = initialize_datasets(args)
     rank = MH.process_index()
-    # the mesh's dp coordinate of this rank (row-major over dp, tp, ep):
-    # its tp and ep peers read the same shard and draw the same streams
+    # the mesh's dp coordinate of this rank (row-major over dp, tp, ep,
+    # sp): its tp, ep and sp peers read the same shard and draw the same
+    # streams
     n_dp = args.dp
     r_dp = rank // (MH.process_count() // n_dp)
     if n_dp > 1:
@@ -174,9 +177,9 @@ def train(args):
     plan = None
     if MH.process_count() > 1:
         from ..parallel.mesh import make_mesh, shard_train_step
-        tp, ep = args.tp or 1, args.ep or 1
-        mesh = make_mesh(args.dp, tp, ep=ep)
-        print(f"mesh: dp {args.dp} tp {tp} ep {ep} over "
+        tp, ep, sp = args.tp or 1, args.ep or 1, args.sp or 1
+        mesh = make_mesh(args.dp, tp, sp, ep)
+        print(f"mesh: dp {args.dp} tp {tp} ep {ep} sp {sp} over "
               f"{MH.process_count()} processes, zero {args.zero}")
         train_step, ts = shard_train_step(train_step, mesh, ts,
                                           zero=args.zero)

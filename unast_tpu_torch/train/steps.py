@@ -82,7 +82,8 @@ def zero_fixed_dropouts(modules=M, unast=U):
         modules.positional_encoding, unast.lstm_discriminator = pe, disc
 
 
-def flash_calls_per_step(cfg: ModelConfig, args, spec_rounds: int = 0):
+def flash_calls_per_step(cfg: ModelConfig, args, spec_rounds: int = 0,
+                         rows: int = 0, staged: bool = False):
     """(flash-attention forwards, backwards) of one step of
     make_train_step with attn_impl='flash', per the task functions: per
     layer, an ae or sp micro-batch runs two encoders and two decoders'
@@ -103,23 +104,51 @@ def flash_calls_per_step(cfg: ModelConfig, args, spec_rounds: int = 0):
     the decoders' of ae and sp under guided attention, which are not
     checkpointed (transformer.decoder). A conformer layer has one
     attention, as an encoder layer has. The RNN backbone calls no
-    attention kernel: (0, 0)."""
+    attention kernel: (0, 0).
+
+    With cfg.pp > 1 the transformer stacks that pipeline (parallel/
+    pipeline.py: not MoE, not the conformer, not a decoder returning its
+    cross-attention weights) run each layer once per micro-batch (M:
+    cfg.pp_micro, or default_micro of the `rows` each micro-batch of the
+    step holds), all L layers in one process, or L / pp of them on a rank
+    of a pp axis (`staged`); they are not rematerialised. Under sequence
+    parallelism every rank runs every attention on its frames: the counts
+    are the same."""
     if cfg.model_type != "transformer":
         return 0, 0
     ga = _ga_cfg(cfg, args)[0]
-    tf = 4 if ga else 6
-    sp = tf + (1 if cfg.ctc_weight > 0 else 0)
-    fwd = (args.ae_steps * tf + args.cm_steps * 8 + args.sp_steps * sp
-           + 2 * spec_rounds)
-    cm_bwd = 6
+    conf = cfg.speech_encoder == "conformer"
+    # the attentions a step runs per layer: encoder calls by side (text,
+    # speech; with gradients: enc_g_*), decoder attentions that pipeline
+    # and those that do not (under guided attention), the discriminator's
+    # two encoders
+    enc_t = args.ae_steps + args.sp_steps + 2 * args.cm_steps
+    enc_s = args.ae_steps + args.sp_steps * (1 + (cfg.ctc_weight > 0)) + 2 * args.cm_steps
+    enc_g_t = args.ae_steps + args.sp_steps + args.cm_steps
+    enc_g_s = args.ae_steps + args.sp_steps * (1 + (cfg.ctc_weight > 0)) + args.cm_steps
+    dec_pipe = (args.ae_steps + args.sp_steps) * (0 if ga else 4) + args.cm_steps * 4
+    dec_plain = (args.ae_steps + args.sp_steps) * (2 if ga else 0)
+    disc = 2 * args.d_steps if cfg.use_discriminator else 0
+    fwd_pipe = enc_t + (0 if conf else enc_s) + dec_pipe + 2 * spec_rounds + (
+        disc if not conf else disc // 2)
+    fwd_plain = (enc_s if conf else 0) + dec_plain + (disc // 2 if conf else 0)
+    bwd_pipe = enc_g_t + (0 if conf else enc_g_s) + dec_pipe
+    bwd_plain = (enc_g_s if conf else 0) + dec_plain
     if cfg.moe_experts > 0:
-        cm_bwd += 1 + (cfg.speech_encoder != "conformer")
-    bwd = args.ae_steps * tf + args.cm_steps * cm_bwd + args.sp_steps * sp
+        # cm's pseudo-pair encoders keep their gradients (the conformer's not)
+        bwd_pipe += args.cm_steps * (1 + (not conf))
+    L = cfg.num_layers
+    if cfg.pp > 1 and cfg.moe_experts == 0:
+        from ..parallel.pipeline import default_micro
+        m = cfg.pp_micro or default_micro(rows, cfg.pp)
+        lp = (L // cfg.pp if staged else L) * m
+        remat = bwd_plain - (dec_plain if ga else 0) if cfg.remat else 0
+        return (lp * fwd_pipe + L * (fwd_plain + remat),
+                lp * bwd_pipe + L * bwd_plain)
+    fwd, bwd = fwd_pipe + fwd_plain, bwd_pipe + bwd_plain
     if cfg.remat:
-        fwd += bwd - (2 * (args.ae_steps + args.sp_steps) if ga else 0)
-    if cfg.use_discriminator:
-        fwd += args.d_steps * 2
-    return cfg.num_layers * fwd, cfg.num_layers * bwd
+        fwd += bwd - (dec_plain if ga else 0)
+    return L * fwd, L * bwd
 
 
 def flash_calls_per_eval_batch(cfg: ModelConfig):
@@ -433,13 +462,20 @@ def _accumulate(loss_fn, params, wrt, net_state, gen, stacked_batches):
     micro-batch) over the leading micro-batch axis of stacked_batches,
     summing the float32 gradients with respect to the leaves `wrt` and
     threading the BatchNorm state. Returns (grads in wrt's order,
-    new_state, {name: [n] stacked aux})."""
+    new_state, {name: [n] stacked aux}). Under a sequence-parallel axis
+    every loss is computed on whole sequences, the same on each sp rank
+    (models/networks.py gathers the outputs), so each rank differentiates
+    1/sp of it: the gradients summed over dp x sp are then the global
+    batch's."""
     grads = [torch.zeros_like(x, dtype=torch.float32) for x in wrt]
     auxs = []
     st = net_state
+    share = 1.0 / C.axis_size("sp")
     for i in range(stacked_batches[0].shape[0]):
         batch = tuple(x[i] for x in stacked_batches)
         loss, (aux, st) = loss_fn(params, st, gen, batch)
+        if share != 1.0:
+            loss = loss * share
         with record_function("unast/backward"):
             for acc, g in zip(grads, torch.autograd.grad(loss, wrt,
                                                          allow_unused=True)):
@@ -459,18 +495,21 @@ def make_train_step(cfg: ModelConfig, args, plan=None):
     `gen` is a torch.Generator there. Metrics carry JAX's names
     ('ae/t_ae', ..., 'grad_norm', 'd/d'), each the mean over the
     micro-batches; 'param_sum' with args.param_sum_metric. Raises
-    NotImplementedError, before any step runs, on model options of later
-    slices (networks.check_ported).
+    ValueError, before any step runs, when pp does not divide the layers
+    (networks.check_ported).
 
     plan: None, or a parallel/mesh.py::MeshPlan (shard_train_step makes
     it): then `batches` are this rank's dp rows of the global batch and
     ts holds its tp / ep slices (and dp slices under ZeRO); every loss,
     normaliser and BatchNorm statistic is the global batch's and the
     split layers run their collectives (parallel/collectives.py), the
-    gradients and the metrics are summed over the dp ranks only (a tp or
-    ep rank's gradient slice is whole for its slice, and its losses are
-    its dp peer's), the clip's norm counts each split leaf over its axes,
-    and the update goes through the plan (ZeRO)."""
+    gradients are summed over the dp x sp ranks (an sp rank's share covers
+    its frames, and 1/sp of every term computed on whole sequences) and
+    the metrics over the dp ranks only (a tp, ep, sp or pp rank's losses
+    are its dp peer's; a pp rank's gradients are whole after the
+    pipeline's backward, parallel/pipeline.py), the clip's norm counts
+    each split leaf over its axes, and the update goes through the plan
+    (ZeRO)."""
     N.check_ported(cfg)
     gen_tx, disc_tx = make_optimizers(cfg, args)
     scale = 1.0 / (args.ae_steps + args.cm_steps + args.sp_steps)
@@ -525,7 +564,7 @@ def make_train_step(cfg: ModelConfig, args, plan=None):
         with torch.no_grad(), record_function("unast/train/gen_update"):
             if total is not None:
                 if plan is not None:
-                    total = plan.all_reduce(total)
+                    total = plan.reduce_grads(total)
                 gen_grads = tree_unflatten(gen_params, total)
                 metrics["grad_norm"] = norm_of(gen_grads, "gen_opt")
                 gen_params, gen_opt = update(
@@ -549,7 +588,7 @@ def make_train_step(cfg: ModelConfig, args, plan=None):
                                                 gen, batches["d"])
             with torch.no_grad():
                 if plan is not None:
-                    d_grads = plan.all_reduce(d_grads)
+                    d_grads = plan.reduce_grads(d_grads)
                 d_grads = tree_unflatten(disc_params, d_grads)
                 disc_params, disc_opt = update(
                     disc_tx, "disc_opt", d_grads, disc_opt,
