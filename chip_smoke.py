@@ -9,9 +9,10 @@ Phases (each that fails exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32
      flags, which this script turns off so float32 products stay float32;
   2. the kernel build (nvcc, from unast_tpu_torch/csrc, one process per
-     library, all started together) and its seconds, each library's ptxas
-     report, and the count of HGMMA (wgmma) instructions in each library's
-     SASS (cuobjdump);
+     library, all started together: the two forwards and the bf16
+     backward) and its seconds, each library's ptxas report, and the
+     count of HGMMA (wgmma) instructions in each library's SASS
+     (cuobjdump), each above 0;
   3. every kernel against its plain PyTorch version, in both dtypes: at
      the serving shapes (text and mel buckets, B 8, on the strided views of
      one fused-QKV projection, as the encoders pass them) and on more
@@ -33,21 +34,33 @@ Phases (each that fails exits non-zero; nothing is caught):
      float32, which is the float32 kernel's path (D 16; counts set to 0 just
      before, read just after; the CPU path is held to the JAX package by
      tests/test_torch_*.py);
-  6. the flash-attention gradients (kernel forward, plain recompute
-     backward, through flash_attention's autograd.Function) against
-     autograd through the plain version, on fused-QKV and cross views: bf16
-     at the flagship train step's shapes (B 4, T 304 and 816, causal
-     self-attention, cross 304 x 816 and 816 x 304) within 2**-6 of each
-     gradient's largest element, float32 at TINY's within 1e-4 of it; each
-     with the backward's time and, as its library time, that of SDPA's
-     autograd backward under the same mask;
+  6. the flash-attention gradients (kernel forward; bf16 backward kernel,
+     float32 plain recompute backward, through flash_attention's
+     autograd.Function) against autograd through the plain version, on
+     fused-QKV and cross views: bf16 at the flagship train step's shapes
+     (B 4, T 304 and 816, causal self-attention, cross 304 x 816 and
+     816 x 304), a tp rank's B4 H2, an sp rank's q 408 at q_start 408 over
+     816 and the wide step's D 128, within 2**-6 of each gradient's
+     largest element, float32 at TINY's within 1e-4 of it. On each bf16
+     case the backward kernel (flash_attention_bwd) against
+     flash_attention_bwd_plain on the same q, k, v, o, dO and kv_lens,
+     and both against the float64 function: every element within
+     2**-8 |ref| + 2**-16 A (A the sum of the absolute terms of its
+     product, dS expanded into its own: backward_f64), two calls bit for
+     bit, keys past kv_len exactly 0; each
+     case with the kernel's device time (its three launches apart), its
+     per-call time, the bound, the plain version's time and, as its
+     library time, that of SDPA's autograd backward under the same mask;
+     the phase's seconds;
   7. the second main path: 1 step of make_train_step on the same config
      (ae 2, cm 1, sp 4 and d 1 micro-batches of 4, synthetic batches at the
      config's 816 mel frames and 304 tokens with ragged lengths from numpy
      seed 0), random weights from seed 0, counts set to 0 just before each
      step and read just after: losses and every new param finite, bf16
      forward launches and backward calls per step as the code implies,
-     float32 launches 0; then a second step under torch.profiler, read by
+     each backward call one launch of the bf16 backward kernel (so on
+     every bf16 path that trains, phases 9, 14, 15, 17, 18 and 20; 0 on
+     the float32 ones), float32 launches 0; then a second step under torch.profiler, read by
      the port's record_function ranges (objectives, backward passes,
      greedy decodes, LSTM discriminator, flash backward) for where its
      time goes and the device's idle share (against the profiled wall,
@@ -188,11 +201,14 @@ Phases (each that fails exits non-zero; nothing is caught):
      it (an sp rank's causal queries at their q_start); then a world of
      four ranks: TINY dp 2 x tp 2 zero-1 and dp 2 x pp 2 steps against
      the single-process step;
-  then one `{"kernels": [...]}` line (both routes, with their launches on
-     the serve, train, loop, vocoder-serve, RNN, CTC serve, speculative,
-     beam, CTC train, hybrid, NAR serve, distill, NAR + MelGAN serve,
-     wide step and serve, family step, serve and TINY, export, dp, tp,
-     sp and pp paths), a
+  then one `{"kernels": [...]}` line (both forward routes, with their
+     launches on the serve, train, loop, vocoder-serve, RNN, CTC serve,
+     speculative, beam, CTC train, hybrid, NAR serve, distill, NAR +
+     MelGAN serve, wide step and serve, family step, serve and TINY,
+     export, dp, tp, sp and pp paths; the bf16 backward, with its
+     launches on the train, loop, CTC train, hybrid, distill, wide step,
+     family step, dp, tp, sp and pp paths, each equal to the path's
+     backward calls), a
      `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
      `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`,
      a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a `{"melgan":
@@ -233,6 +249,9 @@ H100_BYTES_PER_S = 3.35e12
 # the route's kernels as the profiler names them (the float32 pre-pass first)
 ROUTE_KERNELS = {torch.bfloat16: ("flash_fwd_wgmma_kernel",),
                  torch.float32: ("tf32_split_kernel", "flash_fwd_tf32x3_kernel")}
+# the bf16 backward's three launches, in order
+BWD_KERNELS = ("flash_bwd_prepass_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel")
 
 
 class Case(NamedTuple):
@@ -346,6 +365,11 @@ BWD_CASES = [
     Case("train_cross_304x816", bf16, 4, 304, 816, 4, 64, False, 43, "cross"),
     Case("train_cross_816x304", bf16, 4, 816, 304, 4, 64, False, 44, "cross"),
     Case("wide_encoder_t816_d128", bf16, 8, 816, 816, 8, 128, False, 48, "qkv"),
+    # an sp = 2 rank's causal self-attention and a tp = 2 rank's heads
+    # (phase 20's steps)
+    Case("sp_self_q408_at408_k816", bf16, 4, 408, 816, 4, 64, True, 58, "cross",
+         q_start=408),
+    Case("tp_self_t816_h2", bf16, 4, 816, 816, 2, 64, True, 59, "qkv"),
     Case("tiny_train_self_f32", f32, 2, 12, 12, 2, 16, True, 45, "qkv",
          lens=[12, 5]),
     Case("tiny_train_cross_f32", f32, 2, 12, 20, 2, 16, False, 46, "cross",
@@ -538,10 +562,13 @@ def trace(fn, labels=(), record_ops=True):
 def device_ms(fn, symbols, iters: int, tries: int = 3):
     """Mean device time (ms) per call of fn(), from a trace of `iters`
     calls after one warm-up call: {symbol: ms} of the kernels whose name
-    holds each of `symbols`, each launched once a call; with no symbols,
-    {"": ms} of every kernel the call launches. A profiled window now and
-    then records no device activity at all; such a window is profiled
-    again, up to `tries` in all, and then fails."""
+    holds each of `symbols`, each launched once a call (the mean over the
+    launches the window recorded: a window of several short kernels a
+    call now and then loses one or two of its events, so at least 90 % of
+    them must be there); with no symbols, {"": ms} of every kernel the
+    call launches. A profiled window now and then records no device
+    activity at all; such a window is profiled again, up to `tries` in
+    all, and then fails."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -550,8 +577,10 @@ def device_ms(fn, symbols, iters: int, tries: int = 3):
         for symbol in symbols or ("",):
             hits = [v for name, v in kernels.items() if symbol in name]
             found[symbol] = (sum(n for n, _ in hits), sum(s_ for _, s_ in hits))
-        if all(n == iters if symbols else n >= iters for n, _ in found.values()):
-            return {sym: s_ * 1e3 / iters for sym, (_, s_) in found.items()}
+        if all(iters - iters // 10 <= n <= iters if symbols else n >= iters
+               for n, _ in found.values()):
+            return {sym: s_ * 1e3 / (n if symbols else iters)
+                    for sym, (n, s_) in found.items()}
     raise SystemExit(f"profiler saw launches {({s: n for s, (n, _) in found.items()})} "
                      f"in {tries} windows, expected {iters} of each")
 
@@ -751,15 +780,16 @@ def flash_case(c: Case):
     return case
 
 
-def sdpa_backward_call(q, k, v, kv_lens, causal, do):
+def sdpa_backward_call(q, k, v, kv_lens, causal, do, q_start: int = 0):
     """fn() computing the flash backward's function with one PyTorch call:
     the autograd backward of scaled_dot_product_attention under the same
-    kv_lens (and causal) mask, on inputs whose forward ran once before.
-    Each call is one torch.autograd.grad over the retained graph: dq, dk
-    and dv of <o, do>, SDPA's own backward kernels and nothing else."""
+    kv_lens (and causal, offset by q_start) mask, on inputs whose forward
+    ran once before. Each call is one torch.autograd.grad over the
+    retained graph: dq, dk and dv of <o, do>, SDPA's own backward kernels
+    and nothing else."""
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
     out = sdpa_call(qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
-                    kv_lens, causal)()
+                    kv_lens, causal, q_start)()
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
@@ -786,21 +816,22 @@ def qkv_grads(c: Case, attn, leaves, kv_lens, w):
     """(dq, dk, dv) of sum(attn(q, k, v) * w), taken as the gradient of the
     fused leaves the views are cut from, then cut the same way."""
     xs = [x.detach().requires_grad_(True) for x in leaves]
-    out = attn(*qkv_views(c, xs), kv_lens, causal=c.causal)
+    out = attn(*qkv_views(c, xs), kv_lens, causal=c.causal, q_start=c.q_start)
     grads = torch.autograd.grad((out.float() * w).sum(), xs)
     return qkv_views(c, grads)
 
 
-def backward_bound(q, kv_lens, causal):
+def backward_bound(q, kv_lens, causal, q_start: int = 0):
     """Least time (ms) the card could take for one flash backward on these
     inputs, and what bounds it: five products (S, dV, dP, dQ, dK) over the
-    (query, key) pairs this data keeps, at the bf16 tensor-core rate, or
+    (query, key) pairs this data keeps (query i sees keys up to
+    i + q_start when causal), at the bf16 tensor-core rate, or
     for float32 as three TF32 products each (split TF32, the forward's
     convention), against the bytes of q, o, dO and dQ and of the kept k, v,
     dK and dV rows, each moved once."""
     b, tq, h, d = q.shape
     lens = kv_lens.cpu().numpy().astype(np.int64)
-    rows = np.arange(tq)
+    rows = np.arange(tq) + q_start
     pairs = sum(int(np.minimum(rows + 1, n).sum()) if causal else tq * int(n)
                 for n in lens)
     flops = 5 * 2 * h * d * pairs
@@ -811,48 +842,195 @@ def backward_bound(q, kv_lens, causal):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def backward_f64(q, k, v, kv_lens, causal: bool, o, do, q_start: int = 0):
+    """((dq, dk, dv), (A_dq, A_dk, A_dv)): the flash backward's function in
+    float64 on the same inputs (delta from the o given), and for each
+    element A, the sum of the absolute terms of its product: P^T |dO| for
+    dv; for dq and dk that of dS K and dS^T Q with dS = P (dP - delta) /
+    sqrt(D) expanded into its own terms, |dS| -> P (|dO| |V|^T +
+    rowsum(|dO o|)) / sqrt(D). (Where a row sees one key, P is 1 and the
+    exact dS is 0: dP and delta are the same sum, which float32 takes in
+    two orders, so |dS| alone would leave such an element no room.)"""
+    d = q.shape[-1]
+    qd, kd, vd, od, dod = (x.double() for x in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / d ** 0.5
+    kpos = torch.arange(k.shape[1], device=q.device)
+    keep = (kpos[None, :] < kv_lens[:, None])[:, None, None, :]
+    if causal:
+        keep = keep & (kpos[None, :] <= torch.arange(q.shape[1], device=q.device)[:, None]
+                       + q_start)
+    p = torch.softmax(s.masked_fill(~keep, -1e9), dim=-1)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    delta = (dod * od).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) / d ** 0.5
+    del dp
+    grads = (torch.einsum("bhqk,bkhd->bqhd", ds, kd),
+             torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+             torch.einsum("bhqk,bqhd->bkhd", p, dod))
+    del ds
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod.abs(), vd.abs())
+              + (dod * od).abs().sum(-1).transpose(1, 2)[..., None]) / d ** 0.5
+    terms = (torch.einsum("bhqk,bkhd->bqhd", ds, kd.abs()),
+             torch.einsum("bhqk,bqhd->bkhd", ds, qd.abs()),
+             torch.einsum("bhqk,bqhd->bkhd", p, dod.abs()))
+    return grads, terms
+
+
+def f64_over_bound(got, ref, terms):
+    """Largest |got - ref| / (2**-8 |ref| + 2**-16 A) over the elements: the
+    first term allows the one cast to bf16, the second float32 sums of
+    terms that carry 16 bits (a bf16-rounded P or dS does not hold it). An
+    element whose bound is 0 (a key past kv_len) must be exactly ref."""
+    err = (got.double() - ref).abs()
+    bound = 2.0 ** -8 * ref.abs() + 2.0 ** -16 * terms
+    ratio = torch.where(bound > 0, err / bound.clamp(min=1e-300),
+                        torch.where(err > 0, torch.full_like(err, float("inf")),
+                                    torch.zeros_like(err)))
+    return float(ratio.max())
+
+
 def backward_case(c: Case):
-    """Gradients through flash_attention (kernel forward, plain backward)
-    against autograd through flash_attention_plain on case c, and the time
-    of the backward (flash_attention_bwd_plain) alone: per call over
-    back-to-back calls (CUDA events) and its kernels' device time."""
+    """Gradients through flash_attention (kernel forward; bf16 backward
+    kernel, float32 plain backward) against autograd through
+    flash_attention_plain on case c. For bf16 also the backward kernel
+    (flash_attention_bwd) against flash_attention_bwd_plain on the same
+    q, k, v, o, dO and kv_lens, both against float64 (f64_over_bound),
+    two calls bit for bit and keys past kv_len exactly 0, and the times:
+    per call over back-to-back calls (CUDA events), each of the three
+    launches' device time, the plain version's and SDPA's autograd
+    backward's. For float32 the plain backward's times."""
     from unast_tpu_torch.ops.attention import (flash_attention,
+                                               flash_attention_bwd,
                                                flash_attention_bwd_plain,
                                                flash_attention_plain)
+    fa = flash_attention
     leaves, kv_lens = fused_leaves(c)
     w = torch.randn((c.b, c.tq, c.h, c.d), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(c.seed + 1))
+    before = (fa.backward_launches, fa.backward_calls)
     got = qkv_grads(c, flash_attention, leaves, kv_lens, w)
+    torch.cuda.synchronize()
+    through = [fa.backward_launches - before[0], fa.backward_calls - before[1]]
     want = qkv_grads(c, flash_attention_plain, leaves, kv_lens, w)
+    bf = c.dtype == torch.bfloat16
     rel = 1e-4 if c.dtype == torch.float32 else 2.0 ** -6
     errs = {}
-    ok = True
+    ok = through == [int(bf), 1]
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         err = float((a.float() - r.float()).abs().max())
         top = float(r.float().abs().max())
         errs[name] = {"max_abs_err": err, "max_abs_ref": top}
         ok = ok and err <= rel * top
     q, k, v = qkv_views(c, leaves)
-    o = flash_attention(q, k, v, kv_lens, causal=c.causal)
+    o = flash_attention(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
     do = w.to(c.dtype)
     iters = 20 if c.tq * c.tk >= 816 * 304 else 50
-    bound_ms, bound_by = backward_bound(q, kv_lens, c.causal)
+    bound_ms, bound_by = backward_bound(q, kv_lens, c.causal, c.q_start)
+    args = (q, k, v, kv_lens, c.causal, o, do, c.q_start)
 
-    def bwd():
-        return flash_attention_bwd_plain(q, k, v, kv_lens, c.causal, o, do)
-    library = sdpa_backward_call(q, k, v, kv_lens, c.causal, do)
-    return {
+    def plain():
+        return flash_attention_bwd_plain(*args)
+    library = sdpa_backward_call(q, k, v, kv_lens, c.causal, do, c.q_start)
+    case = {
         "case": c.name, "dtype": str(c.dtype).replace("torch.", ""),
         "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
-        "causal": c.causal, "kv_lens": kv_lens.tolist(), "grads": errs,
-        "bound_rel_to_max": rel, "ok": ok,
-        "bwd_ms": cuda_ms(bwd, iters), "bwd_device_ms": device_ms(bwd, (), iters)[""],
-        "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by,
+        "causal": c.causal, "q_start": c.q_start, "kv_lens": kv_lens.tolist(),
+        "grads": errs, "bound_rel_to_max": rel,
+        "autograd_launches_and_calls": through,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": cuda_ms(plain, iters),
+        "plain_device_ms": device_ms(plain, (), iters)[""],
         "library_ms": cuda_ms(library, iters),
         "library_device_ms": device_ms(library, (), iters)[""],
-        "fwd_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_lens,
-                                                  causal=c.causal), iters),
-    }
+        "fwd_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_lens, causal=c.causal,
+                                                  q_start=c.q_start), iters)}
+    if bf:
+        def kernel():
+            return flash_attention_bwd(*args)
+        mine, again = kernel(), kernel()
+        ref_plain = plain()
+        exact, terms = backward_f64(*args)
+        lens = kv_lens.tolist()
+        checks = {}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            past = [mine[i][b, n:] for b, n in enumerate(lens)] if name != "dq" else []
+            checks[name] = {
+                "max_abs_err_vs_plain": float((mine[i].float() - ref_plain[i].float())
+                                              .abs().max()),
+                "f64_over_bound_kernel": f64_over_bound(mine[i], exact[i], terms[i]),
+                "f64_over_bound_plain": f64_over_bound(ref_plain[i], exact[i], terms[i]),
+                "bitwise_repeat": bool(torch.equal(mine[i], again[i])),
+                "zero_past_kv_len": all(not bool(x.any()) for x in past)}
+            ok = (ok and checks[name]["f64_over_bound_kernel"] <= 1
+                  and checks[name]["bitwise_repeat"] and checks[name]["zero_past_kv_len"])
+        del exact, terms
+        per_kernel = device_ms(kernel, BWD_KERNELS, iters)
+        case.update({
+            "kernel": checks,
+            "max_abs_err": max(x["max_abs_err_vs_plain"] for x in checks.values()),
+            "ms": cuda_ms(kernel, iters), "device_ms": sum(per_kernel.values()),
+            "device_ms_per_launch": per_kernel})
+    case["ok"] = ok
+    return case
+
+
+# phase 6's case whose shape the flagship step's decoders give the
+# backward most often: causal self-attention at B4 T816 H4 D64
+BWD_MAIN_CASE = "train_self_t816"
+
+
+def backward_row(bwd_cases, hgmma, steps, loop_run, ctc_run, nar_run, wide_run,
+                 families_run, dp_run):
+    """The bf16 backward kernel's entry of the kernels line: its launches
+    on the main path (phase 7's untraced steps) and on every other bf16
+    path that trains, each equal to that path's backward calls, and phase
+    6's numbers at BWD_MAIN_CASE, with every bf16 case beside."""
+    main = next(c for c in bwd_cases if c["case"] == BWD_MAIN_CASE)
+    per_rank = dp_run["per_rank"]
+    paths = {
+        "loop": (loop_run["launches"]["seen"][2],
+                 "flagship loop: warm-start step, 1 step, 2 evals (phase 9)"),
+        "ctc_train": (ctc_run["train"]["backward_launches"],
+                      f"{CTC_TRAIN_STEPS} CTC train steps on the shard (phase 14)"),
+        "hybrid": (ctc_run["hybrid_step"]["backward_launches"],
+                   "1 hybrid joint step, ctc_weight 0.3 (phase 14)"),
+        "distill": (sum(s_["backward_launches"] for s_ in nar_run["distill"]["steps"]),
+                    "6 distill steps, B4 at 816 / 304 (phase 15)"),
+        "wide_step": (wide_run["step"]["backward_launches"],
+                      "configs/wide_d1024.json joint step, B8, D 128 (phase 17)"),
+        "family_steps": (sum(families_run[k]["step"]["backward_launches"]
+                             for k in ("conformer", "moe_ragged", "moe_dispatch")),
+                         "conformer, MoE ragged and dispatch ae + sp steps (phase 18)"),
+        "dp_flagship": (sum(r["flagship"][f"zero{z}"]["backward_launches"]
+                            for r in per_rank for z in DP_FLAGSHIP_ZEROS),
+                        f"dp = 2 joint steps, zero {DP_FLAGSHIP_ZEROS}, both ranks (phase 20)"),
+        "tp_flagship": (sum(r["flagship"]["tp2"]["backward_launches"] for r in per_rank),
+                        "one tp = 2 joint step, both ranks (phase 20)"),
+        "sp_flagship": (sum(r["flagship"]["sp2"]["backward_launches"] for r in per_rank),
+                        "one sp = 2 joint step, both ranks (phase 20)"),
+        "pp_flagship": (sum(r["flagship"]["pp2"]["backward_launches"] for r in per_rank),
+                        "one pp = 2 joint step, both ranks (phase 20)")}
+    return {
+        "name": "flash_attn_bwd_wgmma", "route": "cuda",
+        "source": "unast_tpu_torch/csrc/flash_attn_bwd_wgmma.cu",
+        "replaces": "unast_tpu/ops/attention.py:157", "dtype": "bfloat16",
+        "launches": sum(s_["backward_launches"] for s_ in steps),
+        "launches_counted_on": f"flagship train: {TRAIN_STEPS} untraced step(s), bf16 "
+                               "(phase 7), one launch = the three kernels of one backward",
+        **{f"launches_{k}": n for k, (n, _) in paths.items()},
+        **{f"launches_{k}_counted_on": where for k, (_, where) in paths.items()},
+        **{key: main[key] for key in (
+            "max_abs_err", "ms", "device_ms", "device_ms_per_launch", "plain_ms",
+            "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")},
+        "library": "torch.autograd.grad through scaled_dot_product_attention",
+        "hgmma_instructions": hgmma["flash_attn_bwd_wgmma"][0],
+        "main_case": BWD_MAIN_CASE,
+        "cases": [{k: c[k] for k in ("case", "shape", "causal", "q_start", "kernel",
+                                     "device_ms", "device_ms_per_launch", "ms",
+                                     "plain_device_ms", "library_device_ms", "bound_ms")}
+                  for c in bwd_cases if c["dtype"] == "bfloat16"]}
 
 
 def train_batches(rng, args, cfg, b, text_len, mel_len, device):
@@ -943,7 +1121,7 @@ def hgmma_count(lib):
 
 
 def reset_launch_counts(fn):
-    fn.launches = fn.launches_bf16 = fn.launches_f32 = 0
+    fn.launches = fn.launches_bf16 = fn.launches_f32 = fn.backward_launches = 0
 
 
 def host_sync_us(n: int = 200) -> float:
@@ -1026,7 +1204,8 @@ class LoopProbe:
         fa = self.fa
 
         def run(*a, **kw):
-            before = (fa.launches_bf16, fa.launches_f32, fa.backward_calls)
+            before = (fa.launches_bf16, fa.launches_f32, fa.backward_calls,
+                      fa.backward_launches)
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*a, **kw)
@@ -1034,7 +1213,8 @@ class LoopProbe:
             rec = {"kind": kind, "s": time.perf_counter() - t,
                    "launches_bf16": fa.launches_bf16 - before[0],
                    "launches_f32": fa.launches_f32 - before[1],
-                   "backward_calls": fa.backward_calls - before[2]}
+                   "backward_calls": fa.backward_calls - before[2],
+                   "backward_launches": fa.backward_launches - before[3]}
             if kind == "eval":
                 rec["per"] = out[0]
                 rec["losses"] = {k: float(np.mean(v)) for k, v in out[1].items()}
@@ -1109,10 +1289,12 @@ def flagship_loop(fa):
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated()
-        seen = [fa.launches_bf16, fa.backward_calls - bwd0]
-        assert seen == expected and fa.launches_f32 == 0, (seen, expected, fa.launches_f32)
+        seen = [fa.launches_bf16, fa.backward_calls - bwd0, fa.backward_launches]
+        assert seen == expected + expected[1:] and fa.launches_f32 == 0, (
+            seen, expected, fa.launches_f32)
         for c in probe.calls:
             assert [c["launches_bf16"], c["backward_calls"]] == list(per_kind[c["kind"]]), c
+            assert c["backward_launches"] == c["backward_calls"], c
         records = metrics_records(os.path.join(ck, "metrics.jsonl"))
         assert records and all(np.isfinite(v) for v in records.values()), records
         roles = sorted(f for f in os.listdir(ck) if f.endswith(".ckpt"))
@@ -1217,6 +1399,7 @@ def tiny_loop_walk(fa):
     out = {"config": os.path.relpath(TEST_CONFIG, ROOT), "cpu_s": cpu_s, "gpu_s": gpu_s,
            "launches_f32": seen[0], "backward_calls": seen[1],
            "expected": expected, "launches_bf16": fa.launches_bf16,
+           "backward_launches": fa.backward_launches,
            "card_vs_cpu": compare_records(on_gpu, on_cpu),
            "resume_vs_unbroken": compare_records(resumed, on_gpu, steps={3, 4})}
     # float32 on both; metrics 1e-4 relative (tests/test_torch_loop.py's
@@ -1224,7 +1407,7 @@ def tiny_loop_walk(fa):
     out["ok"] = all(c["keys_equal"] and c["per_equal"] and c["max_rel_err"] <= 1e-4
                     for c in (out["card_vs_cpu"], out["resume_vs_unbroken"]))
     assert out["ok"], out
-    assert seen == expected and out["launches_bf16"] == 0, out
+    assert seen == expected and out["launches_bf16"] == out["backward_launches"] == 0, out
     return out
 
 
@@ -1840,12 +2023,13 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
         ts, m = step(ts, seeded_generator(1, i, "cuda"), batch)
         losses.append(float(m["ctc/loss"]))
         step_s.append(time.perf_counter() - t)
-    train_counts = [fa.launches_bf16, fa.launches_f32, fa.backward_calls - bwd0]
+    train_counts = [fa.launches_bf16, fa.launches_f32, fa.backward_calls - bwd0,
+                    fa.backward_launches]
     train_peak = torch.cuda.max_memory_allocated()
     n_train = cfg.num_layers * CTC_TRAIN_STEPS
     assert np.isfinite(losses).all() and all(
         bool(torch.isfinite(x).all()) for x in tree_paths(ts.params).values()), losses
-    assert train_counts == [n_train, 0, n_train], train_counts
+    assert train_counts == [n_train, 0, n_train, n_train], train_counts
 
     mels = sorted((np.load(os.path.join(root, "device", f))[:816]
                    for f in os.listdir(os.path.join(root, "device")) if f.endswith(".mel.npy")),
@@ -1898,11 +2082,11 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
     hybrid = {"s": hybrid_s, "metrics": {k: float(v) for k, v in hm.items()},
               "spec_rounds": rounds, "launches_bf16": fa.launches_bf16,
               "launches_f32": fa.launches_f32, "backward_calls": fa.backward_calls - bwd0,
-              "expected": [fwd, bwd]}
+              "backward_launches": fa.backward_launches, "expected": [fwd, bwd]}
     assert all(np.isfinite(v) for v in hybrid["metrics"].values()), hybrid
     assert "sp/ctc_sp" in hybrid["metrics"], hybrid["metrics"]
-    assert (hybrid["launches_bf16"], hybrid["launches_f32"], hybrid["backward_calls"]) == (
-        fwd, 0, bwd), hybrid
+    assert (hybrid["launches_bf16"], hybrid["launches_f32"], hybrid["backward_calls"],
+            hybrid["backward_launches"]) == (fwd, 0, bwd, bwd), hybrid
 
     tiny = ctc_tiny_checks(fa)
 
@@ -1937,7 +2121,8 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
                   "max_memory_allocated_bytes": train_peak,
                   "flash_launches_bf16": train_counts[0],
                   "flash_launches_f32": train_counts[1],
-                  "backward_calls": train_counts[2]},
+                  "backward_calls": train_counts[2],
+                  "backward_launches": train_counts[3]},
         "serve": {"requests": len(mels), "mel_lens": [len(m) for m in mels], **serve},
         "hybrid_step": hybrid, "tiny_gpu_vs_cpu": tiny, "ctc_check_gate": gate,
         "phase_s": time.perf_counter() - t_phase,
@@ -2019,6 +2204,7 @@ def nar_tiny_checks(fa):
         torch.cuda.synchronize()
     out["step"] = {
         "launches_f32": fa.launches_f32, "backward_calls": fa.backward_calls - bwd0,
+        "backward_launches": fa.backward_launches,
         "expected": list(TF.flash_calls_per_distill_step(scfg, tcfg, args)),
         **compare_train_steps(
             args.lr, {"student": (on_gpu.params, on_cpu.params, on_gpu.opt, on_cpu.opt)},
@@ -2039,6 +2225,7 @@ def nar_tiny_checks(fa):
                  and st["student_mu_scaled"] <= 1 and st["update_abs"] <= 1e-3
                  and st["update_abs_all"] <= 2 + 1e-3
                  and [st["launches_f32"], st["backward_calls"]] == st["expected"]
+                 and st["backward_launches"] == 0
                  and out["synth_mels"] <= 1e-4 and out["synth_lens_equal"])
     assert out["ok"], out
     return out
@@ -2102,12 +2289,13 @@ def fastspeech_phase(fa, flag_params, flag_state, flag_cfg, root):
                "metrics": {k: float(v) for k, v in m.items()},
                "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
                "backward_calls": fa.backward_calls - bwd0,
+               "backward_launches": fa.backward_launches,
                "expected": list(TF.flash_calls_per_distill_step(cfg, tcfg, sargs)),
                "mel_lens": batch["mel_len"].tolist(), "text_lens": batch["text_len"].tolist()}
         steps.append(rec)
         assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
         assert [rec["launches_bf16"], rec["backward_calls"]] == rec["expected"], rec
-        assert rec["launches_f32"] == 0, rec
+        assert rec["launches_f32"] == 0 and rec["backward_launches"] == rec["backward_calls"], rec
     train_peak = torch.cuda.max_memory_allocated()
     nonfinite = [k for k, x in tree_paths(fs.params).items()
                  if not bool(torch.isfinite(x).all())]
@@ -2472,6 +2660,7 @@ def _objective_step(step_fn, ts, batches, fa, seed):
            "metrics": {k: float(v) for k, v in m.items()},
            "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
            "backward_calls": fa.backward_calls - bwd0,
+           "backward_launches": fa.backward_launches,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
     return ts, rec
@@ -2518,8 +2707,8 @@ def wide_phase(fa):
     batches = train_batches(np.random.default_rng(0), args, cfg, WIDE_BATCH,
                             args.data_text_len, args.data_mel_len, "cuda")
     ts, step = _objective_step(make_train_step(cfg, args), ts, batches, fa, 0)
-    assert [step["launches_bf16"], step["backward_calls"], step["launches_f32"]] == [
-        fwd, bwd, 0], (step, fwd, bwd)
+    assert [step["launches_bf16"], step["backward_calls"], step["launches_f32"],
+            step["backward_launches"]] == [fwd, bwd, 0, bwd], (step, fwd, bwd)
     step.update(expected=[fwd, bwd])
 
     # the sp objective alone under each policy
@@ -2549,11 +2738,14 @@ def wide_phase(fa):
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base,
             "launches_bf16": fa.launches_bf16, "backward_calls": fa.backward_calls - bwd0,
+            "backward_launches": fa.backward_launches,
             "grad_finite": all(bool(torch.isfinite(g).all()) for g in grads
                                if g is not None)}
         del live, params, loss, grads
     bits = {r["loss_bits"] for r in policies.values()}
     assert len(bits) == 1 and all(r["grad_finite"] for r in policies.values()), policies
+    assert all(r["backward_launches"] == r["backward_calls"] > 0
+               for r in policies.values()), policies
     assert policies["''"]["peak_bytes"] < policies["off"]["peak_bytes"], policies
     del ts, batches, gen_p, disc_p
     torch.cuda.empty_cache()
@@ -2746,8 +2938,8 @@ def families_phase(fa, flag_cfg):
         fwd, bwd = TS.flash_calls_per_step(cfg, args)
         ts = init_train_state(torch.Generator().manual_seed(0), cfg, args)
         _, rec["step"] = _objective_step(make_train_step(cfg, args), ts, batches, fa, 1)
-        assert [rec["step"]["launches_bf16"], rec["step"]["backward_calls"]] == [fwd, bwd], (
-            rec["step"], fwd, bwd)
+        assert [rec["step"]["launches_bf16"], rec["step"]["backward_calls"],
+                rec["step"]["backward_launches"]] == [fwd, bwd, bwd], (rec["step"], fwd, bwd)
         rec["step"]["expected"] = [fwd, bwd]
         if name.startswith("moe"):
             assert {"ae/moe", "sp/moe"} <= set(rec["step"]["metrics"]), rec["step"]
@@ -3112,6 +3304,7 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
                "flash_counted": [fwd, bwd],
                "flash_launches_bf16": fa.launches_bf16, "flash_launches_f32": fa.launches_f32,
                "backward_calls": fa.backward_calls - bwd0,
+               "backward_launches": fa.backward_launches,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                "param_bytes": state_bytes(new.params), "param_bytes_whole": whole_params,
                "opt_state_bytes": state_bytes(new.gen_opt) + state_bytes(new.disc_opt),
@@ -3125,7 +3318,8 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         kinds = {(r["self"], r["causal"]) for r in rec["flash_vs_plain"]}
         assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
         assert (rec["flash_launches_bf16"], rec["flash_launches_f32"],
-                rec["backward_calls"]) == (fwd, 0, bwd), (rec, fwd, bwd)
+                rec["backward_calls"], rec["backward_launches"]) == (fwd, 0, bwd, bwd), (
+                    rec, fwd, bwd)
         assert all(r["ok"] and r["q"][2] == rec["heads"]
                    for r in rec["flash_vs_plain"]), rec["flash_vs_plain"]
         if key == "sp2":   # the rank's queries against the gathered keys
@@ -3299,6 +3493,7 @@ def main() -> int:
     print(json.dumps({"hgmma_instructions": {
         name: {"all": n, "tf32": n_tf32} for name, (n, n_tf32) in hgmma.items()}}))
     assert hgmma["flash_attn_fwd_wgmma"][0] > 0, "the bf16 kernel has no wgmma"
+    assert hgmma["flash_attn_bwd_wgmma"][0] > 0, "the bf16 backward has no wgmma"
     assert hgmma["flash_attn_fwd_f32"][1] > 0, "the f32 kernel has no TF32 wgmma"
 
     phase_ends.append((2, time.perf_counter()))
@@ -3377,8 +3572,10 @@ def main() -> int:
     phase_ends.append((5, time.perf_counter()))
     # 6. the flash-attention backward against autograd through the plain
     # version, at the train step's shapes
+    t = time.perf_counter()
     bwd_cases = [backward_case(c) for c in BWD_CASES]
     bad += [c for c in bwd_cases if not c["ok"]]
+    print(json.dumps({"phase": 6, "s": time.perf_counter() - t}), flush=True)
 
     phase_ends.append((6, time.perf_counter()))
     # 7. the second main path: train steps at flagship width. The JSON's
@@ -3413,7 +3610,8 @@ def main() -> int:
                                  "speech": after[2] - before[2]},
                 "flash_launches_bf16": fa.launches_bf16,
                 "flash_launches_f32": fa.launches_f32,
-                "backward_calls": after[0] - before[0]}
+                "backward_calls": after[0] - before[0],
+                "backward_launches": fa.backward_launches}
     for i in range(TRAIN_STEPS):
         steps.append({"step": i, **train_step()})
     train_peak = torch.cuda.max_memory_allocated()
@@ -3440,7 +3638,8 @@ def main() -> int:
         assert all(np.isfinite(v) for v in s_["metrics"].values()), s_["metrics"]
         assert s_["flash_launches_bf16"] == fwd_per_step, (s_, fwd_per_step)
         assert s_["flash_launches_f32"] == 0, s_
-        assert s_["backward_calls"] == bwd_per_step, (s_, bwd_per_step)
+        assert s_["backward_calls"] == s_["backward_launches"] == bwd_per_step, (
+            s_, bwd_per_step)
     # the trace holds the whole step: every flash launch, to the d phase's
     assert flash_traced == fwd_per_step, (flash_traced, fwd_per_step)
     nonfinite = [k for k, x in tree_paths(ts.params).items()
@@ -3469,6 +3668,7 @@ def main() -> int:
     tiny_train_launches_f32 = fa.launches_f32
     tiny_train = {"launches_f32": fa.launches_f32, "launches_bf16": fa.launches_bf16,
                   "backward_calls": fa.backward_calls - before_bwd,
+                  "backward_launches": fa.backward_launches,
                   **compare_train_steps(targs.lr, **joint_step_comparison(on_gpu_t, on_cpu_t))}
     # float32 throughout; tolerances as tests/test_torch_train.py holds the
     # CPU path to the JAX step: metrics 1e-4 relative, BN state 1e-5,
@@ -3479,7 +3679,8 @@ def main() -> int:
                         and tiny_train["update_abs"] <= 1e-3)
     assert tiny_train["ok"], tiny_train
     assert (tiny_train["launches_f32"], tiny_train["launches_bf16"],
-            tiny_train["backward_calls"]) == (tiny_fwd, 0, tiny_bwd), (tiny_train, tiny_fwd)
+            tiny_train["backward_calls"], tiny_train["backward_launches"]) == (
+                tiny_fwd, 0, tiny_bwd, 0), (tiny_train, tiny_fwd)
 
     phase_ends.append((8, time.perf_counter()))
     # 9. the third main path: the training loop at flagship width (bf16),
@@ -3716,6 +3917,9 @@ def main() -> int:
             "hgmma_instructions": hgmma[name][0],
             "main_case": main_name,
             "cases": [c for c in cases if c["dtype"] == dtype]})
+    kernels.append(backward_row(
+        bwd_cases, hgmma, steps, loop_run, ctc_run, nar_run, wide_run, families_run,
+        dp_run))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"backward": bwd_cases}))
     if bad:

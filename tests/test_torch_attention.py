@@ -10,9 +10,12 @@ order 1, since each side rounds its float32 result once.
 
 The kernels themselves run only on a CUDA card; their tests are marked
 `gpu` and skip on a host without one. Among them, the gradients through
-flash_attention's autograd.Function (kernel forward, plain backward)
-against autograd through the plain version; the backward's own parity
-with the JAX package is in tests/test_torch_train.py. The layouts the bf16 kernel reads
+flash_attention's autograd.Function (kernel forward; bf16 backward
+kernel, float32 plain backward) against autograd through the plain
+version, and the bf16 backward kernel against float64 on chip_smoke.py's
+phase-6 scale; the backward's own parity with the JAX package, and that
+of the backward kernel's arithmetic (emulated), is in
+tests/test_torch_train.py. The layouts the bf16 kernel reads
 through TMA (strided views of a fused QKV or KV projection) are pinned on
 the CPU through the plain version, and the wrapper's refusal of layouts
 TMA cannot take through its check. The float32 kernel's split-TF32
@@ -24,8 +27,11 @@ import pytest
 import torch
 
 from unast_tpu_torch.ops import attention
-from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+from unast_tpu_torch.ops.attention import (flash_attention, flash_attention_bwd,
+                                           flash_attention_bwd_plain,
+                                           flash_attention_plain)
 
+import chip_smoke as CS
 import torch_attention_golden as AG
 
 _inputs = AG.inputs
@@ -130,6 +136,28 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     out = flash_attention(q, k, v, kv_lens)
     assert flash_attention.launches == before
     assert torch.equal(out, flash_attention_plain(q, k, v, kv_lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_runs_plain_and_counts_no_launch(dtype):
+    """On the CPU the backward is flash_attention_bwd_plain in either dtype
+    (one backward call, no kernel launch), and the kernel's wrapper
+    refuses a CPU tensor."""
+    q, k, v, kv_lens = (torch.from_numpy(a) for a in _inputs(5, 2, 20, 20, 2, 32))
+    q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
+    do = torch.from_numpy(_inputs(6, 2, 20, 20, 2, 32)[0]).to(dtype)
+    before = (flash_attention.backward_launches, flash_attention.backward_calls)
+    out = flash_attention(q, k, v, kv_lens, causal=True)
+    # <out, do> rather than grad_outputs, whose first use imports sympy
+    got = torch.autograd.grad((out.float() * do.float()).sum(), (q, k, v))
+    assert (flash_attention.backward_launches, flash_attention.backward_calls) == (
+        before[0], before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, kv_lens, True, out.detach(), do)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+    with pytest.raises(ValueError, match="bfloat16 tensors on the card"):
+        flash_attention_bwd(q, k, v, kv_lens, True, out.detach(), do)
+    assert flash_attention.backward_launches == before[0]
 
 
 @pytest.mark.gpu
@@ -373,12 +401,15 @@ def _check_kernel_gradients(device, dtype, layout, causal, tq, tk, h, d, lens):
     kv_lens = torch.tensor(lens or [tk, max(1, tk - 9)], dtype=torch.int32,
                            device=device)
     w = torch.from_numpy(rng.normal(size=(2, tq, h, d)).astype(np.float32)).to(device)
-    before = (flash_attention.launches, flash_attention.backward_calls)
+    before = (flash_attention.launches, flash_attention.backward_calls,
+              flash_attention.backward_launches)
     got = _grads_through(flash_attention, layout, x, kv_lens, causal, h, d, w)
     if device == "cuda":
         torch.cuda.synchronize()
         assert flash_attention.launches == before[0] + 1
     assert flash_attention.backward_calls == before[1] + 1
+    kernel = device == "cuda" and dtype == torch.bfloat16
+    assert flash_attention.backward_launches == before[2] + kernel
     want = _grads_through(flash_attention_plain, layout, x, kv_lens, causal, h, d, w)
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     for a, r in zip(got, want):
@@ -392,7 +423,8 @@ def _check_kernel_gradients(device, dtype, layout, causal, tq, tk, h, d, lens):
 @pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens", GPU_GRAD_CASES)
 def test_gradients_through_kernel_match_plain_autograd_on_gpu(dtype, layout, causal,
                                                               tq, tk, h, d, lens):
-    """flash_attention's autograd.Function (the kernel forward, the plain
+    """flash_attention's autograd.Function (the kernel forward; for
+    bfloat16 the backward kernel, one launch, for float32 the plain
     recompute backward) against autograd through flash_attention_plain,
     on the card. float32 within 1e-4 of the gradient's largest element;
     bfloat16 within 2**-6 of it: the backward reads the forward output o
@@ -401,3 +433,69 @@ def test_gradients_through_kernel_match_plain_autograd_on_gpu(dtype, layout, cau
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _check_kernel_gradients("cuda", dtype, layout, causal, tq, tk, h, d, lens)
+
+
+GPU_BWD_CASES = [  # (layout, causal, tq, tk, h, d, lens, q_start)
+    ("qkv", True, 816, 816, 4, 64, [816, 300], 0),      # flagship self-attention
+    ("cross", True, 408, 816, 4, 64, [816, 500], 408),  # an sp rank's half
+    ("cross", True, 100, 300, 2, 128, [300, 120], 50),  # D 128 with an offset
+    ("qkv", False, 816, 816, 8, 128, [816, 272], 0),    # the wide encoder
+    ("qkv", True, 100, 100, 2, 16, [100, 1], 0),        # D 16, kv_len 1
+    ("cross", False, 70, 150, 2, 32, [150, 64], 0),     # D 32, off the tile
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens,q_start", GPU_BWD_CASES)
+def test_backward_kernel_within_f64_bound_on_gpu(layout, causal, tq, tk, h, d,
+                                                 lens, q_start):
+    """The bf16 backward kernel (one launch) on chip_smoke.py's phase-6
+    criteria: every element within 2**-8 |ref| + 2**-16 A of the float64
+    function, two calls bit for bit, keys past kv_len exactly 0, and
+    within a few bf16 units of the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(tq + tk + d)
+    shapes = ([(2, tq, 3 * h * d)] if layout == "qkv" else
+              [(2, tq, h, d), (2, tk, 2 * h * d)])
+    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)
+         for s in shapes]
+    q, k, v = _views(layout, x[0] if layout == "qkv" else tuple(x), tq, tk, h, d)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o = flash_attention(q, k, v, kv_lens, causal=causal, q_start=q_start)
+    do = torch.from_numpy(rng.normal(size=(2, tq, h, d)).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    args = (q, k, v, kv_lens, causal, o, do, q_start)
+    before = flash_attention.backward_launches
+    mine, again = flash_attention_bwd(*args), flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launches == before + 2
+    plain = flash_attention_bwd_plain(*args)
+    exact, terms = CS.backward_f64(*args)
+    for i, (a, b, p) in enumerate(zip(mine, again, plain)):
+        assert torch.equal(a, b)
+        assert CS.f64_over_bound(a, exact[i], terms[i]) <= 1
+        assert float((a.float() - p.float()).abs().max()) <= 2.0 ** -6 * float(
+            p.float().abs().max())
+        if i:
+            for row, n in enumerate(lens):
+                assert not a[row, n:].any()
+
+
+@pytest.mark.gpu
+def test_backward_kernel_takes_an_expanded_gradient_on_gpu():
+    """out.sum() hands the backward an expanded dO (zero strides), which
+    TMA cannot read: the wrapper copies it to a contiguous tensor and the
+    kernel runs once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, kv = (torch.randn((2, 100, 2, 64), generator=g, device="cuda")
+             .to(torch.bfloat16).requires_grad_(True) for _ in range(2))
+    before = flash_attention.backward_launches
+    got = torch.autograd.grad(flash_attention(q, kv, kv).sum(), (q, kv))
+    assert flash_attention.backward_launches == before + 1
+    want = torch.autograd.grad(flash_attention_plain(q, kv, kv).sum(), (q, kv))
+    for a, r in zip(got, want):
+        assert float((a.float() - r.float()).abs().max()) <= 2.0 ** -6 * float(
+            r.float().abs().max())

@@ -177,17 +177,37 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     unast::flash_attention_fwd, whose one implementation, for every device
     (CompositeExplicitAutograd), is `_forward`, the code that chooses
     kernel or plain: the plain version is reached only under `_forward`'s
-    `cpu` branch, no `try` surrounds the launch, and the operator's
-    autograd formula is the plain backward. A meta tensor takes the fake
-    implementation (what torch.export traces); `_forward` raises for it."""
-    fns = (attention.flash_attention, attention._backward, attention._forward)
+    `cpu` branch, and no `try` surrounds a launch. The operator's autograd
+    formula `_backward` routes a bfloat16 CUDA tensor to the backward
+    kernel's wrapper (flash_attention_bwd, which calls no plain version)
+    and reaches the plain backward only under its next branch, for a CPU
+    tensor or a float32 one (on the card until its kernel). A meta tensor
+    takes the fake implementation (what torch.export traces); `_forward`
+    raises for it."""
+    fns = (attention.flash_attention, attention._backward, attention._forward,
+           attention.flash_attention_bwd)
     trees = {fn: ast.parse(inspect.getsource(fn)) for fn in fns}
     for tree in trees.values():
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     assert "flash_attention_fwd" in _calls(trees[attention.flash_attention])
-    assert "flash_attention_bwd_plain" in _calls(trees[attention._backward])
-    for fn in fns[:2]:
+    for fn in (attention.flash_attention, attention._backward,
+               attention.flash_attention_bwd):
         assert "flash_attention_plain" not in _calls(trees[fn])
+    assert "flash_attention_bwd_plain" not in _calls(trees[attention.flash_attention_bwd])
+    route = next(n for n in ast.walk(trees[attention._backward])
+                 if isinstance(n, ast.If))
+    assert ("cuda" in ast.unparse(route.test)
+            and "bfloat16" in ast.unparse(route.test))
+    kernel_side = ast.Module(body=route.body, type_ignores=[])
+    assert _calls(kernel_side).count("flash_attention_bwd") == 1
+    assert "flash_attention_bwd_plain" not in _calls(kernel_side)
+    (plain_route,) = route.orelse
+    assert isinstance(plain_route, ast.If)
+    test = ast.unparse(plain_route.test)
+    assert "cpu" in test and "float32" in test
+    assert _calls(ast.Module(body=plain_route.body, type_ignores=[])) == [
+        "flash_attention_bwd_plain"]
+    assert _calls(trees[attention._backward]).count("flash_attention_bwd_plain") == 1
     impls = [ast.unparse(n) for n in ast.walk(ast.parse(inspect.getsource(attention)))
              if isinstance(n, ast.Call) and ast.unparse(n.func) == "_LIB.impl"]
     assert impls == ["_LIB.impl('flash_attention_fwd', lambda *a: _forward(*a), "

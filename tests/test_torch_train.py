@@ -28,6 +28,7 @@ distributions (dropout, noise_fn, SpecAugment).
 """
 
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -46,6 +47,7 @@ from unast_tpu_torch.train import losses as TL, optim as TO, steps as TS
 from unast_tpu_torch.train.augment import specaugment
 from unast_tpu_torch.train.config import train_args
 
+import chip_smoke as CS
 import torch_ops_golden as OG
 import torch_serve_golden as SG
 import torch_train_golden as G
@@ -147,6 +149,136 @@ def test_flash_backward_matches_jax_bf16(parts):
         a, r = _np(a), parts[f"flash_bf16/d{name}"]
         bound = 2.0 ** -8 * np.abs(r) + 1e-3 * np.abs(r).max()
         assert (np.abs(a - r) <= bound).all(), (name, float(np.abs(a - r).max()))
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulated_bf16_backward(q, k, v, kv_lens, causal, o, do, q_start=0, split=True):
+    """The bf16 backward kernel's arithmetic (csrc/flash_attn_bwd_wgmma.cu)
+    in float32 on bf16 values ([B, T, H, D] in and out): its three passes
+    in its tile order (64-row query and key tiles; dK/dV query tiles of 32
+    at D 128, from the first that sees the key tile when causal; the
+    pre-pass and dQ over the keys their block sees), float32 sums of the
+    exact products of bf16 operands, the unscaled scores masked to
+    -1e9 sqrt(D), the pre-pass's online max and sum in base 2 giving lse2,
+    P = 2^(S c - lse2), and P and dS split into bf16 high and low parts
+    for dV, dK and dQ (split=False: rounded to bf16 once)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    c = math.log2(math.e) / math.sqrt(d)
+    masked = torch.tensor(-1e9 * math.sqrt(d))
+    qh, kh, vh, oh, doh = (x.transpose(1, 2) for x in (q, k, v, o, do))
+    lens = kv_lens.view(b, 1, 1, 1)
+
+    def keep(query, key):
+        return (key < lens) & ((key <= query + q_start) if causal else True)
+
+    def parts(x):
+        hi = _bf(x)
+        return (hi, _bf(x - hi)) if split else (hi, torch.zeros_like(x))
+
+    def seen(q0):   # keys a 64-row query block sees
+        return min(tk, q_start + min(tq, q0 + 64)) if causal else tk
+
+    def idx(a, n, lim):
+        return torch.arange(a, min(a + n, lim))
+    delta = (doh * oh).sum(-1)
+    lse2 = torch.empty(b, h, tq)
+    for q0 in range(0, tq, 64):            # 1. the pre-pass
+        rows = idx(q0, 64, tq).view(-1, 1)
+        m = torch.full((b, h, len(rows), 1), -math.inf)
+        l = torch.zeros_like(m)
+        for k0 in range(0, seen(q0), 64):
+            s = qh[:, :, q0:q0 + 64] @ kh[:, :, k0:k0 + 64].transpose(-1, -2)
+            s = torch.where(keep(rows, idx(k0, 64, tk)), s, masked)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            l = l * torch.exp2((m - m_new) * c) + torch.exp2(s * c - m_new * c).sum(-1, keepdim=True)
+            m = m_new
+        lse2[:, :, q0:q0 + 64] = (m * c + torch.log2(l))[..., 0]
+    bq = 32 if d == 128 else 64
+    dk, dv = torch.zeros(b, h, tk, d), torch.zeros(b, h, tk, d)
+    for k0 in range(0, tk, 64):            # 2. dK and dV
+        keys = idx(k0, 64, tk).view(-1, 1)
+        for qb in range((max(0, k0 - q_start) // bq if causal else 0) * bq, tq, bq):
+            qt, dot = qh[:, :, qb:qb + bq], doh[:, :, qb:qb + bq]
+            st = torch.where(keep(idx(qb, bq, tq), keys),
+                             kh[:, :, k0:k0 + 64] @ qt.transpose(-1, -2), masked)
+            pt = torch.exp2(st * c - lse2[:, :, None, qb:qb + bq])
+            dst = pt * (vh[:, :, k0:k0 + 64] @ dot.transpose(-1, -2)
+                        - delta[:, :, None, qb:qb + bq])
+            (ph, pl), (dh, dl) = parts(pt), parts(dst)
+            dv[:, :, k0:k0 + 64] += pl @ dot + ph @ dot
+            dk[:, :, k0:k0 + 64] += dl @ qt + dh @ qt
+    dq = torch.zeros(b, h, tq, d)
+    for q0 in range(0, tq, 64):            # 3. dQ
+        rows = idx(q0, 64, tq).view(-1, 1)
+        for k0 in range(0, seen(q0), 64):
+            kt, vt = kh[:, :, k0:k0 + 64], vh[:, :, k0:k0 + 64]
+            s = torch.where(keep(rows, idx(k0, 64, tk)),
+                            qh[:, :, q0:q0 + 64] @ kt.transpose(-1, -2), masked)
+            p = torch.exp2(s * c - lse2[:, :, q0:q0 + 64, None])
+            dh, dl = parts(p * (doh[:, :, q0:q0 + 64] @ vt.transpose(-1, -2)
+                                - delta[:, :, q0:q0 + 64, None]))
+            dq[:, :, q0:q0 + 64] += dl @ kt + dh @ kt
+    return tuple(_bf(x.transpose(1, 2)) for x in (dq / math.sqrt(d), dk / math.sqrt(d), dv))
+
+
+def _f64_over_bound(q, k, v, lens, causal, o, do, q_start, grads):
+    """Each gradient's worst element against float64 on chip_smoke.py's
+    phase-6 scale, 2**-8 |ref| + 2**-16 A (CS.f64_over_bound)."""
+    exact, terms = CS.backward_f64(q, k, v, lens, causal, o, do, q_start)
+    return [CS.f64_over_bound(g, r, a) for g, r, a in zip(grads, exact, terms)]
+
+
+def test_emulated_bf16_backward_kernel_matches_jax(parts):
+    """The backward kernel's arithmetic, emulated, gives JAX's bf16
+    gradients within test_flash_backward_matches_jax_bf16's bound, and the
+    float64 function within phase 6's; with P and dS rounded to bf16 once
+    it misses the latter, which is why the kernel splits them."""
+    layout, causal, tq, tk, h, d = PG.FLASH_BF16
+    fused, lens, w = PG.bf16_case()
+    q, k, v = (_bf(x) for x in _views(layout, [torch.from_numpy(fused[0])], h, d))
+    lens = torch.from_numpy(lens)
+    o = _bf(flash_attention_plain(*(x.to(torch.bfloat16) for x in (q, k, v)), lens, causal))
+    do = _bf(torch.from_numpy(w))
+    mine = _emulated_bf16_backward(q, k, v, lens, causal, o, do)
+    for name, a in zip("qkv", mine):
+        r = parts[f"flash_bf16/d{name}"]
+        a = a.flatten(-2).numpy()
+        bound = 2.0 ** -8 * np.abs(r) + 1e-3 * np.abs(r).max()
+        assert (np.abs(a - r) <= bound).all(), (name, float(np.abs(a - r).max()))
+    assert max(_f64_over_bound(q, k, v, lens, causal, o, do, 0, mine)) <= 1
+    rounded = _emulated_bf16_backward(q, k, v, lens, causal, o, do, split=False)
+    assert max(_f64_over_bound(q, k, v, lens, causal, o, do, 0, rounded)) > 1
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,q_start,lens", [
+    (2, 150, 150, 2, 32, True, 0, [150, 50]),       # three tiles, ragged
+    (2, 100, 300, 2, 128, True, 50, [300, 120]),    # D 128, an sp rank's offset
+    (2, 130, 130, 2, 64, False, 0, [1, 65]),        # kv_len 1, off the tile
+    (2, 40, 120, 2, 16, True, 80, [120, 100]),      # Tq < the tile
+])
+def test_emulated_bf16_backward_kernel_within_f64_bound(b, tq, tk, h, d, causal,
+                                                        q_start, lens):
+    """Over several tiles, causal offsets and ragged kv_lens the emulated
+    kernel holds phase 6's float64 bound, as the plain backward does, and
+    keys past kv_len get exact zeros; P and dS rounded to bf16 miss it."""
+    g = torch.Generator().manual_seed(tq + tk + d)
+    q, k, v, do = (_bf(torch.randn(b, t, h, d, generator=g)) for t in (tq, tk, tk, tq))
+    lens = torch.tensor(lens, dtype=torch.int32)
+    o = _bf(flash_attention_plain(q, k, v, lens, causal, q_start))
+    mine = _emulated_bf16_backward(q, k, v, lens, causal, o, do, q_start)
+    assert max(_f64_over_bound(q, k, v, lens, causal, o, do, q_start, mine)) <= 1
+    plain = flash_attention_bwd_plain(*(x.to(torch.bfloat16) for x in (q, k, v)), lens,
+                                      causal, o.to(torch.bfloat16), do.to(torch.bfloat16),
+                                      q_start)
+    assert max(_f64_over_bound(q, k, v, lens, causal, o, do, q_start, plain)) <= 1
+    for i, n in enumerate(lens.tolist()):
+        assert not mine[1][i, n:].any() and not mine[2][i, n:].any()
+    rounded = _emulated_bf16_backward(q, k, v, lens, causal, o, do, q_start, split=False)
+    assert max(_f64_over_bound(q, k, v, lens, causal, o, do, q_start, rounded)) > 1
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -114,17 +114,6 @@ struct Params {
   float mask_raw;    // -1e9 * sqrt(D): a masked score before the scale
 };
 
-// (x0, x1) rounded to a bf16 pair (x0 in the low half) and what the
-// rounding left over, rounded to a bf16 pair too: x = hi + lo to 16 bits.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 back = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, Plan<D>::kMinBlocks)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,

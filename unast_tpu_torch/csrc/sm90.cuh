@@ -1,7 +1,7 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory
-// addresses, mbarriers, TMA tensor loads, warpgroup MMA (wgmma) in bf16 and
-// TF32, and the float conversions around them; on the host, the lookup of
-// libcuda's tensor-map encoder.
+// addresses, mbarriers, TMA tensor and bulk loads, warpgroup MMA (wgmma) in
+// bf16 and TF32, and the float conversions around them; on the host, the
+// lookup of libcuda's tensor-map encoder.
 //
 // Each device helper is one PTX instruction or a short fixed sequence,
 // named after it. Header-only, included by the kernels under csrc/ that
@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,6 +99,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16) from global `src` to shared memory at
+// `dst`, both 16-byte aligned; completion adds the bytes to `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor. `layout`: 1 = 128-byte swizzle, 2 = 64,
@@ -127,6 +139,13 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Waits until at most N of the warpgroup's committed wgmma groups are still
+// pending; groups complete in the order they were committed.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // Pins accumulator registers across the asynchronous wgmma: the compiler
 // must not move or reuse them between the wgmma and the wait that ends it.
 template <int N>
@@ -147,6 +166,25 @@ template <int N>
 struct WgmmaSS;
 template <int N>
 struct WgmmaRS;
+
+template <>
+struct WgmmaSS<32> {
+  static __device__ __forceinline__ void run(
+      float (&d)[16], uint64_t desc_a,
+      uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
 
 template <>
 struct WgmmaSS<64> {
@@ -383,6 +421,18 @@ struct WgmmaTf32RS<64> {
           "r"(scale_d));
   }
 };
+
+// (x0, x1) rounded to a bf16 pair (x0 in the low half) and what the
+// rounding left over, rounded to a bf16 pair too: x = hi + lo to 16 bits.
+// Two products against the same bf16 operand then carry 16 bits of x.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
 // 2^x on the special-function unit (about 2^-22 relative error); results
 // below 2^-126 flush to 0.

@@ -1,11 +1,12 @@
-"""Flash attention of the port: two hand-written Hopper kernels behind
-`flash_attention`, their plain PyTorch version `flash_attention_plain`, and
-the backward pass.
+"""Flash attention of the port: two hand-written Hopper forward kernels
+behind `flash_attention`, their plain PyTorch version
+`flash_attention_plain`, and the backward pass (a bfloat16 kernel and its
+plain version `flash_attention_bwd_plain`).
 
 Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel and its
 custom_vjp). Used by the transformer encoders and the teacher-forced
-decoders when ModelConfig.attn_impl == 'flash'. Both kernels run on the
-tensor cores with wgmma fed by TMA: bfloat16 inputs go to
+decoders when ModelConfig.attn_impl == 'flash'. Both forward kernels run
+on the tensor cores with wgmma fed by TMA: bfloat16 inputs go to
 csrc/flash_attn_fwd_wgmma.cu, float32 inputs to csrc/flash_attn_fwd_f32.cu,
 which splits every operand into two TF32 parts and sums three TF32
 products to keep float32 accuracy (after a pre-pass that splits k and v
@@ -16,11 +17,13 @@ wrapper are gone, and load kv_lens per batch row themselves.
 The forward is the registered operator unast::flash_attention_fwd
 (`flash_attention_fwd`), so that torch.export keeps it as one node of an
 exported program, as jax.export keeps the pallas_call, and loading such a
-program needs only this module imported. The backward is
-`flash_attention_bwd_plain`, the JAX package's recompute backward
-(_flash_vjp_bwd, plain jnp there, so plain torch here) on the same
-[B, T, H, D] layout, registered as the operator's autograd formula on
-every device.
+program needs only this module imported. Its autograd formula is the JAX
+package's recompute backward (_flash_vjp_bwd) on the same [B, T, H, D]
+layout: for bfloat16 on the card the hand-written kernel
+csrc/flash_attn_bwd_wgmma.cu (`flash_attention_bwd`: a pre-pass for lse
+and delta, then dK/dV and dQ on wgmma, P and dS split into two bf16
+parts), on the CPU and for float32 on the card `flash_attention_bwd_plain`,
+its plain torch version (float32 on the card until its own kernel).
 """
 
 import ctypes
@@ -35,6 +38,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 # dtype -> the kernel library (and C entry point) that takes it
 _LIBRARY = {torch.float32: "flash_attn_fwd_f32",
             torch.bfloat16: "flash_attn_fwd_wgmma"}
+_BACKWARD_LIBRARY = "flash_attn_bwd_wgmma"   # bfloat16 only
 _TMA_REFUSED = -1   # the TMA unit refused a layout
 
 
@@ -145,10 +149,55 @@ def bind(lib_path, name: str):
     return launch
 
 
+def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
+    """launch(q, k, v, kv_lens, causal, o, do, q_start=0) -> (dq, dk, dv)
+    through the backward's C entry point `name` of the library at
+    `lib_path`, on the current stream: bind's conventions, with the
+    workspace `<name>_workspace(B, H, Tq, D)` floats (lse and delta). The
+    gradients are new contiguous tensors of q's dtype. launch checks no
+    input (flash_attention_bwd does) and raises if a launch failed."""
+    lib = ctypes.CDLL(str(lib_path))
+    fn = getattr(lib, name)
+    workspace = getattr(lib, name + "_workspace")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 24
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_void_p] * 2)
+    workspace.restype = ctypes.c_longlong
+    workspace.argtypes = [ctypes.c_int] * 4
+
+    def launch(q, k, v, kv_lens, causal, o, do, q_start=0):
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+        dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+        ws = torch.empty(workspace(b, h, tq, d), dtype=torch.float32,
+                         device=q.device)
+        tensors = (q, k, v, o, do, dq, dk, dv)
+        err = fn(*[x.data_ptr() for x in tensors],
+                 None if kv_lens is None else kv_lens.data_ptr(),
+                 b, h, tq, tk, d, *[st for x in tensors for st in _strides(x)],
+                 int(causal), int(q_start), 1.0 / math.sqrt(d),
+                 torch.cuda.current_stream(q.device).cuda_stream, ws.data_ptr())
+        if err == _TMA_REFUSED:
+            raise ValueError(
+                f"{name}: the TMA unit refused the layout of q, k, v or dO "
+                f"(strides {q.stride()}, {k.stride()}, {v.stride()}, {do.stride()})")
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: error {err}")
+        return dq, dk, dv
+    return launch
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
-    """launch() of this tree's library `name` (bind), built at first use."""
+    """launch() of this tree's library `name` (bind, or bind_backward for
+    the backward's), built at first use."""
     from .build import library
+    if name == _BACKWARD_LIBRARY:
+        return bind_backward(library(name), name)
     return bind(library(name), name)
 
 
@@ -191,14 +240,21 @@ def _check(q, k, v, kv_lens, q_start: int = 0):
         raise ValueError(f"kv_lens must be [{b}], got {tuple(kv_lens.shape)}")
     if q.dtype == torch.bfloat16:  # the wgmma kernel reads through TMA
         for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"{name}'s base address is not 16-byte "
-                                 "aligned, which TMA needs")
-            for dim, st in zip("bth", _strides(x)):
-                if (2 * st) % 16 or not 0 < 2 * st < 2 ** 40:
-                    raise ValueError(
-                        f"{name}'s {dim} stride is {2 * st} bytes; TMA "
-                        "needs a positive multiple of 16 below 2**40")
+            refused = _tma_refusal(x)
+            if refused:
+                raise ValueError(f"{name}'s {refused}")
+
+
+def _tma_refusal(x):
+    """Why the TMA unit cannot read the bfloat16 [B, T, H, D] tensor x
+    (its base address or a b/t/h stride), or None if it can."""
+    if x.data_ptr() % 16:
+        return "base address is not 16-byte aligned, which TMA needs"
+    for dim, st in zip("bth", _strides(x)):
+        if (2 * st) % 16 or not 0 < 2 * st < 2 ** 40:
+            return (f"{dim} stride is {2 * st} bytes; TMA needs a positive "
+                    "multiple of 16 below 2**40")
+    return None
 
 
 def _forward(q, k, v, kv_lens, causal: bool, q_start: int = 0):
@@ -233,15 +289,55 @@ def _setup_backward(ctx, inputs, output):
     ctx.causal, ctx.q_start = causal, q_start
 
 
+def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, do,
+                        q_start: int = 0):
+    """(dq, dk, dv) of flash attention through the bfloat16 backward kernel
+    (csrc/flash_attn_bwd_wgmma.cu, three launches on the current stream),
+    adding one to `flash_attention.backward_launches`. The same function
+    as flash_attention_bwd_plain; q, k, v as flash_attention takes them
+    (bfloat16 on the card, TMA-readable, checked here), o the forward's
+    contiguous output and do [B, Tq, H, D], bfloat16 on q's device. A do
+    that TMA cannot read (an expanded gradient with zero strides, as
+    autograd hands over for out.sum(), or one not 16-byte aligned) is
+    first copied to a contiguous tensor: a layout copy, not a fallback.
+    Raises on anything else the kernel does not take."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_bwd takes bfloat16 tensors on the "
+                         f"card, got {q.dtype} on {q.device}")
+    _check(q, k, v, kv_lens, q_start)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or not o.is_contiguous():
+        raise ValueError("o and do must be bfloat16 and o contiguous, as the "
+                         "forward writes it")
+    if do.stride(3) != 1 or _tma_refusal(do):
+        do = do.contiguous()
+    lens = None
+    if kv_lens is not None:
+        lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
+    grads = _kernel(_BACKWARD_LIBRARY)(q, k, v, lens, causal, o, do, q_start)
+    flash_attention.backward_launches += 1
+    return grads
+
+
 def _backward(ctx, do):
     """The JAX package's custom_vjp backward (_flash_vjp_bwd) behind the
-    operator on every device: q, k, v, kv_lens and the output o are kept
-    for it, as JAX's residuals are."""
+    operator: q, k, v, kv_lens and the output o are kept for it, as JAX's
+    residuals are. A bfloat16 tensor on the card goes to the kernel
+    (flash_attention_bwd); a CPU tensor, and a float32 one on the card
+    until its kernel, to flash_attention_bwd_plain."""
     q, k, v, kv_lens, o = ctx.saved_tensors
     flash_attention.backward_calls += 1
     with record_function("unast/flash_attention_bwd"):
-        dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal,
-                                               o, do, ctx.q_start)
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+            dq, dk, dv = flash_attention_bwd(q, k, v, kv_lens, ctx.causal, o,
+                                             do, ctx.q_start)
+        elif q.device.type == "cpu" or q.dtype == torch.float32:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal,
+                                                   o, do, ctx.q_start)
+        else:
+            raise ValueError(f"no flash backward for {q.dtype} on {q.device}")
     return dq, dk, dv, None, None, None
 
 
@@ -251,7 +347,8 @@ def _backward(ctx, do):
 # every device, is `_forward` (looked up at each call): the kernel on a
 # CUDA tensor, the plain version on a CPU one. torch.export and torch.utils.checkpoint see one
 # opaque op; the fake implementation gives the output's shape and layout,
-# the autograd formula is the plain recompute backward. (torch.library's
+# the autograd formula is `_backward` (the bfloat16 kernel on the card,
+# the plain recompute on the CPU and for float32). (torch.library's
 # custom_op decorator would do the same, but its first call imports
 # torch._dynamo, seconds in every process.)
 _LIB = torch.library.Library("unast", "DEF")
@@ -282,9 +379,12 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False,
     or raises (a bfloat16 tensor whose base or b/t/h stride is not a
     multiple of 16 bytes raises ValueError; float32 takes any strides). On
     a CPU tensor it runs `flash_attention_plain`. Where q, k or v needs a
-    gradient, the backward is `flash_attention_bwd_plain` on either device,
-    adding one to `flash_attention.backward_calls`. Precondition: every
-    kv_len >= 1; a row with no visible key has no defined output."""
+    gradient, each backward adds one to `flash_attention.backward_calls`;
+    on a bfloat16 CUDA tensor it launches the backward kernel
+    (`flash_attention_bwd`, adding one to `backward_launches`) or raises,
+    on a CPU tensor or a float32 CUDA tensor it runs
+    `flash_attention_bwd_plain`. Precondition: every kv_len >= 1; a row
+    with no visible key has no defined output."""
     if q_start:
         return flash_attention_fwd(q, k, v, kv_lens, causal, int(q_start))
     return flash_attention_fwd(q, k, v, kv_lens, causal)
@@ -293,4 +393,5 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False,
 flash_attention.launches = 0        # every launch
 flash_attention.launches_bf16 = 0   # of flash_attn_fwd_wgmma
 flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32 (pre-pass + kernel)
-flash_attention.backward_calls = 0  # of flash_attention_bwd_plain through autograd
+flash_attention.backward_calls = 0     # every backward through autograd
+flash_attention.backward_launches = 0  # of flash_attn_bwd_wgmma (3 kernels a call)
