@@ -21,8 +21,10 @@ Phases (each that fails exits non-zero; nothing is caught):
      also the shapes of phase 5's TINY serve (D 16, B <= 4, T 8-24), the
      route's main case, and a V one-hot in the key, which pins the
      split-TF32 kernel's key order. bf16 within 2e-2 and within one bf16 rounding of the output,
-     float32 within 2e-5. Each case with its device time (torch.profiler,
-     the route's own kernels, the float32 pre-pass shown apart), its
+     float32 within 2e-5; the lse each kernel writes beside o against
+     the plain lse (flash_attention_fwd_plain) within 2**-14 (1 + |lse|).
+     Each case with its device time (torch.profiler, the route's own
+     kernels, the float32 pre-pass shown apart), its
      per-call time (CUDA events over back-to-back calls, host work
      included), the card's bound and a library call's time;
   4. the main path: a Synthesizer on configs/transformer_d_curriculum_fast.json
@@ -48,7 +50,7 @@ Phases (each that fails exits non-zero; nothing is caught):
      2**-8 |ref| + 2**-16 A (A the sum of the absolute terms of its
      product, dS expanded into its own: backward_f64), two calls bit for
      bit, keys past kv_len exactly 0; each
-     case with the kernel's device time (its three launches apart), its
+     case with the kernel's device time (its two launches apart), its
      per-call time, the bound, the plain version's time and, as its
      library time, that of SDPA's autograd backward under the same mask;
      the phase's seconds;
@@ -249,9 +251,12 @@ H100_BYTES_PER_S = 3.35e12
 # the route's kernels as the profiler names them (the float32 pre-pass first)
 ROUTE_KERNELS = {torch.bfloat16: ("flash_fwd_wgmma_kernel",),
                  torch.float32: ("tf32_split_kernel", "flash_fwd_tf32x3_kernel")}
-# the bf16 backward's three launches, in order
-BWD_KERNELS = ("flash_bwd_prepass_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel")
+# the bf16 backward's two launches, in order
+BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_kernel")
+# the forward kernels' lse against the plain lse: float32 sums of up to Tk
+# terms of 2^-22 relative error each (ex2.approx), and S from another
+# order of the same float32 sums
+LSE_TOL = 2.0 ** -14
 
 
 class Case(NamedTuple):
@@ -743,14 +748,26 @@ def check_recorded_flash(seen: dict) -> list:
     return recs
 
 
+def lse_agreement(lse, ref):
+    """(max abs error, worst error over LSE_TOL (1 + |ref|)) of a kernel's
+    lse against the plain lse."""
+    err = (lse - ref).abs()
+    return float(err.max()), float((err / (LSE_TOL * (1 + ref.abs()))).max())
+
+
 def flash_case(c: Case):
-    """Kernel vs plain (and SDPA as a yardstick) on case c's inputs."""
-    from unast_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    """Kernel vs plain (and SDPA as a yardstick) on case c's inputs: o and,
+    from the operator's second output, lse."""
+    from unast_tpu_torch.ops.attention import (flash_attention, flash_attention_fwd,
+                                               flash_attention_fwd_plain)
     q, k, v, kv_lens = case_inputs(c)
-    out = flash_attention(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
+    out, lse = flash_attention_fwd(q, k, v, kv_lens, c.causal, c.q_start)
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, kv_lens, causal=c.causal,
+                                             q_start=c.q_start)
     max_err, tol, ok, _ = flash_agreement(out, ref)
+    lse_err, lse_ratio = lse_agreement(lse, ref_lse)
+    ok = ok and lse_ratio <= 1
     iters = 50 if c.tq * c.tk <= 300 * 815 else 20
     bound_ms, bound_by, bound_cuda_core_ms = attention_bound(q, k, kv_lens, c.causal,
                                                              c.q_start)
@@ -765,10 +782,11 @@ def flash_case(c: Case):
         "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
         "causal": c.causal, "q_start": c.q_start, "kv_lens": kv_lens.tolist(),
         "one_hot_v": c.one_hot_v,
-        "max_abs_err": max_err, "tol": tol, "ok": ok,
+        "max_abs_err": max_err, "tol": tol, "lse_max_abs_err": lse_err,
+        "lse_err_over_tol": lse_ratio, "ok": ok,
         "ms": cuda_ms(kernel, iters),
         "device_ms": sum(per_kernel.values()),
-        "plain_ms": cuda_ms(lambda: flash_attention_plain(
+        "plain_ms": cuda_ms(lambda: flash_attention_fwd_plain(
             q, k, v, kv_lens, causal=c.causal, q_start=c.q_start), iters),
         "library_ms": cuda_ms(library, iters),
         "library_device_ms": device_ms(library, (), iters)[""],
@@ -897,12 +915,13 @@ def backward_case(c: Case):
     (flash_attention_bwd) against flash_attention_bwd_plain on the same
     q, k, v, o, dO and kv_lens, both against float64 (f64_over_bound),
     two calls bit for bit and keys past kv_len exactly 0, and the times:
-    per call over back-to-back calls (CUDA events), each of the three
+    per call over back-to-back calls (CUDA events), each of the two
     launches' device time, the plain version's and SDPA's autograd
     backward's. For float32 the plain backward's times."""
     from unast_tpu_torch.ops.attention import (flash_attention,
                                                flash_attention_bwd,
                                                flash_attention_bwd_plain,
+                                               flash_attention_fwd,
                                                flash_attention_plain)
     fa = flash_attention
     leaves, kv_lens = fused_leaves(c)
@@ -923,9 +942,11 @@ def backward_case(c: Case):
         errs[name] = {"max_abs_err": err, "max_abs_ref": top}
         ok = ok and err <= rel * top
     q, k, v = qkv_views(c, leaves)
-    o = flash_attention(q, k, v, kv_lens, causal=c.causal, q_start=c.q_start)
+    o, lse = flash_attention_fwd(q, k, v, kv_lens, c.causal, c.q_start)
     do = w.to(c.dtype)
-    iters = 20 if c.tq * c.tk >= 816 * 304 else 50
+    # 50 calls a window at every size: the profiler can miss a few launches
+    # at the start of a window, and the kernel's are only 2-250 us long
+    iters = 50
     bound_ms, bound_by = backward_bound(q, kv_lens, c.causal, c.q_start)
     args = (q, k, v, kv_lens, c.causal, o, do, c.q_start)
 
@@ -947,7 +968,8 @@ def backward_case(c: Case):
                                                   q_start=c.q_start), iters)}
     if bf:
         def kernel():
-            return flash_attention_bwd(*args)
+            return flash_attention_bwd(q, k, v, kv_lens, c.causal, o, lse, do,
+                                       c.q_start)
         mine, again = kernel(), kernel()
         ref_plain = plain()
         exact, terms = backward_f64(*args)
@@ -1017,7 +1039,7 @@ def backward_row(bwd_cases, hgmma, steps, loop_run, ctc_run, nar_run, wide_run,
         "replaces": "unast_tpu/ops/attention.py:157", "dtype": "bfloat16",
         "launches": sum(s_["backward_launches"] for s_ in steps),
         "launches_counted_on": f"flagship train: {TRAIN_STEPS} untraced step(s), bf16 "
-                               "(phase 7), one launch = the three kernels of one backward",
+                               "(phase 7), one launch = the two kernels of one backward",
         **{f"launches_{k}": n for k, (n, _) in paths.items()},
         **{f"launches_{k}_counted_on": where for k, (_, where) in paths.items()},
         **{key: main[key] for key in (
@@ -3911,9 +3933,11 @@ def main() -> int:
                                        "(phases 10, 11): the RNN calls no attention kernel",
             **ctc_counts, **one_pass_counts, **family_counts, **slice10_counts,
             **{key: main_case[key] for key in (
-                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "library_device_ms",
+                "max_abs_err", "lse_max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms",
                 "prepass_device_ms", "bound_cuda_core_ms") if key in main_case},
+            "lse_worst_err_over_tol": max(c["lse_err_over_tol"] for c in cases
+                                          if c["dtype"] == dtype),
             "hgmma_instructions": hgmma[name][0],
             "main_case": main_name,
             "cases": [c for c in cases if c["dtype"] == dtype]})

@@ -17,7 +17,8 @@ bf16 rounding of the output, SDPA's device ms and the bounds; and each
 library's ptxas report. Prints one JSON line per measurement and writes
 them all to chiprun_out/flash_ab.json. Needs a CUDA card and nvcc. Both
 trees' C entry points must take the same arguments (`q_start` after
-`causal`, which the kernels took in PR 12).
+`causal`, and the lse pointer after o, which the forward kernels write
+beside o). The backward has its own A/B, bwd_ab.py.
 """
 
 import argparse
@@ -129,7 +130,7 @@ def main():
         for label in (f"base_{tree}", tree, tree, f"base_{tree}"):
             def run(launch=launchers[label]):
                 return launch(q, k, v, kv_lens, c.causal, c.q_start)
-            out = run()
+            out = run()[0]
             torch.cuda.synchronize()
             err = (out.float() - ref).abs()
             row = {"case": c.name, "variant": label, "max_abs_err": float(err.max()),

@@ -29,6 +29,8 @@ import torch
 from unast_tpu_torch.ops import attention
 from unast_tpu_torch.ops.attention import (flash_attention, flash_attention_bwd,
                                            flash_attention_bwd_plain,
+                                           flash_attention_fwd,
+                                           flash_attention_fwd_plain,
                                            flash_attention_plain)
 
 import chip_smoke as CS
@@ -81,6 +83,38 @@ def test_plain_matches_jax_bf16(golden, causal):
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), golden[f"bf16/{causal}"],
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal,tq,tk,d", AG.LSE_CASES)
+def test_plain_lse_matches_jax_f32(golden, causal, tq, tk, d):
+    """flash_attention_fwd_plain's lse against the JAX package's, the
+    logsumexp of _ref_scores that _flash_vjp_bwd recomputes (golden), at
+    TINY shapes with ragged kv_lens, in float32 within 1e-5; its o is
+    flash_attention_plain's, bit for bit."""
+    args = [torch.from_numpy(a) for a in _inputs(7, 2, tq, tk, 2, d)]
+    o, lse = flash_attention_fwd_plain(*args, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 2, tq)
+    assert torch.equal(o, flash_attention_plain(*args, causal=causal))
+    np.testing.assert_allclose(lse.numpy(), golden["lse/" + AG.key(causal, tq, tk, d)],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_operator_returns_o_and_lse():
+    """The registered operator on the CPU returns (o, lse), the plain
+    version's both, bit for bit; lse carries no gradient, and gradients
+    through the operator are flash_attention_bwd_plain's, which
+    recomputes lse."""
+    q, k, v, kv_lens = (torch.from_numpy(a) for a in _inputs(8, 2, 20, 24, 2, 32))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    o, lse = flash_attention_fwd(q, k, v, kv_lens, True, 4)
+    want_o, want_lse = flash_attention_fwd_plain(q, k, v, kv_lens, True, 4)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert o.requires_grad and not lse.requires_grad
+    got = torch.autograd.grad((o * o).sum(), (q, k, v))
+    want = flash_attention_bwd_plain(q, k, v, kv_lens, True, o.detach(),
+                                     2 * o.detach(), 4)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
 
 
 def _tf32(x):
@@ -155,8 +189,9 @@ def test_cpu_backward_runs_plain_and_counts_no_launch(dtype):
     want = flash_attention_bwd_plain(q, k, v, kv_lens, True, out.detach(), do)
     for a, r in zip(got, want):
         assert torch.equal(a, r)
+    lse = flash_attention_fwd_plain(q, k, v, kv_lens, True)[1]
     with pytest.raises(ValueError, match="bfloat16 tensors on the card"):
-        flash_attention_bwd(q, k, v, kv_lens, True, out.detach(), do)
+        flash_attention_bwd(q, k, v, kv_lens, True, out.detach(), lse, do)
     assert flash_attention.backward_launches == before[0]
 
 
@@ -449,10 +484,11 @@ GPU_BWD_CASES = [  # (layout, causal, tq, tk, h, d, lens, q_start)
 @pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens,q_start", GPU_BWD_CASES)
 def test_backward_kernel_within_f64_bound_on_gpu(layout, causal, tq, tk, h, d,
                                                  lens, q_start):
-    """The bf16 backward kernel (one launch) on chip_smoke.py's phase-6
-    criteria: every element within 2**-8 |ref| + 2**-16 A of the float64
-    function, two calls bit for bit, keys past kv_len exactly 0, and
-    within a few bf16 units of the plain backward."""
+    """The bf16 backward kernel (one launch) fed the lse the forward kernel
+    saved, on chip_smoke.py's phase-6 criteria: every element within
+    2**-8 |ref| + 2**-16 A of the float64 function, two calls bit for bit,
+    keys past kv_len exactly 0, and within a few bf16 units of the plain
+    backward (which recomputes lse)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(tq + tk + d)
@@ -462,12 +498,13 @@ def test_backward_kernel_within_f64_bound_on_gpu(layout, causal, tq, tk, h, d,
          for s in shapes]
     q, k, v = _views(layout, x[0] if layout == "qkv" else tuple(x), tq, tk, h, d)
     kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    o = flash_attention(q, k, v, kv_lens, causal=causal, q_start=q_start)
+    o, lse = flash_attention_fwd(q, k, v, kv_lens, causal, q_start)
     do = torch.from_numpy(rng.normal(size=(2, tq, h, d)).astype(np.float32)).cuda().to(
         torch.bfloat16)
     args = (q, k, v, kv_lens, causal, o, do, q_start)
     before = flash_attention.backward_launches
-    mine, again = flash_attention_bwd(*args), flash_attention_bwd(*args)
+    kernel_args = (q, k, v, kv_lens, causal, o, lse, do, q_start)
+    mine, again = flash_attention_bwd(*kernel_args), flash_attention_bwd(*kernel_args)
     torch.cuda.synchronize()
     assert flash_attention.backward_launches == before + 2
     plain = flash_attention_bwd_plain(*args)
@@ -480,6 +517,36 @@ def test_backward_kernel_within_f64_bound_on_gpu(layout, causal, tq, tk, h, d,
         if i:
             for row, n in enumerate(lens):
                 assert not a[row, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens,q_start", GPU_BWD_CASES)
+def test_kernel_lse_matches_plain_on_gpu(dtype, layout, causal, tq, tk, h, d,
+                                         lens, q_start):
+    """Each forward kernel's lse (the operator's second output, one launch)
+    against flash_attention_fwd_plain's within chip_smoke.py's LSE_TOL
+    (1 + |lse|), D 16 to 128, with and without q_start, on the fused
+    views; o as the forward tests hold it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(tq + tk + d + 1)
+    shapes = ([(2, tq, 3 * h * d)] if layout == "qkv" else
+              [(2, tq, h, d), (2, tk, 2 * h * d)])
+    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dtype)
+         for s in shapes]
+    q, k, v = _views(layout, x[0] if layout == "qkv" else tuple(x), tq, tk, h, d)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = flash_attention.launches
+    o, lse = flash_attention_fwd(q, k, v, kv_lens, causal, q_start)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_o, ref_lse = flash_attention_fwd_plain(q, k, v, kv_lens, causal, q_start)
+    assert lse.shape == (2, h, tq) and lse.dtype == torch.float32
+    _, ratio = CS.lse_agreement(lse, ref_lse)
+    assert ratio <= 1, ratio
+    assert CS.flash_agreement(o, ref_o)[2]
 
 
 @pytest.mark.gpu

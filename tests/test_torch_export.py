@@ -73,6 +73,37 @@ def test_export_bundle_roundtrip(bundle, tmp_path):
         export_bundle(path, {}, platforms=("cpu",))
 
 
+def test_load_bundle_refuses_another_flash_schema(tmp_path):
+    """The manifest records the flash operator's schema: a bundle from
+    before the operator returned lse beside o (a manifest with no schema,
+    or with the one-output schema) is refused with a ValueError naming
+    both schemas; the bundle as written loads."""
+    import json
+    import zipfile
+
+    from unast_tpu_torch import nn
+    from unast_tpu_torch.ops import attention
+    lin = {"w": torch.randn(8, 4), "b": torch.randn(4)}
+    path = str(tmp_path / "b.zip")
+    export_bundle(path, {"lin": (nn.linear, (lin, torch.randn(3, 8)))})
+    assert load_bundle(path).manifest["flash_schema"] == attention.FLASH_SCHEMA
+    with zipfile.ZipFile(path) as z:
+        files = {n: z.read(n) for n in z.namelist()}
+    old = attention.FLASH_SCHEMA.replace("-> (Tensor, Tensor)", "-> Tensor")
+    for schema, named in ((None, "no schema recorded"), (old, old)):
+        manifest = json.loads(files["manifest.json"])
+        manifest.pop("flash_schema")
+        if schema is not None:
+            manifest["flash_schema"] = schema
+        stale = str(tmp_path / "stale.zip")
+        with zipfile.ZipFile(stale, "w") as z:
+            for n, data in files.items():
+                z.writestr(n, json.dumps(manifest) if n == "manifest.json" else data)
+        with pytest.raises(ValueError) as e:
+            load_bundle(stale)
+        assert named in str(e.value) and attention.FLASH_SCHEMA in str(e.value)
+
+
 def test_export_synthesizer_matches_jax(bundle):
     """export_synthesizer's nar_tts, ctc_asr and vocode, loaded back and
     called, against the JAX package's exported programs at the same

@@ -193,6 +193,7 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     for fn in (attention.flash_attention, attention._backward,
                attention.flash_attention_bwd):
         assert "flash_attention_plain" not in _calls(trees[fn])
+        assert "flash_attention_fwd_plain" not in _calls(trees[fn])
     assert "flash_attention_bwd_plain" not in _calls(trees[attention.flash_attention_bwd])
     route = next(n for n in ast.walk(trees[attention._backward])
                  if isinstance(n, ast.If))
@@ -215,7 +216,8 @@ def test_flash_wrapper_never_falls_back_on_cuda():
     assert attention.flash_attention_fwd is torch.ops.unast.flash_attention_fwd.default
     fn = trees[attention._forward].body[0]
     plain_calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
-                   and getattr(n.func, "id", None) == "flash_attention_plain"]
+                   and getattr(n.func, "id", None) in ("flash_attention_plain",
+                                                       "flash_attention_fwd_plain")]
     assert len(plain_calls) == 1
     first = fn.body[1]   # after the docstring
     assert isinstance(first, ast.If) and "cpu" in ast.unparse(first.test)

@@ -155,7 +155,7 @@ def test_config_recipe_takes_a_joint_step(recipe):
     guided attention and discriminator kept): one joint step of
     make_train_step on the CPU, finite metrics, flash forwards (the
     registered operator's, counted where its CPU implementation runs the
-    plain version; under remat the checkpoint recompute included) and
+    plain version, flash_attention_fwd_plain; under remat the checkpoint recompute included) and
     backward calls as flash_calls_per_step counts them; the MoE recipe
     reports its aux."""
     path, flags = RECIPES[recipe]
@@ -170,13 +170,13 @@ def test_config_recipe_takes_a_joint_step(recipe):
                              device="cpu")
     before = flash_attention.backward_calls
     forwards = []
-    plain = attention.flash_attention_plain
-    attention.flash_attention_plain = lambda *a: forwards.append(1) or plain(*a)
+    plain = attention.flash_attention_fwd_plain
+    attention.flash_attention_fwd_plain = lambda *a: forwards.append(1) or plain(*a)
     try:
         new, metrics = TS.make_train_step(cfg, args)(
             ts, torch.Generator().manual_seed(1), _batches())
     finally:
-        attention.flash_attention_plain = plain
+        attention.flash_attention_fwd_plain = plain
     fwd, bwd = TS.flash_calls_per_step(cfg, args)
     flash = cfg.attn_impl == "flash"
     assert (flash_attention.backward_calls - before, len(forwards)) == (
@@ -194,7 +194,8 @@ def test_flash_operator_keeps_launch_and_recompute_counts():
     mm/addmm/bmm/baddbmm outputs, so the operator is recomputed) runs the
     forwards and backwards flash_calls_per_step predicts, the recompute
     included; on this CPU host the operator's implementation runs the
-    plain version once a forward, so the forwards are counted there."""
+    plain version (flash_attention_fwd_plain, o and lse) once a forward,
+    so the forwards are counted there."""
     cfg = TG.TINY.replace(attn_impl="flash", remat=True,
                           remat_policy="dots_all", use_discriminator=True)
     args = train_args(G.CONFIG, ae_steps=1, cm_steps=0, sp_steps=1, d_steps=1,
@@ -207,13 +208,13 @@ def test_flash_operator_keeps_launch_and_recompute_counts():
         torch.from_numpy(rng.integers(3, 46, (2, 6))), torch.rand(2, 8, 80),
         torch.tensor([6, 4]), torch.tensor([8, 5])))
     seen = []
-    plain = attention.flash_attention_plain
-    attention.flash_attention_plain = lambda *a: seen.append(1) or plain(*a)
+    plain = attention.flash_attention_fwd_plain
+    attention.flash_attention_fwd_plain = lambda *a: seen.append(1) or plain(*a)
     before = flash_attention.backward_calls
     try:
         TS.make_train_step(cfg, args)(ts, torch.Generator().manual_seed(1),
                                       {"ae": batch, "sp": batch, "d": batch})
     finally:
-        attention.flash_attention_plain = plain
+        attention.flash_attention_fwd_plain = plain
     assert (len(seen), flash_attention.backward_calls - before) == (fwd, bwd)
     assert cfg.remat and fwd > bwd + 2 * cfg.num_layers   # the recompute ran

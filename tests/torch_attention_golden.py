@@ -35,6 +35,9 @@ CASES = [  # (causal, tq, tk, d)
     (True, 17, 30, 16),
 ]
 BF16_CAUSAL = (False, True)
+# (causal, Tq, Tk, D) of the lse cases: logsumexp of the recompute
+# backward's _ref_scores, at TINY shapes
+LSE_CASES = [(False, 20, 20, 32), (True, 20, 20, 32), (True, 12, 28, 16)]
 VIEW_LAYOUTS = ("qkv", "cross")
 
 
@@ -126,6 +129,17 @@ def freeze():
                  [x[0]] + [a.reshape(2, 24, 2, 16) for a in np.split(x[1], 2, axis=-1)])
         out[f"views/{layout}"] = np.asarray(flash_attention(
             *(np.ascontiguousarray(a) for a in parts), jnp.asarray(lens)))
+    from jax.scipy.special import logsumexp
+    from unast_tpu.ops.attention import _ref_scores
+    for case in LSE_CASES:
+        causal, tq, tk, d = case
+        q, k, v, kv_lens = inputs(7, 2, tq, tk, 2, d)
+
+        def heads(x):  # [B, T, H, D] -> [B*H, T, D], as _flash's wrapper
+            return x.transpose(0, 2, 1, 3).reshape(4, x.shape[1], d)
+        s = _ref_scores(heads(q), heads(k), np.repeat(kv_lens, 2), causal,
+                        1.0 / np.sqrt(d))
+        out["lse/" + key(*case)] = np.asarray(logsumexp(s, axis=-1)).reshape(2, 2, tq)
     GOLDEN.parent.mkdir(exist_ok=True)
     np.savez_compressed(GOLDEN, **out)
     print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")

@@ -12,7 +12,8 @@
 // j <= i + q_start (query i; q_start is the keys' position of query 0, a
 // sequence-parallel rank's first frame, else 0). Masked scores are -1e9 (set on the unscaled product
 // as -1e9 * sqrt(D)). The softmax state (m, l) and the accumulator are
-// float32; o = acc / max(l, 1e-30). No log-sum-exp is written.
+// float32; o = acc / max(l, 1e-30), and lse = m / sqrt(D) + ln(l), the
+// natural-log logsumexp of the row's scaled scores (float32 [B, H, Tq]).
 //
 // Precision. One TF32 product keeps 10 mantissa bits, too few for the
 // float32 tolerance of 2e-5. Each operand is split, x = hi + lo with
@@ -81,6 +82,7 @@ constexpr int kKeyAlign = 64;     // the pre-pass writes keys up to kv_len
 constexpr int kPrepRows = 32;     // keys per pre-pass block
 constexpr int kPrepThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMaskValue = -1e9f;
 
 // Return codes besides cudaError_t values.
@@ -226,6 +228,7 @@ __device__ __forceinline__ uint32_t swizzled(int r, int cb) {
 struct Params {
   const float* q;
   float* o;
+  float* lse;  // [B*H, Tq] natural-log logsumexp of the scaled scores
   const int32_t* kv_lens;
   long long q_sb, q_st, q_sh;  // element strides of q's b, t, h dims
   long long o_sb, o_st, o_sh;
@@ -458,7 +461,8 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_k,
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  // o = acc / max(l, 1e-30), rows past Tq not stored.
+  // o = acc / max(l, 1e-30) and lse = (m c + log2(l)) ln(2), rows past Tq
+  // not stored.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_row[r];
@@ -467,6 +471,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap map_k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int row = row0 + 8 * r;
     if (row < p.Tq) {
+      if (lane % 4 == 0)
+        p.lse[(long long)blockIdx.y * p.Tq + row] =
+            fmaf(m_row[r], p.scale_log2, log2f(l)) * kLn2;
       float* o_row = p.o + b * p.o_sb + row * p.o_st + h * p.o_sh + col0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -502,7 +509,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, float* ptr, int BH,
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
-           const int32_t* kv_lens, float* ws, int B, int H, int Tq, int Tk,
+           float* lse, const int32_t* kv_lens, float* ws, int B, int H,
+           int Tq, int Tk,
            Strides qs, Strides ks, Strides vs, Strides os, int causal,
            int q_start, float sm_scale, cudaStream_t stream) {
   using P = Plan<D>;
@@ -530,6 +538,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
   Params p;
   p.q = q;
   p.o = o;
+  p.lse = lse;
   p.kv_lens = kv_lens;
   p.q_sb = qs.b;
   p.q_st = qs.t;
@@ -558,15 +567,17 @@ extern "C" long long flash_attn_fwd_f32_workspace(int B, int H, int Tk,
 }
 
 // Strides are in elements, for the b, t and h dims of each [B, T, H, D]
-// float32 tensor (the D stride must be 1; o's base 8-byte aligned).
-// kv_lens: int32 [B] on the device, or null for "all Tk keys valid".
-// workspace: flash_attn_fwd_f32_workspace(B, H, Tk, D) floats on the
-// device, 16-byte aligned; the call launches the pre-pass and the kernel
-// on `stream`, in that order. Returns 0 when launched, a cudaError_t value
+// float32 tensor (the D stride must be 1; o's base 8-byte aligned). lse:
+// float32 [B, H, Tq], contiguous. kv_lens: int32 [B] on the device, or
+// null for "all Tk keys valid". workspace:
+// flash_attn_fwd_f32_workspace(B, H, Tk, D) floats on the device, 16-byte
+// aligned; the call launches the pre-pass and the kernel on `stream`, in
+// that order. Returns 0 when launched, a cudaError_t value
 // if a launch failed, -1 if the TMA unit refused the workspace's layout,
 // -2 if libcuda has no cuTensorMapEncodeTiled.
 extern "C" int flash_attn_fwd_f32(
-    const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* kv_lens,
     int B, int H, int Tq, int Tk, int D, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, long long o_sb,
@@ -580,22 +591,23 @@ extern "C" int flash_attn_fwd_f32(
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
+  float* lf = static_cast<float*>(lse);
   const int32_t* lens = static_cast<const int32_t*>(kv_lens);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                        os, causal, q_start, sm_scale, s);
+      return launch<16>(qf, kf, vf, of, lf, lens, ws, B, H, Tq, Tk, qs, ks,
+                        vs, os, causal, q_start, sm_scale, s);
     case 32:
-      return launch<32>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                        os, causal, q_start, sm_scale, s);
+      return launch<32>(qf, kf, vf, of, lf, lens, ws, B, H, Tq, Tk, qs, ks,
+                        vs, os, causal, q_start, sm_scale, s);
     case 64:
-      return launch<64>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                        os, causal, q_start, sm_scale, s);
+      return launch<64>(qf, kf, vf, of, lf, lens, ws, B, H, Tq, Tk, qs, ks,
+                        vs, os, causal, q_start, sm_scale, s);
     case 128:
-      return launch<128>(qf, kf, vf, of, lens, ws, B, H, Tq, Tk, qs, ks, vs,
-                         os, causal, q_start, sm_scale, s);
+      return launch<128>(qf, kf, vf, of, lf, lens, ws, B, H, Tq, Tk, qs, ks,
+                         vs, os, causal, q_start, sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

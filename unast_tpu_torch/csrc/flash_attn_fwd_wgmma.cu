@@ -12,7 +12,10 @@
 // j <= i + q_start (query i; q_start is the keys' position of query 0, a
 // sequence-parallel rank's first frame, else 0). Masked scores are -1e9 (set on the unscaled product
 // as -1e9 * sqrt(D)). The softmax state (m, l) and the accumulator are
-// float32; o = acc / max(l, 1e-30), cast to bfloat16. P keeps float32
+// float32; o = acc / max(l, 1e-30), cast to bfloat16, and lse = m / sqrt(D)
+// + ln(l), the natural-log logsumexp of the row's scaled scores (float32
+// [B, H, Tq], the residual the backward reads instead of recomputing S).
+// P keeps float32
 // precision in P.V, as in the TPU kernel (which casts V to float32 and
 // takes p.v in float32): P is split into a bf16 high part and a bf16
 // low part, p_hi = bf16(p) and p_lo = bf16(p - p_hi), and both go through
@@ -77,6 +80,7 @@ constexpr int kStages = 2;    // depth of the K/V ring
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = (kConsumerWarps + 1) * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMaskValue = -1e9f;
 
 // Return codes besides cudaError_t values.
@@ -106,6 +110,7 @@ struct Plan {
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;  // [B*H, Tq] natural-log logsumexp of the scaled scores
   const int32_t* kv_lens;
   long long o_sb, o_st, o_sh;  // element strides of o's b, t, h dims
   int H, Tq, Tk, causal;
@@ -286,7 +291,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  // o = acc / max(l, 1e-30), rows past Tq not stored.
+  // o = acc / max(l, 1e-30) and lse = (m c + log2(l)) ln(2), rows past Tq
+  // not stored.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_row[r];
@@ -295,6 +301,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int row = row0 + 8 * r;
     if (row < p.Tq) {
+      if (lane % 4 == 0)
+        p.lse[(long long)blockIdx.y * p.Tq + row] =
+            fmaf(m_row[r], p.scale_log2, log2f(l)) * kLn2;
       __nv_bfloat16* o_row = p.o + b * p.o_sb + (long long)row * p.o_st +
                              h * p.o_sh + col0;
 #pragma unroll
@@ -335,8 +344,9 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const void* kv_lens, int B, int H, int Tq, int Tk, Strides qs,
-           Strides ks, Strides vs, Strides os, int causal, int q_start,
+           float* lse, const void* kv_lens, int B, int H, int Tq, int Tk,
+           Strides qs, Strides ks, Strides vs, Strides os, int causal,
+           int q_start,
            float sm_scale, cudaStream_t stream) {
   using P = Plan<D>;
   const EncodeTiled encode = encode_tiled();
@@ -356,6 +366,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   p.kv_lens = static_cast<const int32_t*>(kv_lens);
   p.o_sb = os.b;
   p.o_st = os.t;
@@ -376,12 +387,14 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // Strides are in elements, for the b, t and h dims of each [B, T, H, D]
 // bfloat16 tensor (the D stride must be 1; q, k and v strides and base
-// addresses multiples of 16 bytes). kv_lens: int32 [B] on the device, or
-// null for "all Tk keys valid". Returns 0 when launched, a cudaError_t
-// value if the launch failed, -1 if the TMA unit refused a tensor's
-// layout, -2 if libcuda has no cuTensorMapEncodeTiled.
+// addresses multiples of 16 bytes). lse: float32 [B, H, Tq], contiguous.
+// kv_lens: int32 [B] on the device, or null for "all Tk keys valid".
+// Returns 0 when launched, a cudaError_t value if the launch failed, -1 if
+// the TMA unit refused a tensor's layout, -2 if libcuda has no
+// cuTensorMapEncodeTiled.
 extern "C" int flash_attn_fwd_wgmma(
-    const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* kv_lens,
     int B, int H, int Tq, int Tk, int D, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, long long o_sb,
@@ -391,20 +404,21 @@ extern "C" int flash_attn_fwd_wgmma(
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
+  float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                        causal, q_start, sm_scale, s);
+      return launch<16>(q, k, v, o, lf, kv_lens, B, H, Tq, Tk, qs, ks, vs,
+                        os, causal, q_start, sm_scale, s);
     case 32:
-      return launch<32>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                        causal, q_start, sm_scale, s);
+      return launch<32>(q, k, v, o, lf, kv_lens, B, H, Tq, Tk, qs, ks, vs,
+                        os, causal, q_start, sm_scale, s);
     case 64:
-      return launch<64>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                        causal, q_start, sm_scale, s);
+      return launch<64>(q, k, v, o, lf, kv_lens, B, H, Tq, Tk, qs, ks, vs,
+                        os, causal, q_start, sm_scale, s);
     case 128:
-      return launch<128>(q, k, v, o, kv_lens, B, H, Tq, Tk, qs, ks, vs, os,
-                         causal, q_start, sm_scale, s);
+      return launch<128>(q, k, v, o, lf, kv_lens, B, H, Tq, Tk, qs, ks, vs,
+                         os, causal, q_start, sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

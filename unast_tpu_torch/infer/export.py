@@ -8,7 +8,9 @@ JAX lowers its programs to StableHLO (jax.export), the Pallas flash kernel
 included. Here each program is an ATen graph in which the flash forward is
 one node, the registered operator unast::flash_attention_fwd
 (ops/attention.py): loading a bundle imports that module, so the node runs
-the hand-written kernel on a CUDA tensor. Shapes are static per export
+the hand-written kernel on a CUDA tensor. The manifest records the
+operator's schema, and a bundle whose schema differs from this module's
+(one exported before the operator returned lse beside o) is refused. Shapes are static per export
 (the serving layer works on fixed buckets), so one bundle holds one
 (batch, bucket) shape per function; export the buckets you serve. A
 program runs on the device its example arguments were on.
@@ -32,7 +34,7 @@ import zipfile
 import torch
 
 from .. import nn
-from ..ops import attention  # noqa: F401  registers unast::flash_attention_fwd
+from ..ops import attention  # registers unast::flash_attention_fwd
 
 
 class _Program(torch.nn.Module):
@@ -49,8 +51,9 @@ class _Program(torch.nn.Module):
 def export_bundle(path: str, fns: dict, weights=None, platforms=None):
     """unast_tpu/infer/export.py::export_bundle: trace `fns` ({name:
     (callable, example_args_tuple)}) with torch.export at the example
-    args' shapes and dtypes and write them, a manifest (the names and the
-    torch version) and an optional weights tree (a torch.save file that
+    args' shapes and dtypes and write them, a manifest (the names, the
+    torch version and the flash operator's schema) and an optional weights
+    tree (a torch.save file that
     loads with weights_only=True) into one .zip bundle at `path`.
     `platforms` (jax.export's backends) has no torch meaning: only None is
     taken, anything else raises ValueError."""
@@ -68,7 +71,8 @@ def export_bundle(path: str, fns: dict, weights=None, platforms=None):
             z.writestr(f"fn/{name}.pt2", buf.getvalue())
             names.append(name)
         z.writestr("manifest.json", json.dumps(
-            {"names": names, "torch_version": torch.__version__}))
+            {"names": names, "torch_version": torch.__version__,
+             "flash_schema": attention.FLASH_SCHEMA}))
         if weights is not None:
             buf = io.BytesIO()
             torch.save(nn.tree_to(weights, "cpu"), buf)
@@ -99,10 +103,19 @@ class Bundle:
 
 def load_bundle(path: str) -> Bundle:
     """unast_tpu/infer/export.py::load_bundle: the programs, the manifest
-    and the weights (loaded with weights_only=True) of a bundle."""
+    and the weights (loaded with weights_only=True) of a bundle. Raises
+    ValueError, naming both schemas, for a bundle whose flash operator
+    schema is not this module's or that records none."""
     programs, weights = {}, None
     with zipfile.ZipFile(path, "r") as z:
         manifest = json.loads(z.read("manifest.json"))
+        schema = manifest.get("flash_schema")
+        if schema != attention.FLASH_SCHEMA:
+            raise ValueError(
+                f"{path}: its programs were exported with the flash operator "
+                f"unast::{schema or '(no schema recorded)'}, this port "
+                f"registers unast::{attention.FLASH_SCHEMA}; export the "
+                "bundle again")
         for name in manifest["names"]:
             programs[name] = torch.export.load(io.BytesIO(z.read(f"fn/{name}.pt2")))
         if "weights.pt" in z.namelist():

@@ -1,7 +1,8 @@
 """Flash attention of the port: two hand-written Hopper forward kernels
 behind `flash_attention`, their plain PyTorch version
-`flash_attention_plain`, and the backward pass (a bfloat16 kernel and its
-plain version `flash_attention_bwd_plain`).
+`flash_attention_fwd_plain` (o and lse; `flash_attention_plain`, o), and
+the backward pass (a bfloat16 kernel and its plain version
+`flash_attention_bwd_plain`).
 
 Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel and its
 custom_vjp). Used by the transformer encoders and the teacher-forced
@@ -15,15 +16,18 @@ place through their strides, so the [B*H, T, D] transposes of the JAX
 wrapper are gone, and load kv_lens per batch row themselves.
 
 The forward is the registered operator unast::flash_attention_fwd
-(`flash_attention_fwd`), so that torch.export keeps it as one node of an
-exported program, as jax.export keeps the pallas_call, and loading such a
-program needs only this module imported. Its autograd formula is the JAX
-package's recompute backward (_flash_vjp_bwd) on the same [B, T, H, D]
-layout: for bfloat16 on the card the hand-written kernel
-csrc/flash_attn_bwd_wgmma.cu (`flash_attention_bwd`: a pre-pass for lse
-and delta, then dK/dV and dQ on wgmma, P and dS split into two bf16
-parts), on the CPU and for float32 on the card `flash_attention_bwd_plain`,
-its plain torch version (float32 on the card until its own kernel).
+(`flash_attention_fwd`, returning o and lse, the float32 [B, H, Tq]
+natural-log logsumexp of each row's scaled, masked scores), so that
+torch.export keeps it as one node of an exported program, as jax.export
+keeps the pallas_call, and loading such a program needs only this module
+imported. Its autograd formula is the JAX package's recompute backward
+(_flash_vjp_bwd) on the same [B, T, H, D] layout: for bfloat16 on the card
+the hand-written kernel csrc/flash_attn_bwd_wgmma.cu (`flash_attention_bwd`:
+a pre-pass for delta, then one launch on wgmma whose blocks form dQ or
+dK/dV, reading the forward's lse instead of recomputing it; P and dS
+split into two bf16 parts), on the CPU and for float32 on the card `flash_attention_bwd_plain`,
+its plain torch version, which recomputes lse as JAX does (float32 on the
+card until its own kernel).
 """
 
 import ctypes
@@ -58,24 +62,32 @@ def _keep(q, k, kv_lens, causal: bool, q_start: int = 0):
     return keep
 
 
-def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False,
-                          q_start: int = 0):
-    """Plain PyTorch version of the kernel, the same function
-    (unast_tpu/ops/attention.py::_flash_fwd): float32 scores of the
-    pre-scaled q against k, -1e9 where key j >= kv_lens[b] or (causal)
-    j > i + q_start, float32 softmax and float32 P.V, cast to q's dtype.
+def flash_attention_fwd_plain(q, k, v, kv_lens=None, causal: bool = False,
+                              q_start: int = 0):
+    """(o, lse): the plain PyTorch version of the forward kernels, the same
+    function (unast_tpu/ops/attention.py::_flash_fwd): float32 scores of
+    the pre-scaled q against k, -1e9 where key j >= kv_lens[b] or (causal)
+    j > i + q_start, float32 softmax and float32 P.V, o cast to q's dtype;
+    lse, float32 [B, H, Tq], the natural-log logsumexp of each row's
+    scores (the lse that _flash_vjp_bwd recomputes, logsumexp of
+    _ref_scores): what the kernels write beside o for the backward.
 
     q: [B, Tq, H, D]; k, v: [B, Tk, H, D]; kv_lens: [B] or None; q_start:
     the keys' position of query 0 (a sequence-parallel rank's first
     frame; 0 when q and k are one sequence)."""
-    d = q.shape[-1]
-    qf = q.float() * (1.0 / math.sqrt(d))
+    qf = q.float() * (1.0 / math.sqrt(q.shape[-1]))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
     s = torch.where(_keep(q, k, kv_lens, causal, q_start), s,
                     torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return o.to(q.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.float())
+    return o.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_plain(q, k, v, kv_lens=None, causal: bool = False,
+                          q_start: int = 0):
+    """o of flash_attention_fwd_plain: the plain version the forward
+    kernels' output is held to."""
+    return flash_attention_fwd_plain(q, k, v, kv_lens, causal, q_start)[0]
 
 
 def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do,
@@ -105,8 +117,9 @@ def flash_attention_bwd_plain(q, k, v, kv_lens, causal: bool, o, do,
 
 
 def bind(lib_path, name: str):
-    """launch(q, k, v, kv_lens, causal, q_start=0) -> o through the C entry point
-    `name` of the kernel library at `lib_path`, on the current stream.
+    """launch(q, k, v, kv_lens, causal, q_start=0) -> (o, lse) through the
+    C entry point `name` of the kernel library at `lib_path`, on the
+    current stream: o [B, Tq, H, D] of q's dtype, lse float32 [B, H, Tq].
     Where the library exports `<name>_workspace` (floats of scratch for
     B, H, Tk, D), launch allocates that much and passes it after the
     stream. kv_lens: int32 [B] on q's device, or None. launch checks no
@@ -116,7 +129,7 @@ def bind(lib_path, name: str):
     fn = getattr(lib, name)
     workspace = getattr(lib, name + "_workspace", None)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
                    + [ctypes.c_void_p] * (workspace is not None))
@@ -128,8 +141,9 @@ def bind(lib_path, name: str):
         b, tq, h, d = q.shape
         tk = k.shape[1]
         o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                None if kv_lens is None else kv_lens.data_ptr(),
+                lse.data_ptr(), None if kv_lens is None else kv_lens.data_ptr(),
                 b, h, tq, tk, d,
                 *_strides(q), *_strides(k), *_strides(v), *_strides(o),
                 int(causal), int(q_start), 1.0 / math.sqrt(d),
@@ -145,29 +159,31 @@ def bind(lib_path, name: str):
             raise ValueError(f"{name}: the TMA unit refused the layout of {what}")
         if err != 0:
             raise RuntimeError(f"{name} launch failed: error {err}")
-        return o
+        return o, lse
     return launch
 
 
 def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
-    """launch(q, k, v, kv_lens, causal, o, do, q_start=0) -> (dq, dk, dv)
-    through the backward's C entry point `name` of the library at
-    `lib_path`, on the current stream: bind's conventions, with the
-    workspace `<name>_workspace(B, H, Tq, D)` floats (lse and delta). The
-    gradients are new contiguous tensors of q's dtype. launch checks no
-    input (flash_attention_bwd does) and raises if a launch failed."""
+    """launch(q, k, v, kv_lens, causal, o, lse, do, q_start=0) -> (dq, dk,
+    dv) through the backward's C entry point `name` of the library at
+    `lib_path`, on the current stream: bind's conventions, lse the
+    forward's float32 [B, H, Tq], with the workspace
+    `<name>_workspace(B, H, Tq, D)` floats (lse in base 2 and delta, both
+    written by the first launch). The gradients are new contiguous
+    tensors of q's dtype. launch checks no input (flash_attention_bwd
+    does) and raises if a launch failed."""
     lib = ctypes.CDLL(str(lib_path))
     fn = getattr(lib, name)
     workspace = getattr(lib, name + "_workspace")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 24
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 2)
     workspace.restype = ctypes.c_longlong
     workspace.argtypes = [ctypes.c_int] * 4
 
-    def launch(q, k, v, kv_lens, causal, o, do, q_start=0):
+    def launch(q, k, v, kv_lens, causal, o, lse, do, q_start=0):
         b, tq, h, d = q.shape
         tk = k.shape[1]
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -176,14 +192,15 @@ def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
         ws = torch.empty(workspace(b, h, tq, d), dtype=torch.float32,
                          device=q.device)
         tensors = (q, k, v, o, do, dq, dk, dv)
-        err = fn(*[x.data_ptr() for x in tensors],
+        err = fn(*[x.data_ptr() for x in tensors[:5]], lse.data_ptr(),
+                 *[x.data_ptr() for x in tensors[5:]],
                  None if kv_lens is None else kv_lens.data_ptr(),
                  b, h, tq, tk, d, *[st for x in tensors for st in _strides(x)],
                  int(causal), int(q_start), 1.0 / math.sqrt(d),
                  torch.cuda.current_stream(q.device).cuda_stream, ws.data_ptr())
         if err == _TMA_REFUSED:
             raise ValueError(
-                f"{name}: the TMA unit refused the layout of q, k, v or dO "
+                f"{name}: the TMA unit refused the layout of q, k, v, o or dO "
                 f"(strides {q.stride()}, {k.stride()}, {v.stride()}, {do.stride()})")
         if err != 0:
             raise RuntimeError(f"{name} launch failed: error {err}")
@@ -258,45 +275,52 @@ def _tma_refusal(x):
 
 
 def _forward(q, k, v, kv_lens, causal: bool, q_start: int = 0):
-    """The forward on q's device: the kernel for q's dtype on a CUDA tensor
+    """(o, lse) on q's device: the kernel for q's dtype on a CUDA tensor
     (counted in flash_attention's launch counts) or a raise, and the plain
     version on a CPU tensor, the only case in which it is taken."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_lens, causal, q_start)
+        return flash_attention_fwd_plain(q, k, v, kv_lens, causal, q_start)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, kv_lens, q_start)
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    o = _kernel(_LIBRARY[q.dtype])(q, k, v, lens, causal, q_start)
+    out = _kernel(_LIBRARY[q.dtype])(q, k, v, lens, causal, q_start)
     flash_attention.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention.launches_bf16 += 1
     else:
         flash_attention.launches_f32 += 1
-    return o
+    return out
 
 
 def _fake(q, k, v, kv_lens, causal, q_start=0):
     # the kernels write o as a contiguous [B, Tq, H, D] tensor of q's dtype
-    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # and lse as a contiguous float32 [B, H, Tq]
+    b, tq, h, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((b, h, tq), dtype=torch.float32, device=q.device))
 
 
 def _setup_backward(ctx, inputs, output):
     q, k, v, kv_lens, causal, q_start = inputs
-    ctx.save_for_backward(q, k, v, kv_lens, output)
+    o, lse = output
+    ctx.save_for_backward(q, k, v, kv_lens, o, lse)
+    ctx.mark_non_differentiable(lse)
     ctx.causal, ctx.q_start = causal, q_start
 
 
-def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, do,
+def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, lse, do,
                         q_start: int = 0):
     """(dq, dk, dv) of flash attention through the bfloat16 backward kernel
-    (csrc/flash_attn_bwd_wgmma.cu, three launches on the current stream),
+    (csrc/flash_attn_bwd_wgmma.cu, two launches on the current stream),
     adding one to `flash_attention.backward_launches`. The same function
-    as flash_attention_bwd_plain; q, k, v as flash_attention takes them
-    (bfloat16 on the card, TMA-readable, checked here), o the forward's
-    contiguous output and do [B, Tq, H, D], bfloat16 on q's device. A do
+    as flash_attention_bwd_plain, which recomputes lse; q, k, v as
+    flash_attention takes them (bfloat16 on the card, TMA-readable,
+    checked here), o and lse the forward's outputs (o contiguous, lse
+    float32 [B, H, Tq] contiguous) and do [B, Tq, H, D], bfloat16 on q's
+    device. A do
     that TMA cannot read (an expanded gradient with zero strides, as
     autograd hands over for out.sum(), or one not 16-byte aligned) is
     first copied to a contiguous tensor: a layout copy, not a fallback.
@@ -311,28 +335,36 @@ def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, do,
     if o.dtype != q.dtype or do.dtype != q.dtype or not o.is_contiguous():
         raise ValueError("o and do must be bfloat16 and o contiguous, as the "
                          "forward writes it")
+    b, tq, h, _ = q.shape
+    if (lse.shape != (b, h, tq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be the forward's contiguous float32 "
+                         f"[{b}, {h}, {tq}] on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
     if do.stride(3) != 1 or _tma_refusal(do):
         do = do.contiguous()
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    grads = _kernel(_BACKWARD_LIBRARY)(q, k, v, lens, causal, o, do, q_start)
+    grads = _kernel(_BACKWARD_LIBRARY)(q, k, v, lens, causal, o, lse, do,
+                                       q_start)
     flash_attention.backward_launches += 1
     return grads
 
 
-def _backward(ctx, do):
+def _backward(ctx, do, _dlse):
     """The JAX package's custom_vjp backward (_flash_vjp_bwd) behind the
     operator: q, k, v, kv_lens and the output o are kept for it, as JAX's
-    residuals are. A bfloat16 tensor on the card goes to the kernel
-    (flash_attention_bwd); a CPU tensor, and a float32 one on the card
-    until its kernel, to flash_attention_bwd_plain."""
-    q, k, v, kv_lens, o = ctx.saved_tensors
+    residuals are, and the lse output (not differentiable), which the
+    kernel reads instead of recomputing it. A bfloat16 tensor on the card
+    goes to the kernel (flash_attention_bwd); a CPU tensor, and a float32
+    one on the card until its kernel, to flash_attention_bwd_plain."""
+    q, k, v, kv_lens, o, lse = ctx.saved_tensors
     flash_attention.backward_calls += 1
     with record_function("unast/flash_attention_bwd"):
         if q.device.type == "cuda" and q.dtype == torch.bfloat16:
             dq, dk, dv = flash_attention_bwd(q, k, v, kv_lens, ctx.causal, o,
-                                             do, ctx.q_start)
+                                             lse, do, ctx.q_start)
         elif q.device.type == "cpu" or q.dtype == torch.float32:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal,
                                                    o, do, ctx.q_start)
@@ -343,17 +375,19 @@ def _backward(ctx, do):
 
 # The forward as the registered operator unast::flash_attention_fwd (the
 # counterpart of the pallas_call in unast_tpu/ops/attention.py::_flash_fwd,
-# which jax.export keeps in its StableHLO). Its one implementation, for
-# every device, is `_forward` (looked up at each call): the kernel on a
-# CUDA tensor, the plain version on a CPU one. torch.export and torch.utils.checkpoint see one
-# opaque op; the fake implementation gives the output's shape and layout,
-# the autograd formula is `_backward` (the bfloat16 kernel on the card,
-# the plain recompute on the CPU and for float32). (torch.library's
-# custom_op decorator would do the same, but its first call imports
-# torch._dynamo, seconds in every process.)
+# which jax.export keeps in its StableHLO), returning o and lse. Its one
+# implementation, for every device, is `_forward` (looked up at each
+# call): the kernel on a CUDA tensor, the plain version on a CPU one.
+# torch.export and torch.utils.checkpoint see one opaque op; the fake
+# implementation gives the outputs' shapes and layouts, the autograd
+# formula is `_backward` (the bfloat16 kernel on the card, the plain
+# recompute on the CPU and for float32). (torch.library's custom_op
+# decorator would do the same, but its first call imports torch._dynamo,
+# seconds in every process.)
+FLASH_SCHEMA = ("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+                "Tensor? kv_lens, bool causal, int q_start=0) -> (Tensor, Tensor)")
 _LIB = torch.library.Library("unast", "DEF")
-_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_lens, "
-            "bool causal, int q_start=0) -> Tensor")
+_LIB.define(FLASH_SCHEMA)
 _LIB.impl("flash_attention_fwd", lambda *a: _forward(*a), "CompositeExplicitAutograd")
 torch.library.register_fake("unast::flash_attention_fwd", _fake, lib=_LIB)
 torch.library.register_autograd("unast::flash_attention_fwd", _backward,
@@ -371,14 +405,15 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False,
     all Tk valid); q_start: the keys' position of query 0 under the causal
     mask (key j visible to query i when j <= i + q_start): a sequence-
     parallel rank's queries [q_start, q_start + Tq) against the gathered
-    keys. Returns [B, Tq, H, D] in q's dtype.
+    keys. Returns o, [B, Tq, H, D] in q's dtype (the operator's lse
+    output stays inside autograd, for the backward).
 
     On a CUDA tensor the forward launches the kernel for q's dtype (for
     float32, a pre-pass and the kernel), adding one to
     `flash_attention.launches` and to `launches_bf16` or `launches_f32`,
     or raises (a bfloat16 tensor whose base or b/t/h stride is not a
     multiple of 16 bytes raises ValueError; float32 takes any strides). On
-    a CPU tensor it runs `flash_attention_plain`. Where q, k or v needs a
+    a CPU tensor it runs `flash_attention_fwd_plain`. Where q, k or v needs a
     gradient, each backward adds one to `flash_attention.backward_calls`;
     on a bfloat16 CUDA tensor it launches the backward kernel
     (`flash_attention_bwd`, adding one to `backward_launches`) or raises,
@@ -386,12 +421,12 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False,
     `flash_attention_bwd_plain`. Precondition: every kv_len >= 1; a row
     with no visible key has no defined output."""
     if q_start:
-        return flash_attention_fwd(q, k, v, kv_lens, causal, int(q_start))
-    return flash_attention_fwd(q, k, v, kv_lens, causal)
+        return flash_attention_fwd(q, k, v, kv_lens, causal, int(q_start))[0]
+    return flash_attention_fwd(q, k, v, kv_lens, causal)[0]
 
 
 flash_attention.launches = 0        # every launch
 flash_attention.launches_bf16 = 0   # of flash_attn_fwd_wgmma
 flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32 (pre-pass + kernel)
 flash_attention.backward_calls = 0     # every backward through autograd
-flash_attention.backward_launches = 0  # of flash_attn_bwd_wgmma (3 kernels a call)
+flash_attention.backward_launches = 0  # of flash_attn_bwd_wgmma (2 kernels a call)
