@@ -9,10 +9,10 @@ Phases (each that fails exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32
      flags, which this script turns off so float32 products stay float32;
   2. the kernel build (nvcc, from unast_tpu_torch/csrc, one process per
-     library, all started together: the two forwards and the bf16
-     backward) and its seconds, each library's ptxas report, and the
+     library, all started together: the two forwards and the two
+     backwards) and its seconds, each library's ptxas report, and the
      count of HGMMA (wgmma) instructions in each library's SASS
-     (cuobjdump), each above 0;
+     (cuobjdump), each above 0 (TF32 ones in the float32 libraries);
   3. every kernel against its plain PyTorch version, in both dtypes: at
      the serving shapes (text and mel buckets, B 8, on the strided views of
      one fused-QKV projection, as the encoders pass them) and on more
@@ -36,24 +36,27 @@ Phases (each that fails exits non-zero; nothing is caught):
      float32, which is the float32 kernel's path (D 16; counts set to 0 just
      before, read just after; the CPU path is held to the JAX package by
      tests/test_torch_*.py);
-  6. the flash-attention gradients (kernel forward; bf16 backward kernel,
-     float32 plain recompute backward, through flash_attention's
-     autograd.Function) against autograd through the plain version, on
-     fused-QKV and cross views: bf16 at the flagship train step's shapes
-     (B 4, T 304 and 816, causal self-attention, cross 304 x 816 and
-     816 x 304), a tp rank's B4 H2, an sp rank's q 408 at q_start 408 over
-     816 and the wide step's D 128, within 2**-6 of each gradient's
-     largest element, float32 at TINY's within 1e-4 of it. On each bf16
-     case the backward kernel (flash_attention_bwd) against
-     flash_attention_bwd_plain on the same q, k, v, o, dO and kv_lens,
-     and both against the float64 function: every element within
-     2**-8 |ref| + 2**-16 A (A the sum of the absolute terms of its
-     product, dS expanded into its own: backward_f64), two calls bit for
-     bit, keys past kv_len exactly 0; each
-     case with the kernel's device time (its two launches apart), its
-     per-call time, the bound, the plain version's time and, as its
-     library time, that of SDPA's autograd backward under the same mask;
-     the phase's seconds;
+  6. the flash-attention gradients (kernel forward, the dtype's backward
+     kernel, through flash_attention's autograd.Function: one launch a
+     call, on its route's count) against autograd through the plain
+     version, on fused-QKV and cross views: bf16 at the flagship train
+     step's shapes (B 4, T 304 and 816, causal self-attention, cross
+     304 x 816 and 816 x 304), a tp rank's B4 H2, an sp rank's q 408 at
+     q_start 408 over 816 and the wide step's D 128, within 2**-6 of each
+     gradient's largest element; float32 at the same B4 H4 D64 shapes,
+     the sp rank's, configs/transformer_test.json's D 32 (B2 H2, T32
+     causal, cross 24 x 32), the wide D 128 at B8 H8 and TINY's, within
+     1e-4 of it. On each case the backward kernel (flash_attention_bwd)
+     against flash_attention_bwd_plain on the same q, k, v, o, dO and
+     kv_lens, and both against the float64 function: every element within
+     r |ref| + a A (A the sum of the absolute terms of its product, dS
+     expanded into its own: backward_f64; (r, a) = F64_BOUND, bf16
+     (2**-8, 2**-16), float32 (2**-23, 2**-17)), two calls bit for bit,
+     keys past kv_len exactly 0; each case with the kernel's device time
+     (its two launches apart), its per-call time, the bound, the plain
+     version's time and, as its library time, that of SDPA's autograd
+     backward under the same mask (float32 with TF32 off); the phase's
+     seconds;
   7. the second main path: 1 step of make_train_step on the same config
      (ae 2, cm 1, sp 4 and d 1 micro-batches of 4, synthetic batches at the
      config's 816 mel frames and 304 tokens with ragged lengths from numpy
@@ -61,16 +64,23 @@ Phases (each that fails exits non-zero; nothing is caught):
      step and read just after: losses and every new param finite, bf16
      forward launches and backward calls per step as the code implies,
      each backward call one launch of the bf16 backward kernel (so on
-     every bf16 path that trains, phases 9, 14, 15, 17, 18 and 20; 0 on
-     the float32 ones), float32 launches 0; then a second step under torch.profiler, read by
+     every bf16 path that trains, phases 9, 14, 15, 17, 18 and 20; and
+     each float32 one a launch of the float32 kernel, phases 8, 9, 15, 18
+     and 20's TINY ranks, phase 14's TINY checks taking no attention
+     gradient), float32 launches 0; then a second step under torch.profiler, read by
      the port's record_function ranges (objectives, backward passes,
      greedy decodes, LSTM discriminator, flash backward) for where its
      time goes and the device's idle share (against the profiled wall,
      so an upper bound);
   8. one train step on the card against the same step on the CPU at TINY
-     width in float32 with flash on (the float32 kernel and the backward on
-     the card), train mode with every dropout and mask at 0, counts set to
-     0 just before and read just after;
+     width in float32 with flash on (both float32 kernels on the card),
+     train mode with every dropout and mask at 0, counts set to 0 just
+     before and read just after; then one joint step of the flagship
+     (phase 7's config, batches and objectives) with compute_dtype
+     float32: its seconds, peak memory, losses and params finite, forward
+     launches on the float32 route as flash_calls_per_step counts them
+     and each of its 120 backward calls one launch of the float32
+     backward kernel;
   9. the third main path, the training loop (train/loop.py::train) on the
      same config with attn_impl='flash', --synthetic --synthetic_size 16
      --epochs 1 --epoch_steps 1 --sp_warmup_steps 1 --save_every 1
@@ -184,7 +194,7 @@ Phases (each that fails exits non-zero; nothing is caught):
      compat CLIs round-tripping the flagship checkpoint;
   20. data, tensor, expert, sequence and pipeline parallelism on the one
      card (its worlds
-     are started before phase 17 and run beside phases 17-19): a world of two
+     are started before phase 15 and run beside phases 15-19): a world of two
      processes (this script with --dp-worker) under gloo sharing the H100
      (NCCL refuses two ranks on one device; the device line still says
      count 1), each joined, a failing rank failing the phase: at TINY f32
@@ -209,8 +219,10 @@ Phases (each that fails exits non-zero; nothing is caught):
      MelGAN serve, wide step and serve, family step, serve and TINY,
      export, dp, tp, sp and pp paths; the bf16 backward, with its
      launches on the train, loop, CTC train, hybrid, distill, wide step,
-     family step, dp, tp, sp and pp paths, each equal to the path's
-     backward calls), a
+     family step, dp, tp, sp and pp paths; the float32 backward, with its
+     launches on the flagship f32 step, the TINY step, the f32 loop, the
+     TINY CTC, distill and family checks and the TINY mesh steps; each
+     equal to the path's backward calls), a
      `{"backward": ...}`, a `{"train": ...}`, a `{"loop": ...}`, an
      `{"rnn_serve": ...}`, an `{"rnn_train": ...}`, a `{"vocoder": ...}`,
      a `{"data": ...}`, a `{"ctc": ...}`, a `{"nar": ...}`, a `{"melgan":
@@ -251,8 +263,9 @@ H100_BYTES_PER_S = 3.35e12
 # the route's kernels as the profiler names them (the float32 pre-pass first)
 ROUTE_KERNELS = {torch.bfloat16: ("flash_fwd_wgmma_kernel",),
                  torch.float32: ("tf32_split_kernel", "flash_fwd_tf32x3_kernel")}
-# the bf16 backward's two launches, in order
-BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_kernel")
+# each backward kernel's two launches, in order
+BWD_KERNELS = {torch.bfloat16: ("flash_bwd_delta_kernel", "flash_bwd_kernel"),
+               torch.float32: ("flash_bwd_f32_prep_kernel", "flash_bwd_f32_kernel")}
 # the forward kernels' lse against the plain lse: float32 sums of up to Tk
 # terms of 2^-22 relative error each (ex2.approx), and S from another
 # order of the same float32 sums
@@ -379,6 +392,20 @@ BWD_CASES = [
          lens=[12, 5]),
     Case("tiny_train_cross_f32", f32, 2, 12, 20, 2, 16, False, 46, "cross",
          lens=[20, 9]),
+    # float32 (phase 8's flagship f32 step, phase 20's sp rank, phase 9's
+    # configs/transformer_test.json at D 32, the wide encoder's D 128)
+    Case("train_self_t816_f32", f32, 4, 816, 816, 4, 64, True, 72, "qkv"),
+    Case("train_encoder_t816_f32", f32, 4, 816, 816, 4, 64, False, 73, "qkv"),
+    Case("train_self_t304_f32", f32, 4, 304, 304, 4, 64, True, 74, "qkv"),
+    Case("train_cross_304x816_f32", f32, 4, 304, 816, 4, 64, False, 75, "cross"),
+    Case("train_cross_816x304_f32", f32, 4, 816, 304, 4, 64, False, 76, "cross"),
+    Case("sp_self_q408_at408_k816_f32", f32, 4, 408, 816, 4, 64, True, 77, "cross",
+         q_start=408),
+    Case("test_self_t32_d32_f32", f32, 2, 32, 32, 2, 32, True, 78, "qkv",
+         lens=[32, 17]),
+    Case("test_cross_24x32_d32_f32", f32, 2, 24, 32, 2, 32, False, 79, "cross",
+         lens=[32, 20]),
+    Case("wide_encoder_t816_d128_f32", f32, 8, 816, 816, 8, 128, False, 80, "qkv"),
 ]
 TRAIN_STEPS = 1
 # phase 11's RNN steps at rnn_d width (host-bound: about a minute and a
@@ -895,13 +922,27 @@ def backward_f64(q, k, v, kv_lens, causal: bool, o, do, q_start: int = 0):
     return grads, terms
 
 
-def f64_over_bound(got, ref, terms):
-    """Largest |got - ref| / (2**-8 |ref| + 2**-16 A) over the elements: the
-    first term allows the one cast to bf16, the second float32 sums of
-    terms that carry 16 bits (a bf16-rounded P or dS does not hold it). An
-    element whose bound is 0 (a key past kv_len) must be exactly ref."""
+# f64_over_bound's constants (of |ref|, of A) for each dtype's gradients.
+# bf16: the one cast to bf16, and float32 sums of terms that carry 16
+# bits (a bf16-rounded P or dS does not hold it). float32: one float32
+# rounding of the result and of its scale, 2 * 2**-24; and a split-TF32
+# operand carries 21 bits (the rounding of lo and the dropped lo*lo, about
+# 3 * 2**-22 of each term), P's error enters twice on the way S -> P ->
+# dS -> dQ, dK, and the forward's lse adds its own (within 1.4e-6, about
+# 2**-19.4, measured), about 2**-18.4 together; doubled for the tensor
+# cores' float32 accumulation, 2**-17 (one TF32 product, 10 bits, misses
+# it: tests/test_torch_train.py).
+F64_BOUND = {torch.bfloat16: (2.0 ** -8, 2.0 ** -16),
+             torch.float32: (2.0 ** -23, 2.0 ** -17)}
+
+
+def f64_over_bound(got, ref, terms, dtype):
+    """Largest |got - ref| / (r |ref| + a A) over the elements, (r, a) =
+    F64_BOUND[dtype] (the gradients' dtype). An element whose bound is 0 (a
+    key past kv_len) must be exactly ref."""
     err = (got.double() - ref).abs()
-    bound = 2.0 ** -8 * ref.abs() + 2.0 ** -16 * terms
+    r, a = F64_BOUND[dtype]
+    bound = r * ref.abs() + a * terms
     ratio = torch.where(bound > 0, err / bound.clamp(min=1e-300),
                         torch.where(err > 0, torch.full_like(err, float("inf")),
                                     torch.zeros_like(err)))
@@ -909,15 +950,15 @@ def f64_over_bound(got, ref, terms):
 
 
 def backward_case(c: Case):
-    """Gradients through flash_attention (kernel forward; bf16 backward
-    kernel, float32 plain backward) against autograd through
-    flash_attention_plain on case c. For bf16 also the backward kernel
-    (flash_attention_bwd) against flash_attention_bwd_plain on the same
-    q, k, v, o, dO and kv_lens, both against float64 (f64_over_bound),
-    two calls bit for bit and keys past kv_len exactly 0, and the times:
-    per call over back-to-back calls (CUDA events), each of the two
-    launches' device time, the plain version's and SDPA's autograd
-    backward's. For float32 the plain backward's times."""
+    """Gradients through flash_attention (kernel forward and backward)
+    against autograd through flash_attention_plain on case c; the backward
+    kernel (flash_attention_bwd, for c's dtype) against
+    flash_attention_bwd_plain on the same q, k, v, o, dO and kv_lens, both
+    against float64 (f64_over_bound, the dtype's constants), two calls bit
+    for bit and keys past kv_len exactly 0; and the times: per call over
+    back-to-back calls (CUDA events), each of the two launches' device
+    time, the plain version's and SDPA's autograd backward's (float32
+    with TF32 off, as phase 1 sets it)."""
     from unast_tpu_torch.ops.attention import (flash_attention,
                                                flash_attention_bwd,
                                                flash_attention_bwd_plain,
@@ -927,15 +968,16 @@ def backward_case(c: Case):
     leaves, kv_lens = fused_leaves(c)
     w = torch.randn((c.b, c.tq, c.h, c.d), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(c.seed + 1))
-    before = (fa.backward_launches, fa.backward_calls)
+    route = "backward_launches_bf16" if c.dtype == torch.bfloat16 else "backward_launches_f32"
+    before = (fa.backward_launches, getattr(fa, route), fa.backward_calls)
     got = qkv_grads(c, flash_attention, leaves, kv_lens, w)
     torch.cuda.synchronize()
-    through = [fa.backward_launches - before[0], fa.backward_calls - before[1]]
+    through = [fa.backward_launches - before[0], getattr(fa, route) - before[1],
+               fa.backward_calls - before[2]]
     want = qkv_grads(c, flash_attention_plain, leaves, kv_lens, w)
-    bf = c.dtype == torch.bfloat16
     rel = 1e-4 if c.dtype == torch.float32 else 2.0 ** -6
     errs = {}
-    ok = through == [int(bf), 1]
+    ok = through == [1, 1, 1]
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         err = float((a.float() - r.float()).abs().max())
         top = float(r.float().abs().max())
@@ -945,20 +987,23 @@ def backward_case(c: Case):
     o, lse = flash_attention_fwd(q, k, v, kv_lens, c.causal, c.q_start)
     do = w.to(c.dtype)
     # 50 calls a window at every size: the profiler can miss a few launches
-    # at the start of a window, and the kernel's are only 2-250 us long
+    # at the start of a window, and the kernels' are only 2-1500 us long
     iters = 50
     bound_ms, bound_by = backward_bound(q, kv_lens, c.causal, c.q_start)
     args = (q, k, v, kv_lens, c.causal, o, do, c.q_start)
 
     def plain():
         return flash_attention_bwd_plain(*args)
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, kv_lens, c.causal, o, lse, do, c.q_start)
     library = sdpa_backward_call(q, k, v, kv_lens, c.causal, do, c.q_start)
     case = {
         "case": c.name, "dtype": str(c.dtype).replace("torch.", ""),
         "layout": c.layout, "shape": [c.b, c.tq, c.tk, c.h, c.d],
         "causal": c.causal, "q_start": c.q_start, "kv_lens": kv_lens.tolist(),
         "grads": errs, "bound_rel_to_max": rel,
-        "autograd_launches_and_calls": through,
+        "autograd_launches_route_launches_and_calls": through,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "plain_ms": cuda_ms(plain, iters),
         "plain_device_ms": device_ms(plain, (), iters)[""],
@@ -966,51 +1011,74 @@ def backward_case(c: Case):
         "library_device_ms": device_ms(library, (), iters)[""],
         "fwd_ms": cuda_ms(lambda: flash_attention(q, k, v, kv_lens, causal=c.causal,
                                                   q_start=c.q_start), iters)}
-    if bf:
-        def kernel():
-            return flash_attention_bwd(q, k, v, kv_lens, c.causal, o, lse, do,
-                                       c.q_start)
-        mine, again = kernel(), kernel()
-        ref_plain = plain()
-        exact, terms = backward_f64(*args)
-        lens = kv_lens.tolist()
-        checks = {}
-        for i, name in enumerate(("dq", "dk", "dv")):
-            past = [mine[i][b, n:] for b, n in enumerate(lens)] if name != "dq" else []
-            checks[name] = {
-                "max_abs_err_vs_plain": float((mine[i].float() - ref_plain[i].float())
-                                              .abs().max()),
-                "f64_over_bound_kernel": f64_over_bound(mine[i], exact[i], terms[i]),
-                "f64_over_bound_plain": f64_over_bound(ref_plain[i], exact[i], terms[i]),
-                "bitwise_repeat": bool(torch.equal(mine[i], again[i])),
-                "zero_past_kv_len": all(not bool(x.any()) for x in past)}
-            ok = (ok and checks[name]["f64_over_bound_kernel"] <= 1
-                  and checks[name]["bitwise_repeat"] and checks[name]["zero_past_kv_len"])
-        del exact, terms
-        per_kernel = device_ms(kernel, BWD_KERNELS, iters)
-        case.update({
-            "kernel": checks,
-            "max_abs_err": max(x["max_abs_err_vs_plain"] for x in checks.values()),
-            "ms": cuda_ms(kernel, iters), "device_ms": sum(per_kernel.values()),
-            "device_ms_per_launch": per_kernel})
+    mine, again = kernel(), kernel()
+    ref_plain = plain()
+    exact, terms = backward_f64(*args)
+    lens = kv_lens.tolist()
+    checks = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        past = [mine[i][b, n:] for b, n in enumerate(lens)] if name != "dq" else []
+        checks[name] = {
+            "max_abs_err_vs_plain": float((mine[i].float() - ref_plain[i].float())
+                                          .abs().max()),
+            "f64_over_bound_kernel": f64_over_bound(mine[i], exact[i], terms[i], c.dtype),
+            "f64_over_bound_plain": f64_over_bound(ref_plain[i], exact[i], terms[i],
+                                                   c.dtype),
+            "bitwise_repeat": bool(torch.equal(mine[i], again[i])),
+            "zero_past_kv_len": all(not bool(x.any()) for x in past)}
+        ok = (ok and checks[name]["f64_over_bound_kernel"] <= 1
+              and checks[name]["f64_over_bound_plain"] <= 1
+              and checks[name]["bitwise_repeat"] and checks[name]["zero_past_kv_len"])
+    del exact, terms
+    per_kernel = device_ms(kernel, BWD_KERNELS[c.dtype], iters)
+    case.update({
+        "kernel": checks, "f64_bound": list(F64_BOUND[c.dtype]),
+        "max_abs_err": max(x["max_abs_err_vs_plain"] for x in checks.values()),
+        "ms": cuda_ms(kernel, iters), "device_ms": sum(per_kernel.values()),
+        "device_ms_per_launch": per_kernel})
     case["ok"] = ok
     return case
 
 
 # phase 6's case whose shape the flagship step's decoders give the
-# backward most often: causal self-attention at B4 T816 H4 D64
-BWD_MAIN_CASE = "train_self_t816"
+# backward most often: causal self-attention at B4 T816 H4 D64, per dtype
+BWD_MAIN_CASE = {torch.bfloat16: "train_self_t816", torch.float32: "train_self_t816_f32"}
 
 
-def backward_row(bwd_cases, hgmma, steps, loop_run, ctc_run, nar_run, wide_run,
-                 families_run, dp_run):
-    """The bf16 backward kernel's entry of the kernels line: its launches
-    on the main path (phase 7's untraced steps) and on every other bf16
-    path that trains, each equal to that path's backward calls, and phase
-    6's numbers at BWD_MAIN_CASE, with every bf16 case beside."""
-    main = next(c for c in bwd_cases if c["case"] == BWD_MAIN_CASE)
+def backward_row(dtype, bwd_cases, hgmma, launches, counted_on, paths):
+    """A backward kernel's entry of the kernels line: its launches on the
+    main path (`launches`, counted as `counted_on`) and on every other
+    path of its dtype that trains (`paths`: {key: (launches, where)}, each
+    equal to that path's backward calls), and phase 6's numbers at its
+    BWD_MAIN_CASE, with every case of its dtype beside."""
+    main = next(c for c in bwd_cases if c["case"] == BWD_MAIN_CASE[dtype])
+    name = {torch.bfloat16: "flash_attn_bwd_wgmma", torch.float32: "flash_attn_bwd_f32"}[dtype]
+    dtype_name = str(dtype).replace("torch.", "")
+    return {
+        "name": name, "route": "cuda", "source": f"unast_tpu_torch/csrc/{name}.cu",
+        "replaces": "unast_tpu/ops/attention.py:157", "dtype": dtype_name,
+        "launches": launches, "launches_counted_on": counted_on,
+        **{f"launches_{k}": n for k, (n, _) in paths.items()},
+        **{f"launches_{k}_counted_on": where for k, (_, where) in paths.items()},
+        **{key: main[key] for key in (
+            "max_abs_err", "ms", "device_ms", "device_ms_per_launch", "plain_ms",
+            "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "f64_bound")},
+        "library": "torch.autograd.grad through scaled_dot_product_attention",
+        "hgmma_instructions": hgmma[name][0],
+        "hgmma_tf32_instructions": hgmma[name][1],
+        "main_case": main["case"],
+        "cases": [{k: c[k] for k in ("case", "shape", "causal", "q_start", "kernel",
+                                     "device_ms", "device_ms_per_launch", "ms",
+                                     "plain_device_ms", "library_device_ms", "bound_ms")}
+                  for c in bwd_cases if c["dtype"] == dtype_name]}
+
+
+def bf16_backward_paths(loop_run, ctc_run, nar_run, wide_run, families_run, dp_run):
+    """The bf16 backward kernel's launches on every bf16 path that trains
+    besides phase 7's: {key: (launches, where)}."""
     per_rank = dp_run["per_rank"]
-    paths = {
+    return {
         "loop": (loop_run["launches"]["seen"][2],
                  "flagship loop: warm-start step, 1 step, 2 evals (phase 9)"),
         "ctc_train": (ctc_run["train"]["backward_launches"],
@@ -1033,26 +1101,30 @@ def backward_row(bwd_cases, hgmma, steps, loop_run, ctc_run, nar_run, wide_run,
                         "one sp = 2 joint step, both ranks (phase 20)"),
         "pp_flagship": (sum(r["flagship"]["pp2"]["backward_launches"] for r in per_rank),
                         "one pp = 2 joint step, both ranks (phase 20)")}
+
+
+def f32_backward_paths(tiny_train, loop_run, ctc_run, nar_run, families_run, dp_run):
+    """The float32 backward kernel's launches on every float32 path that
+    trains besides phase 8's flagship step: {key: (launches, where)}."""
+    mesh = [c for r in dp_run["per_rank"] for c in r["tiny"].values()
+            if "backward_launches_f32" in c]
+    mesh4 = [r[k] for r in dp_run["dp2_tp2"]["per_rank"]
+             for k in ("tiny_dp2_tp2_zero1", "tiny_dp2_pp2")]
     return {
-        "name": "flash_attn_bwd_wgmma", "route": "cuda",
-        "source": "unast_tpu_torch/csrc/flash_attn_bwd_wgmma.cu",
-        "replaces": "unast_tpu/ops/attention.py:157", "dtype": "bfloat16",
-        "launches": sum(s_["backward_launches"] for s_ in steps),
-        "launches_counted_on": f"flagship train: {TRAIN_STEPS} untraced step(s), bf16 "
-                               "(phase 7), one launch = the two kernels of one backward",
-        **{f"launches_{k}": n for k, (n, _) in paths.items()},
-        **{f"launches_{k}_counted_on": where for k, (_, where) in paths.items()},
-        **{key: main[key] for key in (
-            "max_abs_err", "ms", "device_ms", "device_ms_per_launch", "plain_ms",
-            "plain_device_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")},
-        "library": "torch.autograd.grad through scaled_dot_product_attention",
-        "hgmma_instructions": hgmma["flash_attn_bwd_wgmma"][0],
-        "main_case": BWD_MAIN_CASE,
-        "cases": [{k: c[k] for k in ("case", "shape", "causal", "q_start", "kernel",
-                                     "device_ms", "device_ms_per_launch", "ms",
-                                     "plain_device_ms", "library_device_ms", "bound_ms")}
-                  for c in bwd_cases if c["dtype"] == "bfloat16"]}
+        "tiny_train": (tiny_train["backward_launches_f32"],
+                       "TINY train step on the card against the CPU (phase 8)"),
+        "loop": (loop_run["tiny_gpu_vs_cpu"]["backward_launches_f32"],
+                 "configs/transformer_test.json loop on the card, 2 epochs, D 32 (phase 9)"),
+        "ctc_tiny": (ctc_run["tiny_gpu_vs_cpu"]["backward_launches_f32"],
+                     "TINY CTC checks (phase 14): no gradient reaches attention"),
+        "nar_tiny": (nar_run["tiny_gpu_vs_cpu"]["step"]["backward_launches_f32"],
+                     "TINY distill step on the card (phase 15)"),
+        "family_tiny": (families_run["tiny_gpu_vs_cpu"]["backward_launches_f32"],
+                        "TINY MoE stacks under remat dots_all and scan, their "
+                        "gradients on the card (phase 18)"),
+        "mesh_tiny": (sum(c["backward_launches_f32"] for c in mesh + mesh4),
+                      "TINY mesh steps (dp zero 0/1/3, MoE dp, tp, ep, sp, pp; dp 2 "
+                      "x tp 2, dp 2 x pp 2), every rank (phase 20)")}
 
 
 def train_batches(rng, args, cfg, b, text_len, mel_len, device):
@@ -1143,7 +1215,14 @@ def hgmma_count(lib):
 
 
 def reset_launch_counts(fn):
-    fn.launches = fn.launches_bf16 = fn.launches_f32 = fn.backward_launches = 0
+    fn.launches = fn.launches_bf16 = fn.launches_f32 = 0
+    fn.backward_launches = fn.backward_launches_bf16 = fn.backward_launches_f32 = 0
+
+
+def bwd_launches(fa):
+    """The backward kernels' launch counts by route, for a record."""
+    return {"backward_launches_bf16": fa.backward_launches_bf16,
+            "backward_launches_f32": fa.backward_launches_f32}
 
 
 def host_sync_us(n: int = 200) -> float:
@@ -1227,7 +1306,8 @@ class LoopProbe:
 
         def run(*a, **kw):
             before = (fa.launches_bf16, fa.launches_f32, fa.backward_calls,
-                      fa.backward_launches)
+                      fa.backward_launches, fa.backward_launches_bf16,
+                      fa.backward_launches_f32)
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*a, **kw)
@@ -1236,7 +1316,9 @@ class LoopProbe:
                    "launches_bf16": fa.launches_bf16 - before[0],
                    "launches_f32": fa.launches_f32 - before[1],
                    "backward_calls": fa.backward_calls - before[2],
-                   "backward_launches": fa.backward_launches - before[3]}
+                   "backward_launches": fa.backward_launches - before[3],
+                   "backward_launches_bf16": fa.backward_launches_bf16 - before[4],
+                   "backward_launches_f32": fa.backward_launches_f32 - before[5]}
             if kind == "eval":
                 rec["per"] = out[0]
                 rec["losses"] = {k: float(np.mean(v)) for k, v in out[1].items()}
@@ -1316,7 +1398,8 @@ def flagship_loop(fa):
             seen, expected, fa.launches_f32)
         for c in probe.calls:
             assert [c["launches_bf16"], c["backward_calls"]] == list(per_kind[c["kind"]]), c
-            assert c["backward_launches"] == c["backward_calls"], c
+            assert (c["backward_launches"] == c["backward_launches_bf16"]
+                    == c["backward_calls"] and c["backward_launches_f32"] == 0), c
         records = metrics_records(os.path.join(ck, "metrics.jsonl"))
         assert records and all(np.isfinite(v) for v in records.values()), records
         roles = sorted(f for f in os.listdir(ck) if f.endswith(".ckpt"))
@@ -1412,6 +1495,7 @@ def tiny_loop_walk(fa):
             bwd0 = fa.backward_calls
             on_gpu, gpu_s, args = run("gpu", "cuda", 2)
             seen = [fa.launches_f32, fa.backward_calls - bwd0]
+            bwd_routes = bwd_launches(fa)
             _, expected = loop_expected(loop, args, loop.model_config_from_args(args),
                                         2, 3)
             run("resumed", "cuda", 1)
@@ -1421,7 +1505,7 @@ def tiny_loop_walk(fa):
     out = {"config": os.path.relpath(TEST_CONFIG, ROOT), "cpu_s": cpu_s, "gpu_s": gpu_s,
            "launches_f32": seen[0], "backward_calls": seen[1],
            "expected": expected, "launches_bf16": fa.launches_bf16,
-           "backward_launches": fa.backward_launches,
+           **bwd_routes,
            "card_vs_cpu": compare_records(on_gpu, on_cpu),
            "resume_vs_unbroken": compare_records(resumed, on_gpu, steps={3, 4})}
     # float32 on both; metrics 1e-4 relative (tests/test_torch_loop.py's
@@ -1429,7 +1513,11 @@ def tiny_loop_walk(fa):
     out["ok"] = all(c["keys_equal"] and c["per_equal"] and c["max_rel_err"] <= 1e-4
                     for c in (out["card_vs_cpu"], out["resume_vs_unbroken"]))
     assert out["ok"], out
-    assert seen == expected and out["launches_bf16"] == out["backward_launches"] == 0, out
+    # the 2-epoch run on the card: each backward call one launch of the
+    # float32 backward kernel, none of the bf16 one
+    assert seen == expected and out["launches_bf16"] == 0, out
+    assert (out["backward_launches_f32"], out["backward_launches_bf16"]) == (
+        seen[1], 0) and seen[1] > 0, out
     return out
 
 
@@ -1910,6 +1998,7 @@ def ctc_tiny_checks(fa):
     p_abs = {k: v for k, v in p_rel.items() if k != "rel_pos"}
     out = {"logits": {}}
     reset_launch_counts(fa)
+    bwd0 = fa.backward_calls
     for name, cfg, p in (("abs_flash", TINY.replace(attn_impl="flash"), p_abs),
                          ("chunk", TINY.replace(**field), p_abs),
                          ("rel", TINY.replace(ctc_pos="rel", **field), p_rel)):
@@ -1995,6 +2084,12 @@ def ctc_tiny_checks(fa):
         a, b = (s_.asr_ids(mels, **kw_) for s_ in syns)
         out["synthesizer_ids_equal"][name] = all(np.array_equal(x, y) for x, y in zip(a, b))
     assert all(out["synthesizer_ids_equal"].values()), out
+    # no gradient here reaches attention (ctc_loss's is of the logits):
+    # the float32 backward kernel's launches equal the backward calls, 0
+    out["backward_calls"] = fa.backward_calls - bwd0
+    out.update(bwd_launches(fa))
+    assert out["backward_calls"] == out["backward_launches_f32"] == 0, out
+    assert out["backward_launches_bf16"] == 0, out
     return out
 
 
@@ -2046,12 +2141,12 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
         losses.append(float(m["ctc/loss"]))
         step_s.append(time.perf_counter() - t)
     train_counts = [fa.launches_bf16, fa.launches_f32, fa.backward_calls - bwd0,
-                    fa.backward_launches]
+                    fa.backward_launches, fa.backward_launches_f32]
     train_peak = torch.cuda.max_memory_allocated()
     n_train = cfg.num_layers * CTC_TRAIN_STEPS
     assert np.isfinite(losses).all() and all(
         bool(torch.isfinite(x).all()) for x in tree_paths(ts.params).values()), losses
-    assert train_counts == [n_train, 0, n_train, n_train], train_counts
+    assert train_counts == [n_train, 0, n_train, n_train, 0], train_counts
 
     mels = sorted((np.load(os.path.join(root, "device", f))[:816]
                    for f in os.listdir(os.path.join(root, "device")) if f.endswith(".mel.npy")),
@@ -2104,11 +2199,13 @@ def ctc_phase(fa, flag_params, flag_state, flag_cfg, root):
     hybrid = {"s": hybrid_s, "metrics": {k: float(v) for k, v in hm.items()},
               "spec_rounds": rounds, "launches_bf16": fa.launches_bf16,
               "launches_f32": fa.launches_f32, "backward_calls": fa.backward_calls - bwd0,
-              "backward_launches": fa.backward_launches, "expected": [fwd, bwd]}
+              "backward_launches": fa.backward_launches, **bwd_launches(fa),
+              "expected": [fwd, bwd]}
     assert all(np.isfinite(v) for v in hybrid["metrics"].values()), hybrid
     assert "sp/ctc_sp" in hybrid["metrics"], hybrid["metrics"]
     assert (hybrid["launches_bf16"], hybrid["launches_f32"], hybrid["backward_calls"],
-            hybrid["backward_launches"]) == (fwd, 0, bwd, bwd), hybrid
+            hybrid["backward_launches"], hybrid["backward_launches_f32"]) == (
+                fwd, 0, bwd, bwd, 0), hybrid
 
     tiny = ctc_tiny_checks(fa)
 
@@ -2226,7 +2323,7 @@ def nar_tiny_checks(fa):
         torch.cuda.synchronize()
     out["step"] = {
         "launches_f32": fa.launches_f32, "backward_calls": fa.backward_calls - bwd0,
-        "backward_launches": fa.backward_launches,
+        "backward_launches": fa.backward_launches, **bwd_launches(fa),
         "expected": list(TF.flash_calls_per_distill_step(scfg, tcfg, args)),
         **compare_train_steps(
             args.lr, {"student": (on_gpu.params, on_cpu.params, on_gpu.opt, on_cpu.opt)},
@@ -2247,7 +2344,8 @@ def nar_tiny_checks(fa):
                  and st["student_mu_scaled"] <= 1 and st["update_abs"] <= 1e-3
                  and st["update_abs_all"] <= 2 + 1e-3
                  and [st["launches_f32"], st["backward_calls"]] == st["expected"]
-                 and st["backward_launches"] == 0
+                 and st["backward_launches"] == st["backward_launches_f32"]
+                 == st["backward_calls"] > 0 and st["backward_launches_bf16"] == 0
                  and out["synth_mels"] <= 1e-4 and out["synth_lens_equal"])
     assert out["ok"], out
     return out
@@ -2311,13 +2409,14 @@ def fastspeech_phase(fa, flag_params, flag_state, flag_cfg, root):
                "metrics": {k: float(v) for k, v in m.items()},
                "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
                "backward_calls": fa.backward_calls - bwd0,
-               "backward_launches": fa.backward_launches,
+               "backward_launches": fa.backward_launches, **bwd_launches(fa),
                "expected": list(TF.flash_calls_per_distill_step(cfg, tcfg, sargs)),
                "mel_lens": batch["mel_len"].tolist(), "text_lens": batch["text_len"].tolist()}
         steps.append(rec)
         assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
         assert [rec["launches_bf16"], rec["backward_calls"]] == rec["expected"], rec
-        assert rec["launches_f32"] == 0 and rec["backward_launches"] == rec["backward_calls"], rec
+        assert rec["launches_f32"] == rec["backward_launches_f32"] == 0, rec
+        assert rec["backward_launches"] == rec["backward_calls"], rec
     train_peak = torch.cuda.max_memory_allocated()
     nonfinite = [k for k, x in tree_paths(fs.params).items()
                  if not bool(torch.isfinite(x).all())]
@@ -2682,7 +2781,7 @@ def _objective_step(step_fn, ts, batches, fa, seed):
            "metrics": {k: float(v) for k, v in m.items()},
            "launches_bf16": fa.launches_bf16, "launches_f32": fa.launches_f32,
            "backward_calls": fa.backward_calls - bwd0,
-           "backward_launches": fa.backward_launches,
+           "backward_launches": fa.backward_launches, **bwd_launches(fa),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
     return ts, rec
@@ -2730,7 +2829,8 @@ def wide_phase(fa):
                             args.data_text_len, args.data_mel_len, "cuda")
     ts, step = _objective_step(make_train_step(cfg, args), ts, batches, fa, 0)
     assert [step["launches_bf16"], step["backward_calls"], step["launches_f32"],
-            step["backward_launches"]] == [fwd, bwd, 0, bwd], (step, fwd, bwd)
+            step["backward_launches"], step["backward_launches_f32"]] == [
+                fwd, bwd, 0, bwd, 0], (step, fwd, bwd)
     step.update(expected=[fwd, bwd])
 
     # the sp objective alone under each policy
@@ -2760,14 +2860,14 @@ def wide_phase(fa):
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base,
             "launches_bf16": fa.launches_bf16, "backward_calls": fa.backward_calls - bwd0,
-            "backward_launches": fa.backward_launches,
+            "backward_launches": fa.backward_launches, **bwd_launches(fa),
             "grad_finite": all(bool(torch.isfinite(g).all()) for g in grads
                                if g is not None)}
         del live, params, loss, grads
     bits = {r["loss_bits"] for r in policies.values()}
     assert len(bits) == 1 and all(r["grad_finite"] for r in policies.values()), policies
     assert all(r["backward_launches"] == r["backward_calls"] > 0
-               for r in policies.values()), policies
+               and r["backward_launches_f32"] == 0 for r in policies.values()), policies
     assert policies["''"]["peak_bytes"] < policies["off"]["peak_bytes"], policies
     del ts, batches, gen_p, disc_p
     torch.cuda.empty_cache()
@@ -2877,11 +2977,13 @@ def family_tiny_checks(fa):
     g = torch.Generator().manual_seed(2)
     stack = {"encoder": T.encoder_init(g, d, h, f, 2, moe=2),
              "decoder": T.decoder_init(g, d, h, f, 2, moe=2)}
+    card_bwd = 0   # backward calls on the card
     for form, kw in (("remat_dots_all", dict(remat=True, remat_policy="dots_all")),
                      ("scan", dict(scan_layers=True))):
         res = []
         for p, xx, pp, yy, yp in ((stack, x, pad, y, ypad),
                                   (dev(stack), dev(x), dev(pad), dev(y), dev(ypad))):
+            bwd0 = fa.backward_calls
             leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
             live = tree_unflatten(p, leaves)
             ctx = nn.Ctx(aux_losses=[])
@@ -2891,6 +2993,8 @@ def family_tiny_checks(fa):
                           moe_opts=(2, 1.25, "dispatch", 8), **kw)
             loss = (o ** 2).mean() + sum(ctx.aux_losses)
             res.append((loss, torch.autograd.grad(loss, leaves)))
+            if xx.is_cuda:
+                card_bwd += fa.backward_calls - bwd0
         errs[form] = max([_max_abs(res[0][0], res[1][0])]
                          + [_max_abs(a_, b_) for a_, b_ in zip(res[0][1], res[1][1])])
     cfg = TINY.replace(attn_impl="flash")
@@ -2906,9 +3010,11 @@ def family_tiny_checks(fa):
                                 dev(tl), dev(mel), dev(ml))
     errs["quantized_tts"] = _max_abs(a, b)
     rec = {"max_abs_err": errs, "launches_f32": fa.launches_f32,
-           "launches_bf16": fa.launches_bf16, "tol": 1e-4}
+           "launches_bf16": fa.launches_bf16, "backward_calls": card_bwd,
+           **bwd_launches(fa), "tol": 1e-4}
     assert max(errs.values()) <= 1e-4 and rec["launches_f32"] > 0, rec
-    assert rec["launches_bf16"] == 0, rec
+    assert rec["launches_bf16"] == rec["backward_launches_bf16"] == 0, rec
+    assert rec["backward_launches_f32"] == card_bwd > 0, rec
     return rec
 
 
@@ -2961,7 +3067,8 @@ def families_phase(fa, flag_cfg):
         ts = init_train_state(torch.Generator().manual_seed(0), cfg, args)
         _, rec["step"] = _objective_step(make_train_step(cfg, args), ts, batches, fa, 1)
         assert [rec["step"]["launches_bf16"], rec["step"]["backward_calls"],
-                rec["step"]["backward_launches"]] == [fwd, bwd, bwd], (rec["step"], fwd, bwd)
+                rec["step"]["backward_launches"], rec["step"]["backward_launches_f32"]] == [
+                    fwd, bwd, bwd, 0], (rec["step"], fwd, bwd)
         rec["step"]["expected"] = [fwd, bwd]
         if name.startswith("moe"):
             assert {"ae/moe", "sp/moe"} <= set(rec["step"]["metrics"]), rec["step"]
@@ -3208,16 +3315,22 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
             step, placed = shard_train_step(make_train_step(cfg_t, targs), mesh,
                                             fresh(), zero=zero)
             seen, f32_0 = {}, fa.launches_f32
+            bwd0 = (fa.backward_calls, fa.backward_launches_f32, fa.backward_launches_bf16)
             with recorded_flash_inputs(seen):
                 new, m = step(placed, seeded_generator(0, dp_coord, "cuda"),
                               batch_shardings(mesh, tb))
             launches = fa.launches_f32 - f32_0
+            bwd = [fa.backward_calls - bwd0[0], fa.backward_launches_f32 - bwd0[1],
+                   fa.backward_launches_bf16 - bwd0[2]]
             whole = step.plan.whole(new)
         c = compare_train_steps(targs.lr, **joint_step_comparison((whole, m), single))
         # the float32 kernel on this rank's own views (its heads under tp)
         c["flash_launches_f32"] = launches
+        # and its backward: each call one launch of the float32 kernel
+        c["backward_calls"], c["backward_launches_f32"], c["backward_launches_bf16"] = bwd
         c["flash_vs_plain"] = check_recorded_flash(seen)
         c["ok"] = (_tiny_ok(c) and launches > 0 and bool(c["flash_vs_plain"])
+                   and bwd[0] == bwd[1] > 0 and bwd[2] == 0
                    and all(r["ok"] for r in c["flash_vs_plain"]))
         c["opt_state_bytes"] = state_bytes(new.gen_opt) + state_bytes(new.disc_opt)
         c["opt_state_bytes_whole"] = (state_bytes(single[0].gen_opt)
@@ -3326,7 +3439,7 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
                "flash_counted": [fwd, bwd],
                "flash_launches_bf16": fa.launches_bf16, "flash_launches_f32": fa.launches_f32,
                "backward_calls": fa.backward_calls - bwd0,
-               "backward_launches": fa.backward_launches,
+               "backward_launches": fa.backward_launches, **bwd_launches(fa),
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                "param_bytes": state_bytes(new.params), "param_bytes_whole": whole_params,
                "opt_state_bytes": state_bytes(new.gen_opt) + state_bytes(new.disc_opt),
@@ -3340,8 +3453,8 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         kinds = {(r["self"], r["causal"]) for r in rec["flash_vs_plain"]}
         assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
         assert (rec["flash_launches_bf16"], rec["flash_launches_f32"],
-                rec["backward_calls"], rec["backward_launches"]) == (fwd, 0, bwd, bwd), (
-                    rec, fwd, bwd)
+                rec["backward_calls"], rec["backward_launches"],
+                rec["backward_launches_f32"]) == (fwd, 0, bwd, bwd, 0), (rec, fwd, bwd)
         assert all(r["ok"] and r["q"][2] == rec["heads"]
                    for r in rec["flash_vs_plain"]), rec["flash_vs_plain"]
         if key == "sp2":   # the rank's queries against the gathered keys
@@ -3517,6 +3630,7 @@ def main() -> int:
     assert hgmma["flash_attn_fwd_wgmma"][0] > 0, "the bf16 kernel has no wgmma"
     assert hgmma["flash_attn_bwd_wgmma"][0] > 0, "the bf16 backward has no wgmma"
     assert hgmma["flash_attn_fwd_f32"][1] > 0, "the f32 kernel has no TF32 wgmma"
+    assert hgmma["flash_attn_bwd_f32"][1] > 0, "the f32 backward has no TF32 wgmma"
 
     phase_ends.append((2, time.perf_counter()))
     # 3. every kernel against its plain version
@@ -3633,7 +3747,7 @@ def main() -> int:
                 "flash_launches_bf16": fa.launches_bf16,
                 "flash_launches_f32": fa.launches_f32,
                 "backward_calls": after[0] - before[0],
-                "backward_launches": fa.backward_launches}
+                "backward_launches": fa.backward_launches, **bwd_launches(fa)}
     for i in range(TRAIN_STEPS):
         steps.append({"step": i, **train_step()})
     train_peak = torch.cuda.max_memory_allocated()
@@ -3659,9 +3773,9 @@ def main() -> int:
     for s_ in steps + [profiled]:
         assert all(np.isfinite(v) for v in s_["metrics"].values()), s_["metrics"]
         assert s_["flash_launches_bf16"] == fwd_per_step, (s_, fwd_per_step)
-        assert s_["flash_launches_f32"] == 0, s_
-        assert s_["backward_calls"] == s_["backward_launches"] == bwd_per_step, (
-            s_, bwd_per_step)
+        assert s_["flash_launches_f32"] == s_["backward_launches_f32"] == 0, s_
+        assert (s_["backward_calls"] == s_["backward_launches"]
+                == s_["backward_launches_bf16"] == bwd_per_step), (s_, bwd_per_step)
     # the trace holds the whole step: every flash launch, to the d phase's
     assert flash_traced == fwd_per_step, (flash_traced, fwd_per_step)
     nonfinite = [k for k, x in tree_paths(ts.params).items()
@@ -3690,7 +3804,7 @@ def main() -> int:
     tiny_train_launches_f32 = fa.launches_f32
     tiny_train = {"launches_f32": fa.launches_f32, "launches_bf16": fa.launches_bf16,
                   "backward_calls": fa.backward_calls - before_bwd,
-                  "backward_launches": fa.backward_launches,
+                  "backward_launches": fa.backward_launches, **bwd_launches(fa),
                   **compare_train_steps(targs.lr, **joint_step_comparison(on_gpu_t, on_cpu_t))}
     # float32 throughout; tolerances as tests/test_torch_train.py holds the
     # CPU path to the JAX step: metrics 1e-4 relative, BN state 1e-5,
@@ -3701,8 +3815,42 @@ def main() -> int:
                         and tiny_train["update_abs"] <= 1e-3)
     assert tiny_train["ok"], tiny_train
     assert (tiny_train["launches_f32"], tiny_train["launches_bf16"],
-            tiny_train["backward_calls"], tiny_train["backward_launches"]) == (
-                tiny_fwd, 0, tiny_bwd, 0), (tiny_train, tiny_fwd)
+            tiny_train["backward_calls"], tiny_train["backward_launches_f32"],
+            tiny_train["backward_launches_bf16"]) == (
+                tiny_fwd, 0, tiny_bwd, tiny_bwd, 0), (tiny_train, tiny_fwd)
+    # the flagship's joint step in float32 at full width: phase 7's config,
+    # batches and objectives with compute_dtype float32, so that every
+    # attention forward and backward takes the float32 kernels
+    cfg32 = cfg.replace(compute_dtype="float32")
+    fwd32, bwd32 = flash_calls_per_step(cfg32, args)
+    ts32 = init_train_state(torch.Generator().manual_seed(0), cfg32, args)
+    step32 = make_train_step(cfg32, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fa)
+    bwd0 = fa.backward_calls
+    t = time.perf_counter()
+    ts32, m32 = step32(ts32, torch.Generator(device="cuda").manual_seed(0), batches)
+    torch.cuda.synchronize()
+    f32_step = {"config": os.path.relpath(CONFIG, ROOT), "compute_dtype": "float32",
+                "batch": args.train_batch_size, "s": time.perf_counter() - t,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "metrics": {k: float(v) for k, v in m32.items()},
+                "flash_launches_f32": fa.launches_f32,
+                "flash_launches_bf16": fa.launches_bf16,
+                "backward_calls": fa.backward_calls - bwd0,
+                "backward_launches": fa.backward_launches, **bwd_launches(fa),
+                "expected": [fwd32, bwd32]}
+    nonfinite = [k for k, x in tree_paths(ts32.params).items()
+                 if not bool(torch.isfinite(x).all())]
+    assert all(np.isfinite(v) for v in f32_step["metrics"].values()), f32_step
+    assert not nonfinite and ts32.step == 1, nonfinite
+    assert (f32_step["flash_launches_f32"], f32_step["flash_launches_bf16"],
+            f32_step["backward_calls"], f32_step["backward_launches_f32"],
+            f32_step["backward_launches_bf16"]) == (fwd32, 0, bwd32, bwd32, 0), f32_step
+    print(json.dumps({"phase": 8, "f32_step_s": f32_step["s"]}), flush=True)
+    del ts32, step32
+    torch.cuda.empty_cache()
 
     phase_ends.append((8, time.perf_counter()))
     # 9. the third main path: the training loop at flagship width (bf16),
@@ -3730,6 +3878,11 @@ def main() -> int:
         ctc_run, ctc_pv = ctc_phase(fa, params, state, cfg, data_root)
         print(json.dumps({"phase": 14, "s": ctc_run["phase_s"]}), flush=True)
         phase_ends.append((14, time.perf_counter()))
+        # 20. (started here) data, tensor, expert, sequence and pipeline
+        # parallelism: its worlds are processes of their own with their own
+        # counts, and run beside phases 15-19, which keep the main process
+        dp_pool = concurrent.futures.ThreadPoolExecutor(1)
+        dp_future = dp_pool.submit(dp_phase)
         # 15.-16. the one-pass families: FastSpeech distilled and served,
         # then the neural vocoders trained on the shards and served behind it
         nar_run, student = fastspeech_phase(fa, params, state, cfg, data_root)
@@ -3739,11 +3892,6 @@ def main() -> int:
                                                  data_root)
         print(json.dumps({"phase": 16, "s": melgan_run["phase_s"]}), flush=True)
     phase_ends.append((16, time.perf_counter()))
-    # 20. (started here) data, tensor and expert parallelism: its worlds
-    # are processes of their own with their own counts, and run beside
-    # phases 17-19, which keep the main process
-    dp_pool = concurrent.futures.ThreadPoolExecutor(1)
-    dp_future = dp_pool.submit(dp_phase)
     # 17.-18. the family additions: the wide model (remat, int8 serving),
     # then the conformer and MoE at flagship width (phases 15, 16, 14 and
     # 12's models stay for phase 19)
@@ -3922,6 +4070,9 @@ def main() -> int:
             "replaces": "unast_tpu/ops/attention.py:81",
             "dtype": dtype, "launches": n, "launches_counted_on": path,
             "launches_train": n_train, "launches_train_counted_on": train_path,
+            "launches_flagship_f32_step": f32_step[f"flash_{key}"],
+            "launches_flagship_f32_step_counted_on":
+                "flagship train: 1 step with compute_dtype float32 (phase 8)",
             "launches_loop": n_loop, "launches_loop_counted_on": loop_path,
             "launches_vocoder_serve": vocoder_run[
                 "flash_launches_bf16" if dtype == "bfloat16" else "flash_launches_f32"],
@@ -3942,8 +4093,15 @@ def main() -> int:
             "main_case": main_name,
             "cases": [c for c in cases if c["dtype"] == dtype]})
     kernels.append(backward_row(
-        bwd_cases, hgmma, steps, loop_run, ctc_run, nar_run, wide_run, families_run,
-        dp_run))
+        bf16, bwd_cases, hgmma, sum(s_["backward_launches_bf16"] for s_ in steps),
+        f"flagship train: {TRAIN_STEPS} untraced step(s), bf16 (phase 7), one "
+        "launch = the two kernels of one backward",
+        bf16_backward_paths(loop_run, ctc_run, nar_run, wide_run, families_run, dp_run)))
+    kernels.append(backward_row(
+        f32, bwd_cases, hgmma, f32_step["backward_launches_f32"],
+        "flagship train: 1 step with compute_dtype float32 (phase 8), one launch = "
+        "the two kernels of one backward",
+        f32_backward_paths(tiny_train, loop_run, ctc_run, nar_run, families_run, dp_run)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"backward": bwd_cases}))
     if bad:
@@ -3962,6 +4120,7 @@ def main() -> int:
         "steps": steps,
         "breakdown_step": breakdown,
         "tiny_gpu_vs_cpu": tiny_train,
+        "f32_step": f32_step,
     }}))
 
     print(json.dumps({"loop": loop_run}))

@@ -10,12 +10,11 @@ order 1, since each side rounds its float32 result once.
 
 The kernels themselves run only on a CUDA card; their tests are marked
 `gpu` and skip on a host without one. Among them, the gradients through
-flash_attention's autograd.Function (kernel forward; bf16 backward
-kernel, float32 plain backward) against autograd through the plain
-version, and the bf16 backward kernel against float64 on chip_smoke.py's
-phase-6 scale; the backward's own parity with the JAX package, and that
-of the backward kernel's arithmetic (emulated), is in
-tests/test_torch_train.py. The layouts the bf16 kernel reads
+flash_attention's autograd.Function (kernel forward, backward kernel of
+the dtype) against autograd through the plain version, and each backward
+kernel against float64 on chip_smoke.py's phase-6 scale; the backward's
+own parity with the JAX package, and that of the backward kernels'
+arithmetic (emulated), is in tests/test_torch_train.py. The layouts the bf16 kernel reads
 through TMA (strided views of a fused QKV or KV projection) are pinned on
 the CPU through the plain version, and the wrapper's refusal of layouts
 TMA cannot take through its check. The float32 kernel's split-TF32
@@ -175,17 +174,19 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_backward_runs_plain_and_counts_no_launch(dtype):
     """On the CPU the backward is flash_attention_bwd_plain in either dtype
-    (one backward call, no kernel launch), and the kernel's wrapper
-    refuses a CPU tensor."""
+    (one backward call, no kernel launch on either route), and the
+    kernels' wrapper refuses a CPU tensor."""
     q, k, v, kv_lens = (torch.from_numpy(a) for a in _inputs(5, 2, 20, 20, 2, 32))
     q, k, v = (x.to(dtype).requires_grad_(True) for x in (q, k, v))
     do = torch.from_numpy(_inputs(6, 2, 20, 20, 2, 32)[0]).to(dtype)
-    before = (flash_attention.backward_launches, flash_attention.backward_calls)
+    fa = flash_attention
+    before = (fa.backward_launches, fa.backward_launches_bf16,
+              fa.backward_launches_f32, fa.backward_calls)
     out = flash_attention(q, k, v, kv_lens, causal=True)
     # <out, do> rather than grad_outputs, whose first use imports sympy
     got = torch.autograd.grad((out.float() * do.float()).sum(), (q, k, v))
-    assert (flash_attention.backward_launches, flash_attention.backward_calls) == (
-        before[0], before[1] + 1)
+    assert (fa.backward_launches, fa.backward_launches_bf16, fa.backward_launches_f32,
+            fa.backward_calls) == (*before[:3], before[3] + 1)
     want = flash_attention_bwd_plain(q, k, v, kv_lens, True, out.detach(), do)
     for a, r in zip(got, want):
         assert torch.equal(a, r)
@@ -436,15 +437,19 @@ def _check_kernel_gradients(device, dtype, layout, causal, tq, tk, h, d, lens):
     kv_lens = torch.tensor(lens or [tk, max(1, tk - 9)], dtype=torch.int32,
                            device=device)
     w = torch.from_numpy(rng.normal(size=(2, tq, h, d)).astype(np.float32)).to(device)
-    before = (flash_attention.launches, flash_attention.backward_calls,
-              flash_attention.backward_launches)
+    fa = flash_attention
+    before = (fa.launches, fa.backward_calls, fa.backward_launches,
+              fa.backward_launches_bf16, fa.backward_launches_f32)
     got = _grads_through(flash_attention, layout, x, kv_lens, causal, h, d, w)
     if device == "cuda":
         torch.cuda.synchronize()
-        assert flash_attention.launches == before[0] + 1
-    assert flash_attention.backward_calls == before[1] + 1
-    kernel = device == "cuda" and dtype == torch.bfloat16
-    assert flash_attention.backward_launches == before[2] + kernel
+        assert fa.launches == before[0] + 1
+    assert fa.backward_calls == before[1] + 1
+    # on the card one launch of the dtype's backward kernel, none of the other
+    kernel = device == "cuda"
+    bf = dtype == torch.bfloat16
+    assert (fa.backward_launches, fa.backward_launches_bf16, fa.backward_launches_f32) == (
+        before[2] + kernel, before[3] + (kernel and bf), before[4] + (kernel and not bf))
     want = _grads_through(flash_attention_plain, layout, x, kv_lens, causal, h, d, w)
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     for a, r in zip(got, want):
@@ -458,10 +463,10 @@ def _check_kernel_gradients(device, dtype, layout, causal, tq, tk, h, d, lens):
 @pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens", GPU_GRAD_CASES)
 def test_gradients_through_kernel_match_plain_autograd_on_gpu(dtype, layout, causal,
                                                               tq, tk, h, d, lens):
-    """flash_attention's autograd.Function (the kernel forward; for
-    bfloat16 the backward kernel, one launch, for float32 the plain
-    recompute backward) against autograd through flash_attention_plain,
-    on the card. float32 within 1e-4 of the gradient's largest element;
+    """flash_attention's autograd.Function (the kernel forward and the
+    dtype's backward kernel, one launch each, counted on the dtype's
+    route) against autograd through flash_attention_plain, on the card.
+    float32 within 1e-4 of the gradient's largest element;
     bfloat16 within 2**-6 of it: the backward reads the forward output o
     (delta = rowsum(dO o)), which the kernel gives within one bf16
     rounding, 2**-8, of the plain o, and each gradient is rounded once."""
@@ -481,42 +486,78 @@ GPU_BWD_CASES = [  # (layout, causal, tq, tk, h, d, lens, q_start)
 
 
 @pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout,causal,tq,tk,h,d,lens,q_start", GPU_BWD_CASES)
-def test_backward_kernel_within_f64_bound_on_gpu(layout, causal, tq, tk, h, d,
+def test_backward_kernel_within_f64_bound_on_gpu(dtype, layout, causal, tq, tk, h, d,
                                                  lens, q_start):
-    """The bf16 backward kernel (one launch) fed the lse the forward kernel
-    saved, on chip_smoke.py's phase-6 criteria: every element within
-    2**-8 |ref| + 2**-16 A of the float64 function, two calls bit for bit,
-    keys past kv_len exactly 0, and within a few bf16 units of the plain
-    backward (which recomputes lse)."""
+    """The dtype's backward kernel (one launch a call, on its route) fed
+    the lse the forward kernel saved, on chip_smoke.py's phase-6 criteria:
+    every element within the dtype's float64 bound (bf16 2**-8 |ref| +
+    2**-16 A, float32 2**-23 |ref| + 2**-17 A), as the plain backward
+    (which recomputes lse) is, two calls bit for bit, keys past kv_len
+    exactly 0, and within a few bf16 units (float32: 1e-4 of the largest
+    element) of the plain backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(tq + tk + d)
     shapes = ([(2, tq, 3 * h * d)] if layout == "qkv" else
               [(2, tq, h, d), (2, tk, 2 * h * d)])
-    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)
+    x = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dtype)
          for s in shapes]
     q, k, v = _views(layout, x[0] if layout == "qkv" else tuple(x), tq, tk, h, d)
     kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     o, lse = flash_attention_fwd(q, k, v, kv_lens, causal, q_start)
     do = torch.from_numpy(rng.normal(size=(2, tq, h, d)).astype(np.float32)).cuda().to(
-        torch.bfloat16)
+        dtype)
     args = (q, k, v, kv_lens, causal, o, do, q_start)
-    before = flash_attention.backward_launches
+    fa = flash_attention
+    route = "backward_launches_bf16" if dtype == torch.bfloat16 else "backward_launches_f32"
+    before = (fa.backward_launches, getattr(fa, route))
     kernel_args = (q, k, v, kv_lens, causal, o, lse, do, q_start)
     mine, again = flash_attention_bwd(*kernel_args), flash_attention_bwd(*kernel_args)
     torch.cuda.synchronize()
-    assert flash_attention.backward_launches == before + 2
+    assert (fa.backward_launches, getattr(fa, route)) == (before[0] + 2, before[1] + 2)
     plain = flash_attention_bwd_plain(*args)
     exact, terms = CS.backward_f64(*args)
+    rel = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
     for i, (a, b, p) in enumerate(zip(mine, again, plain)):
         assert torch.equal(a, b)
-        assert CS.f64_over_bound(a, exact[i], terms[i]) <= 1
-        assert float((a.float() - p.float()).abs().max()) <= 2.0 ** -6 * float(
+        assert CS.f64_over_bound(a, exact[i], terms[i], dtype) <= 1
+        assert CS.f64_over_bound(p, exact[i], terms[i], dtype) <= 1
+        assert float((a.float() - p.float()).abs().max()) <= rel * float(
             p.float().abs().max())
         if i:
             for row, n in enumerate(lens):
                 assert not a[row, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("float32_products")
+def test_f32_backward_kernel_takes_any_strides_on_gpu():
+    """The float32 backward's pre-pass reads q, k, v and dO with plain
+    loads: views of one fused projection whose base is 4 bytes in and
+    whose T stride is 388 bytes (which TMA would refuse), and a dO with
+    its H and T dims swapped in memory; against the plain backward and
+    float64 as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(2, 90, 3 * 32 + 1)).astype(np.float32)).cuda()
+    q, k, v = (t.unflatten(-1, (2, 16)) for t in torch.split(x[..., 1:], 32, dim=-1))
+    do = torch.from_numpy(rng.normal(size=(2, 2, 90, 16)).astype(np.float32)).cuda()
+    do = do.transpose(1, 2)
+    assert not do.is_contiguous() and do.stride(3) == 1
+    kv_lens = torch.tensor([90, 37], dtype=torch.int32, device="cuda")
+    o, lse = flash_attention_fwd(q, k, v, kv_lens, True, 0)
+    mine = flash_attention_bwd(q, k, v, kv_lens, True, o, lse, do)
+    args = (q, k, v, kv_lens, True, o, do, 0)
+    plain = flash_attention_bwd_plain(*args)
+    exact, terms = CS.backward_f64(*args)
+    for i, (a, p) in enumerate(zip(mine, plain)):
+        assert a.is_contiguous() and a.shape == p.shape
+        assert CS.f64_over_bound(a, exact[i], terms[i], torch.float32) <= 1
+        assert float((a - p).abs().max()) <= 1e-4 * float(p.abs().max())
 
 
 @pytest.mark.gpu
@@ -550,19 +591,22 @@ def test_kernel_lse_matches_plain_on_gpu(dtype, layout, causal, tq, tk, h, d,
 
 
 @pytest.mark.gpu
-def test_backward_kernel_takes_an_expanded_gradient_on_gpu():
-    """out.sum() hands the backward an expanded dO (zero strides), which
-    TMA cannot read: the wrapper copies it to a contiguous tensor and the
-    kernel runs once."""
+@pytest.mark.usefixtures("float32_products")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_takes_an_expanded_gradient_on_gpu(dtype):
+    """out.sum() hands the backward an expanded dO (zero strides, its last
+    dim too): the wrapper copies it to a contiguous tensor and the kernel
+    runs once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
     q, kv = (torch.randn((2, 100, 2, 64), generator=g, device="cuda")
-             .to(torch.bfloat16).requires_grad_(True) for _ in range(2))
+             .to(dtype).requires_grad_(True) for _ in range(2))
     before = flash_attention.backward_launches
     got = torch.autograd.grad(flash_attention(q, kv, kv).sum(), (q, kv))
     assert flash_attention.backward_launches == before + 1
     want = torch.autograd.grad(flash_attention_plain(q, kv, kv).sum(), (q, kv))
+    rel = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
     for a, r in zip(got, want):
-        assert float((a.float() - r.float()).abs().max()) <= 2.0 ** -6 * float(
+        assert float((a.float() - r.float()).abs().max()) <= rel * float(
             r.float().abs().max())

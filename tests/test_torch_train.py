@@ -42,6 +42,7 @@ from unast_tpu_torch.models import TINY, modules as TM, networks as TN
 from unast_tpu_torch.models import rnn as TR, unast as TU
 from unast_tpu_torch.ops.attention import (flash_attention,
                                            flash_attention_bwd_plain,
+                                           flash_attention_fwd_plain,
                                            flash_attention_plain)
 from unast_tpu_torch.train import losses as TL, optim as TO, steps as TS
 from unast_tpu_torch.train.augment import specaugment
@@ -225,11 +226,13 @@ def _emulated_bf16_backward(q, k, v, kv_lens, causal, o, do, q_start=0, split=Tr
     return tuple(_bf(x.transpose(1, 2)) for x in (dq / math.sqrt(d), dk / math.sqrt(d), dv))
 
 
-def _f64_over_bound(q, k, v, lens, causal, o, do, q_start, grads):
+def _f64_over_bound(q, k, v, lens, causal, o, do, q_start, grads,
+                    dtype=torch.bfloat16):
     """Each gradient's worst element against float64 on chip_smoke.py's
-    phase-6 scale, 2**-8 |ref| + 2**-16 A (CS.f64_over_bound)."""
+    phase-6 scale for the dtype's gradients (CS.f64_over_bound): bf16
+    2**-8 |ref| + 2**-16 A, float32 2**-23 |ref| + 2**-17 A."""
     exact, terms = CS.backward_f64(q, k, v, lens, causal, o, do, q_start)
-    return [CS.f64_over_bound(g, r, a) for g, r, a in zip(grads, exact, terms)]
+    return [CS.f64_over_bound(g, r, a, dtype) for g, r, a in zip(grads, exact, terms)]
 
 
 def test_emulated_bf16_backward_kernel_matches_jax(parts):
@@ -279,6 +282,135 @@ def test_emulated_bf16_backward_kernel_within_f64_bound(b, tq, tk, h, d, causal,
         assert not mine[1][i, n:].any() and not mine[2][i, n:].any()
     rounded = _emulated_bf16_backward(q, k, v, lens, causal, o, do, q_start, split=False)
     assert max(_f64_over_bound(q, k, v, lens, causal, o, do, q_start, rounded)) > 1
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero; the low 13 bits zero."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return torch.from_numpy(((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000))
+                            .view(np.float32))
+
+
+def _tf32_mm(a, b, split):
+    """a @ b as the float32 backward kernel forms a product on the tensor
+    cores: each operand split, x = hi + lo with hi = tf32(x) and
+    lo = tf32(x - hi), and lo*hi + hi*lo + hi*hi summed in float32, small
+    terms first (split=False: one TF32 product, hi*hi)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if not split:
+        return a_hi @ b_hi
+    return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
+
+
+def _emulated_f32_backward(q, k, v, kv_lens, causal, o, lse, do, q_start=0,
+                           split=True):
+    """The float32 backward kernel's arithmetic (csrc/flash_attn_bwd_f32.cu)
+    in float32 ([B, T, H, D] in and out): the forward's lse in base 2
+    (lse2 = lse log2(e)), delta = rowsum(dO o), the unscaled scores masked
+    to -1e9 sqrt(D), P = 2^(S c - lse2), and every product as three TF32
+    products of split operands (_tf32_mm), in the kernel's tile order:
+    dK/dV blocks of 64 keys over query tiles of 32 (16 at D 128) from the
+    first that sees the key tile when causal, dQ blocks of 64 queries over
+    key tiles of 32 (64 at D 16) up to the keys the block sees; each
+    block's tiles dealt in turn to its two warpgroups (one at D 128),
+    whose sums are added in order. split=False: one TF32 product each."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    bq, bn, wgs = (16 if d == 128 else 32), (64 if d == 16 else 32), (1 if d == 128 else 2)
+    c = math.log2(math.e) / math.sqrt(d)
+    masked = torch.tensor(-1e9 * math.sqrt(d))
+    qh, kh, vh, oh, doh = (x.transpose(1, 2) for x in (q, k, v, o, do))
+    lens = kv_lens.view(b, 1, 1, 1)
+    lse2 = lse * math.log2(math.e)
+    delta = (doh * oh).sum(-1)
+
+    def keep(query, key):
+        return (key < lens) & ((key <= query + q_start) if causal else True)
+
+    def idx(a, n, lim):
+        return torch.arange(a, min(a + n, lim))
+
+    def mm(a, x):
+        return _tf32_mm(a, x, split)
+    dk, dv = torch.zeros(b, h, tk, d), torch.zeros(b, h, tk, d)
+    for k0 in range(0, tk, 64):            # dK and dV
+        keys = idx(k0, 64, tk).view(-1, 1)
+        first = (max(0, k0 - q_start) // bq) * bq if causal else 0
+        part_k = [torch.zeros(b, h, len(keys), d) for _ in range(wgs)]
+        part_v = [torch.zeros(b, h, len(keys), d) for _ in range(wgs)]
+        for i, qb in enumerate(range(first, tq, bq)):
+            qt, dot = qh[:, :, qb:qb + bq], doh[:, :, qb:qb + bq]
+            kt, vt = kh[:, :, k0:k0 + 64], vh[:, :, k0:k0 + 64]
+            st = torch.where(keep(idx(qb, bq, tq), keys), mm(kt, qt.transpose(-1, -2)),
+                             masked)
+            pt = torch.exp2(st * c - lse2[:, :, None, qb:qb + bq])
+            dst = pt * (mm(vt, dot.transpose(-1, -2)) - delta[:, :, None, qb:qb + bq])
+            part_v[i % wgs] = part_v[i % wgs] + mm(pt, dot)
+            part_k[i % wgs] = part_k[i % wgs] + mm(dst, qt)
+        dk[:, :, k0:k0 + 64], dv[:, :, k0:k0 + 64] = sum(part_k), sum(part_v)
+    dq = torch.zeros(b, h, tq, d)
+    for q0 in range(0, tq, 64):            # dQ
+        rows = idx(q0, 64, tq).view(-1, 1)
+        seen = min(tk, q_start + min(tq, q0 + 64)) if causal else tk
+        parts = [torch.zeros(b, h, len(rows), d) for _ in range(wgs)]
+        for i, kb in enumerate(range(0, seen, bn)):
+            kt, vt = kh[:, :, kb:kb + bn], vh[:, :, kb:kb + bn]
+            qt, dot = qh[:, :, q0:q0 + 64], doh[:, :, q0:q0 + 64]
+            s = torch.where(keep(rows, idx(kb, bn, tk)), mm(qt, kt.transpose(-1, -2)),
+                            masked)
+            p = torch.exp2(s * c - lse2[:, :, q0:q0 + 64, None])
+            ds = p * (mm(dot, vt.transpose(-1, -2)) - delta[:, :, q0:q0 + 64, None])
+            parts[i % wgs] = parts[i % wgs] + mm(ds, kt)
+        dq[:, :, q0:q0 + 64] = sum(parts)
+    scale = 1 / math.sqrt(d)
+    return tuple(x.transpose(1, 2) for x in (dq * scale, dk * scale, dv))
+
+
+@pytest.mark.parametrize("layout,causal,tq,tk,h,d", PG.FLASH_F32)
+def test_emulated_f32_backward_kernel_matches_jax(parts, layout, causal, tq, tk, h, d):
+    """The float32 backward kernel's arithmetic, emulated, gives JAX's
+    float32 gradients within test_flash_backward_matches_jax_f32's 1e-4,
+    and the float64 function within phase 6's float32 bound (2**-23 |ref|
+    + 2**-17 A, chip_smoke.F64_BOUND); with one TF32 product (no split)
+    it misses the latter, which is why the kernel splits."""
+    fused, lens, w = _attn_case(layout, 0, 2, tq, tk, h, d)
+    q, k, v = _views(layout, [torch.from_numpy(a) for a in fused], h, d)
+    lens, do = torch.from_numpy(lens), torch.from_numpy(w)
+    o, lse = flash_attention_fwd_plain(q, k, v, lens, causal)
+    mine = _emulated_f32_backward(q, k, v, lens, causal, o, lse, do)
+    for name, a in zip("qkv", mine):
+        _close(a.flatten(-2), parts[f"flash_f32/{layout}/d{name}"], 1e-4, f"d{name}")
+    bound = _f64_over_bound(q, k, v, lens, causal, o, do, 0, mine, torch.float32)
+    assert max(bound) <= 1, bound
+    one = _emulated_f32_backward(q, k, v, lens, causal, o, lse, do, split=False)
+    assert max(_f64_over_bound(q, k, v, lens, causal, o, do, 0, one, torch.float32)) > 1
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,q_start,lens", [
+    (2, 150, 150, 1, 32, True, 0, [150, 50]),       # several tiles, ragged
+    (1, 70, 140, 1, 128, True, 70, [140]),          # D 128, an sp rank's offset
+    (2, 100, 100, 1, 16, False, 0, [1, 65]),        # kv_len 1, off the tile
+])
+def test_emulated_f32_backward_kernel_within_f64_bound(b, tq, tk, h, d, causal,
+                                                       q_start, lens):
+    """Over several tiles and both warpgroups' partial sums, a causal
+    offset and ragged kv_lens, the emulated float32 kernel holds phase 6's
+    float32 bound, as the plain backward does, and keys past kv_len get
+    exact zeros; one TF32 product misses it."""
+    g = torch.Generator().manual_seed(tq + tk + d)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g) for t in (tq, tk, tk, tq))
+    lens = torch.tensor(lens, dtype=torch.int32)
+    o, lse = flash_attention_fwd_plain(q, k, v, lens, causal, q_start)
+    mine = _emulated_f32_backward(q, k, v, lens, causal, o, lse, do, q_start)
+    args = (q, k, v, lens, causal, o, do, q_start)
+    assert max(_f64_over_bound(*args, mine, torch.float32)) <= 1
+    plain = flash_attention_bwd_plain(q, k, v, lens, causal, o, do, q_start)
+    assert max(_f64_over_bound(*args, plain, torch.float32)) <= 1
+    for i, n in enumerate(lens.tolist()):
+        assert not mine[1][i, n:].any() and not mine[2][i, n:].any()
+    one = _emulated_f32_backward(q, k, v, lens, causal, o, lse, do, q_start, split=False)
+    assert max(_f64_over_bound(*args, one, torch.float32)) > 1
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -887,7 +887,8 @@ int launch(const Tensors& t, const void* kv_lens, int B, int H, int Tq,
 // Floats of workspace the backward needs: lse2 and delta, each
 // [B*H, Tq rounded up to 64].
 extern "C" long long flash_attn_bwd_wgmma_workspace(int B, int H, int Tq,
-                                                    int D) {
+                                                    int Tk, int D) {
+  (void)Tk;
   (void)D;
   return 2LL * B * H * ((Tq + kRowPad - 1) / kRowPad * kRowPad);
 }
@@ -898,7 +899,8 @@ extern "C" long long flash_attn_bwd_wgmma_workspace(int B, int H, int Tq,
 // loads, dq, dk and dv written with them). lse: the forward's float32
 // [B, H, Tq], contiguous. kv_lens: int32 [B] on the device, or null for
 // "all Tk keys valid". workspace: float32, at least
-// flash_attn_bwd_wgmma_workspace(B, H, Tq, D) of them, 16-byte aligned.
+// flash_attn_bwd_wgmma_workspace(B, H, Tq, Tk, D) of them, 16-byte
+// aligned.
 // Returns 0 when both kernels were launched, a cudaError_t value if a
 // launch failed, -1 if the TMA unit refused a tensor's layout, -2 if
 // libcuda has no cuTensorMapEncodeTiled.

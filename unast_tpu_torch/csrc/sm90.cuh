@@ -325,6 +325,21 @@ template <int N>
 struct WgmmaTf32RS;
 
 template <>
+struct WgmmaTf32SS<16> {
+  static __device__ __forceinline__ void run(
+      float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaTf32SS<32> {
   static __device__ __forceinline__ void run(
       float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {

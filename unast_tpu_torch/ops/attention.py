@@ -1,8 +1,8 @@
 """Flash attention of the port: two hand-written Hopper forward kernels
 behind `flash_attention`, their plain PyTorch version
 `flash_attention_fwd_plain` (o and lse; `flash_attention_plain`, o), and
-the backward pass (a bfloat16 kernel and its plain version
-`flash_attention_bwd_plain`).
+the backward pass (two hand-written Hopper kernels behind
+`flash_attention_bwd` and their plain version `flash_attention_bwd_plain`).
 
 Counterpart of unast_tpu/ops/attention.py (the Pallas TPU kernel and its
 custom_vjp). Used by the transformer encoders and the teacher-forced
@@ -21,13 +21,16 @@ natural-log logsumexp of each row's scaled, masked scores), so that
 torch.export keeps it as one node of an exported program, as jax.export
 keeps the pallas_call, and loading such a program needs only this module
 imported. Its autograd formula is the JAX package's recompute backward
-(_flash_vjp_bwd) on the same [B, T, H, D] layout: for bfloat16 on the card
-the hand-written kernel csrc/flash_attn_bwd_wgmma.cu (`flash_attention_bwd`:
-a pre-pass for delta, then one launch on wgmma whose blocks form dQ or
-dK/dV, reading the forward's lse instead of recomputing it; P and dS
-split into two bf16 parts), on the CPU and for float32 on the card `flash_attention_bwd_plain`,
-its plain torch version, which recomputes lse as JAX does (float32 on the
-card until its own kernel).
+(_flash_vjp_bwd) on the same [B, T, H, D] layout. On the card it is a
+hand-written kernel for q's dtype (`flash_attention_bwd`), each a pre-pass
+and then one launch on wgmma whose blocks form dQ or dK/dV, reading the
+forward's lse instead of recomputing it: bfloat16 inputs go to
+csrc/flash_attn_bwd_wgmma.cu (P and dS split into two bf16 parts), float32
+inputs to csrc/flash_attn_bwd_f32.cu (split TF32: its pre-pass writes
+q, k, v and dO split into two TF32 parts, q, dO and k also transposed,
+into a workspace allocated here). On the CPU it is
+`flash_attention_bwd_plain`, the plain torch version, which recomputes lse
+as JAX does.
 """
 
 import ctypes
@@ -42,7 +45,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 # dtype -> the kernel library (and C entry point) that takes it
 _LIBRARY = {torch.float32: "flash_attn_fwd_f32",
             torch.bfloat16: "flash_attn_fwd_wgmma"}
-_BACKWARD_LIBRARY = "flash_attn_bwd_wgmma"   # bfloat16 only
+_BACKWARD_LIBRARY = {torch.float32: "flash_attn_bwd_f32",
+                     torch.bfloat16: "flash_attn_bwd_wgmma"}
 _TMA_REFUSED = -1   # the TMA unit refused a layout
 
 
@@ -163,14 +167,15 @@ def bind(lib_path, name: str):
     return launch
 
 
-def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
+def bind_backward(lib_path, name: str):
     """launch(q, k, v, kv_lens, causal, o, lse, do, q_start=0) -> (dq, dk,
     dv) through the backward's C entry point `name` of the library at
     `lib_path`, on the current stream: bind's conventions, lse the
     forward's float32 [B, H, Tq], with the workspace
-    `<name>_workspace(B, H, Tq, D)` floats (lse in base 2 and delta, both
-    written by the first launch). The gradients are new contiguous
-    tensors of q's dtype. launch checks no input (flash_attention_bwd
+    `<name>_workspace(B, H, Tq, Tk, D)` floats (what the first launch
+    writes for the second: lse in base 2 and delta, and for float32 the
+    split operands). The gradients are new contiguous tensors of q's
+    dtype. launch checks no input (flash_attention_bwd
     does) and raises if a launch failed."""
     lib = ctypes.CDLL(str(lib_path))
     fn = getattr(lib, name)
@@ -181,7 +186,7 @@ def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_void_p] * 2)
     workspace.restype = ctypes.c_longlong
-    workspace.argtypes = [ctypes.c_int] * 4
+    workspace.argtypes = [ctypes.c_int] * 5
 
     def launch(q, k, v, kv_lens, causal, o, lse, do, q_start=0):
         b, tq, h, d = q.shape
@@ -189,7 +194,7 @@ def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
         dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-        ws = torch.empty(workspace(b, h, tq, d), dtype=torch.float32,
+        ws = torch.empty(workspace(b, h, tq, tk, d), dtype=torch.float32,
                          device=q.device)
         tensors = (q, k, v, o, do, dq, dk, dv)
         err = fn(*[x.data_ptr() for x in tensors[:5]], lse.data_ptr(),
@@ -200,8 +205,9 @@ def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
                  torch.cuda.current_stream(q.device).cuda_stream, ws.data_ptr())
         if err == _TMA_REFUSED:
             raise ValueError(
-                f"{name}: the TMA unit refused the layout of q, k, v, o or dO "
-                f"(strides {q.stride()}, {k.stride()}, {v.stride()}, {do.stride()})")
+                f"{name}: the TMA unit refused the layout of q, k, v, o, dO or "
+                f"its workspace (strides {q.stride()}, {k.stride()}, "
+                f"{v.stride()}, {do.stride()})")
         if err != 0:
             raise RuntimeError(f"{name} launch failed: error {err}")
         return dq, dk, dv
@@ -211,9 +217,9 @@ def bind_backward(lib_path, name: str = _BACKWARD_LIBRARY):
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """launch() of this tree's library `name` (bind, or bind_backward for
-    the backward's), built at first use."""
+    a backward's), built at first use."""
     from .build import library
-    if name == _BACKWARD_LIBRARY:
+    if name in _BACKWARD_LIBRARY.values():
         return bind_backward(library(name), name)
     return bind(library(name), name)
 
@@ -313,42 +319,48 @@ def _setup_backward(ctx, inputs, output):
 
 def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, lse, do,
                         q_start: int = 0):
-    """(dq, dk, dv) of flash attention through the bfloat16 backward kernel
-    (csrc/flash_attn_bwd_wgmma.cu, two launches on the current stream),
-    adding one to `flash_attention.backward_launches`. The same function
+    """(dq, dk, dv) of flash attention through the backward kernel for q's
+    dtype (csrc/flash_attn_bwd_wgmma.cu for bfloat16,
+    csrc/flash_attn_bwd_f32.cu for float32; two launches on the current
+    stream), adding one to `flash_attention.backward_launches` and to
+    `backward_launches_bf16` or `backward_launches_f32`. The same function
     as flash_attention_bwd_plain, which recomputes lse; q, k, v as
-    flash_attention takes them (bfloat16 on the card, TMA-readable,
-    checked here), o and lse the forward's outputs (o contiguous, lse
-    float32 [B, H, Tq] contiguous) and do [B, Tq, H, D], bfloat16 on q's
-    device. A do
-    that TMA cannot read (an expanded gradient with zero strides, as
-    autograd hands over for out.sum(), or one not 16-byte aligned) is
-    first copied to a contiguous tensor: a layout copy, not a fallback.
-    Raises on anything else the kernel does not take."""
-    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
-        raise ValueError("flash_attention_bwd takes bfloat16 tensors on the "
-                         f"card, got {q.dtype} on {q.device}")
+    flash_attention takes them (on the card; bfloat16 TMA-readable,
+    checked here; float32 through any strides), o and lse the forward's
+    outputs (o contiguous, lse float32 [B, H, Tq] contiguous) and do
+    [B, Tq, H, D] of q's dtype on q's device. A do whose last dim is not
+    contiguous (an expanded gradient with zero strides, as autograd hands
+    over for out.sum()), or in bfloat16 one TMA cannot read (not 16-byte
+    aligned), is first copied to a contiguous tensor: a layout copy, not a
+    fallback. Raises on anything else the kernel does not take."""
+    if q.device.type != "cuda" or q.dtype not in _BACKWARD_LIBRARY:
+        raise ValueError("flash_attention_bwd takes float32 or bfloat16 tensors "
+                         f"on the card, got {q.dtype} on {q.device}")
     _check(q, k, v, kv_lens, q_start)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"match q {tuple(q.shape)}")
     if o.dtype != q.dtype or do.dtype != q.dtype or not o.is_contiguous():
-        raise ValueError("o and do must be bfloat16 and o contiguous, as the "
-                         "forward writes it")
+        raise ValueError(f"o and do must be {q.dtype} and o contiguous, as "
+                         "the forward writes it")
     b, tq, h, _ = q.shape
     if (lse.shape != (b, h, tq) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be the forward's contiguous float32 "
                          f"[{b}, {h}, {tq}] on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    if do.stride(3) != 1 or _tma_refusal(do):
+    if do.stride(3) != 1 or (q.dtype == torch.bfloat16 and _tma_refusal(do)):
         do = do.contiguous()
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    grads = _kernel(_BACKWARD_LIBRARY)(q, k, v, lens, causal, o, lse, do,
-                                       q_start)
+    grads = _kernel(_BACKWARD_LIBRARY[q.dtype])(q, k, v, lens, causal, o, lse,
+                                                do, q_start)
     flash_attention.backward_launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.backward_launches_bf16 += 1
+    else:
+        flash_attention.backward_launches_f32 += 1
     return grads
 
 
@@ -356,16 +368,17 @@ def _backward(ctx, do, _dlse):
     """The JAX package's custom_vjp backward (_flash_vjp_bwd) behind the
     operator: q, k, v, kv_lens and the output o are kept for it, as JAX's
     residuals are, and the lse output (not differentiable), which the
-    kernel reads instead of recomputing it. A bfloat16 tensor on the card
-    goes to the kernel (flash_attention_bwd); a CPU tensor, and a float32
-    one on the card until its kernel, to flash_attention_bwd_plain."""
+    kernel reads instead of recomputing it. A tensor on the card goes to
+    the kernel for its dtype (flash_attention_bwd, which raises on what it
+    does not take); a CPU tensor, and only a CPU tensor, to
+    flash_attention_bwd_plain."""
     q, k, v, kv_lens, o, lse = ctx.saved_tensors
     flash_attention.backward_calls += 1
     with record_function("unast/flash_attention_bwd"):
-        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        if q.device.type == "cuda":
             dq, dk, dv = flash_attention_bwd(q, k, v, kv_lens, ctx.causal, o,
                                              lse, do, ctx.q_start)
-        elif q.device.type == "cpu" or q.dtype == torch.float32:
+        elif q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_lens, ctx.causal,
                                                    o, do, ctx.q_start)
         else:
@@ -380,8 +393,8 @@ def _backward(ctx, do, _dlse):
 # call): the kernel on a CUDA tensor, the plain version on a CPU one.
 # torch.export and torch.utils.checkpoint see one opaque op; the fake
 # implementation gives the outputs' shapes and layouts, the autograd
-# formula is `_backward` (the bfloat16 kernel on the card, the plain
-# recompute on the CPU and for float32). (torch.library's custom_op
+# formula is `_backward` (the backward kernel for q's dtype on the card,
+# the plain recompute on the CPU). (torch.library's custom_op
 # decorator would do the same, but its first call imports torch._dynamo,
 # seconds in every process.)
 FLASH_SCHEMA = ("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
@@ -415,11 +428,11 @@ def flash_attention(q, k, v, kv_lens=None, causal: bool = False,
     multiple of 16 bytes raises ValueError; float32 takes any strides). On
     a CPU tensor it runs `flash_attention_fwd_plain`. Where q, k or v needs a
     gradient, each backward adds one to `flash_attention.backward_calls`;
-    on a bfloat16 CUDA tensor it launches the backward kernel
-    (`flash_attention_bwd`, adding one to `backward_launches`) or raises,
-    on a CPU tensor or a float32 CUDA tensor it runs
-    `flash_attention_bwd_plain`. Precondition: every kv_len >= 1; a row
-    with no visible key has no defined output."""
+    on a CUDA tensor it launches the backward kernel for q's dtype
+    (`flash_attention_bwd`, adding one to `backward_launches` and to
+    `backward_launches_bf16` or `backward_launches_f32`) or raises, on a
+    CPU tensor it runs `flash_attention_bwd_plain`. Precondition: every
+    kv_len >= 1; a row with no visible key has no defined output."""
     if q_start:
         return flash_attention_fwd(q, k, v, kv_lens, causal, int(q_start))[0]
     return flash_attention_fwd(q, k, v, kv_lens, causal)[0]
@@ -429,4 +442,6 @@ flash_attention.launches = 0        # every launch
 flash_attention.launches_bf16 = 0   # of flash_attn_fwd_wgmma
 flash_attention.launches_f32 = 0    # of flash_attn_fwd_f32 (pre-pass + kernel)
 flash_attention.backward_calls = 0     # every backward through autograd
-flash_attention.backward_launches = 0  # of flash_attn_bwd_wgmma (2 kernels a call)
+flash_attention.backward_launches = 0       # every backward launch (2 kernels a call)
+flash_attention.backward_launches_bf16 = 0  # of flash_attn_bwd_wgmma
+flash_attention.backward_launches_f32 = 0   # of flash_attn_bwd_f32

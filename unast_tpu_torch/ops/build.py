@@ -22,7 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # kernel library name -> its source in csrc/ (also its C entry point's name)
 SOURCES = {"flash_attn_fwd_f32": "flash_attn_fwd_f32.cu",
            "flash_attn_fwd_wgmma": "flash_attn_fwd_wgmma.cu",
-           "flash_attn_bwd_wgmma": "flash_attn_bwd_wgmma.cu"}
+           "flash_attn_bwd_wgmma": "flash_attn_bwd_wgmma.cu",
+           "flash_attn_bwd_f32": "flash_attn_bwd_f32.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
