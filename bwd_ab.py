@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""A/B timing of the bf16 flash-attention backward kernel on one card
-across checkouts: each tree's own chip_smoke.py::backward_case on the bf16
-cases of its phase 6 (BWD_CASES), so a tree whose operator or kernel
-takes other arguments (the parent commit, a copy with a constant changed)
-is measured through its own code. Trees run in turns (each in order, then
-in reverse), one process a turn, after one build of every tree's kernels,
-all started together.
+"""A/B timing of the flash-attention backward kernels on one card across
+checkouts: each tree's own chip_smoke.py::backward_case on the cases of
+its phase 6 (BWD_CASES) of one dtype or both, so a tree whose operator or
+kernel takes other arguments (the parent commit, a copy with a constant
+changed) is measured through its own code. Trees run in turns (each in
+order, then in reverse), one process a turn, after one build of every
+tree's kernels, all started together.
 
-    python3 bwd_ab.py TREE [TREE ...] [--cases NAME ...]
+    python3 bwd_ab.py TREE [TREE ...] [--dtype bf16|f32|all] [--cases NAME ...]
 
 A TREE is a checkout's root (the parent unpacked with `git archive` into
 a directory that .gitignore lists, or `.`). For each tree, case and turn:
@@ -33,9 +33,11 @@ import json, sys, torch
 import chip_smoke as CS
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-names = set(sys.argv[1:])
+dtypes = {"bf16": (torch.bfloat16,), "f32": (torch.float32,),
+          "all": (torch.bfloat16, torch.float32)}[sys.argv[1]]
+names = set(sys.argv[2:])
 for c in CS.BWD_CASES:
-    if c.dtype == torch.bfloat16 and (not names or c.name in names):
+    if c.dtype in dtypes and (not names or c.name in names):
         r = CS.backward_case(c)
         print(json.dumps({k: r.get(k) for k in %r}), flush=True)
 """ % (KEYS,)
@@ -45,6 +47,7 @@ BUILD = "from unast_tpu_torch.ops import build; build.build_all()"
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+")
+    ap.add_argument("--dtype", choices=("bf16", "f32", "all"), default="all")
     ap.add_argument("--cases", nargs="*", default=[])
     args = ap.parse_args()
     trees = [str(Path(t).resolve()) for t in args.trees]
@@ -57,8 +60,8 @@ def main():
     rows = [{"card": smi, "trees": trees}]
     print(json.dumps(rows[0]), flush=True)
     for turn, tree in enumerate(trees + trees[::-1]):
-        done = subprocess.run([sys.executable, "-c", TURN, *args.cases], cwd=tree,
-                              capture_output=True, text=True)
+        done = subprocess.run([sys.executable, "-c", TURN, args.dtype, *args.cases],
+                              cwd=tree, capture_output=True, text=True)
         if done.returncode != 0:
             raise SystemExit(f"{tree} failed:\n{done.stderr[-3000:]}")
         for line in done.stdout.splitlines():

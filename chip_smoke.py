@@ -265,7 +265,7 @@ ROUTE_KERNELS = {torch.bfloat16: ("flash_fwd_wgmma_kernel",),
                  torch.float32: ("tf32_split_kernel", "flash_fwd_tf32x3_kernel")}
 # each backward kernel's two launches, in order
 BWD_KERNELS = {torch.bfloat16: ("flash_bwd_delta_kernel", "flash_bwd_kernel"),
-               torch.float32: ("flash_bwd_f32_prep_kernel", "flash_bwd_f32_kernel")}
+               torch.float32: ("flash_bwd_f32_delta_kernel", "flash_bwd_f32_kernel")}
 # the forward kernels' lse against the plain lse: float32 sums of up to Tk
 # terms of 2^-22 relative error each (ex2.approx), and S from another
 # order of the same float32 sums
@@ -1038,6 +1038,19 @@ def backward_case(c: Case):
         "device_ms_per_launch": per_kernel})
     case["ok"] = ok
     return case
+
+
+def backward_summary(case):
+    """Phase 6's line for one case: each launch's device ms, the float64
+    ratio of each gradient, two calls bit for bit, zeros past kv_len."""
+    checks = case["kernel"]
+    return {"bwd_case": case["case"], "ok": case["ok"],
+            "device_ms_per_launch": case["device_ms_per_launch"],
+            "device_ms": case["device_ms"],
+            "library_device_ms": case["library_device_ms"],
+            "f64_over_bound": {g: checks[g]["f64_over_bound_kernel"] for g in checks},
+            "bitwise_repeat": all(x["bitwise_repeat"] for x in checks.values()),
+            "zero_past_kv_len": all(x["zero_past_kv_len"] for x in checks.values())}
 
 
 # phase 6's case whose shape the flagship step's decoders give the
@@ -3709,7 +3722,10 @@ def main() -> int:
     # 6. the flash-attention backward against autograd through the plain
     # version, at the train step's shapes
     t = time.perf_counter()
-    bwd_cases = [backward_case(c) for c in BWD_CASES]
+    bwd_cases = []
+    for c in BWD_CASES:
+        bwd_cases.append(backward_case(c))
+        print(json.dumps(backward_summary(bwd_cases[-1])), flush=True)
     bad += [c for c in bwd_cases if not c["ok"]]
     print(json.dumps({"phase": 6, "s": time.perf_counter() - t}), flush=True)
 

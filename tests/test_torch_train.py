@@ -307,19 +307,23 @@ def _emulated_f32_backward(q, k, v, kv_lens, causal, o, lse, do, q_start=0,
                            split=True):
     """The float32 backward kernel's arithmetic (csrc/flash_attn_bwd_f32.cu)
     in float32 ([B, T, H, D] in and out): the forward's lse in base 2
-    (lse2 = lse log2(e)), delta = rowsum(dO o), the unscaled scores masked
-    to -1e9 sqrt(D), P = 2^(S c - lse2), and every product as three TF32
-    products of split operands (_tf32_mm), in the kernel's tile order:
-    dK/dV blocks of 64 keys over query tiles of 32 (16 at D 128) from the
-    first that sees the key tile when causal, dQ blocks of 64 queries over
-    key tiles of 32 (64 at D 16) up to the keys the block sees; each
-    block's tiles dealt in turn to its two warpgroups (one at D 128),
-    whose sums are added in order. split=False: one TF32 product each."""
+    (lse2 = lse log2(e)), delta = rowsum(dO o), P = 2^(S c - lse2) on
+    the unscaled scores and 0 at masked keys (what the -1e9 score gives),
+    and every product as three TF32 products of split operands
+    (_tf32_mm), in the kernel's tile order: dK/dV blocks of 64 keys over
+    query tiles of 32 (16 at D 128) from the first that sees the block
+    when causal, dQ blocks of 64 queries over key tiles of 32 (16 at
+    D 128) up to the keys the block sees. In a block one warpgroup forms S
+    (and dV), the other dP (and dK); dQ's columns are split between them.
+    Each gradient element is summed by one thread over the tiles in
+    order, with no partial sums between warpgroups, and a row's sum does
+    not depend on the other rows or columns, so the blocks are emulated
+    whole. split=False: one TF32 product each."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    bq, bn, wgs = (16 if d == 128 else 32), (64 if d == 16 else 32), (1 if d == 128 else 2)
+    tile = 16 if d == 128 else 32
     c = math.log2(math.e) / math.sqrt(d)
-    masked = torch.tensor(-1e9 * math.sqrt(d))
+    zero = torch.tensor(0.0)
     qh, kh, vh, oh, doh = (x.transpose(1, 2) for x in (q, k, v, o, do))
     lens = kv_lens.view(b, 1, 1, 1)
     lse2 = lse * math.log2(math.e)
@@ -336,33 +340,28 @@ def _emulated_f32_backward(q, k, v, kv_lens, causal, o, lse, do, q_start=0,
     dk, dv = torch.zeros(b, h, tk, d), torch.zeros(b, h, tk, d)
     for k0 in range(0, tk, 64):            # dK and dV
         keys = idx(k0, 64, tk).view(-1, 1)
-        first = (max(0, k0 - q_start) // bq) * bq if causal else 0
-        part_k = [torch.zeros(b, h, len(keys), d) for _ in range(wgs)]
-        part_v = [torch.zeros(b, h, len(keys), d) for _ in range(wgs)]
-        for i, qb in enumerate(range(first, tq, bq)):
-            qt, dot = qh[:, :, qb:qb + bq], doh[:, :, qb:qb + bq]
-            kt, vt = kh[:, :, k0:k0 + 64], vh[:, :, k0:k0 + 64]
-            st = torch.where(keep(idx(qb, bq, tq), keys), mm(kt, qt.transpose(-1, -2)),
-                             masked)
-            pt = torch.exp2(st * c - lse2[:, :, None, qb:qb + bq])
-            dst = pt * (mm(vt, dot.transpose(-1, -2)) - delta[:, :, None, qb:qb + bq])
-            part_v[i % wgs] = part_v[i % wgs] + mm(pt, dot)
-            part_k[i % wgs] = part_k[i % wgs] + mm(dst, qt)
-        dk[:, :, k0:k0 + 64], dv[:, :, k0:k0 + 64] = sum(part_k), sum(part_v)
+        first = (max(0, k0 - q_start) // tile) * tile if causal else 0
+        kt, vt = kh[:, :, k0:k0 + 64], vh[:, :, k0:k0 + 64]
+        for qb in range(first, tq, tile):
+            qt, dot = qh[:, :, qb:qb + tile], doh[:, :, qb:qb + tile]
+            pt = torch.where(keep(idx(qb, tile, tq), keys),
+                             torch.exp2(mm(kt, qt.transpose(-1, -2)) * c
+                                        - lse2[:, :, None, qb:qb + tile]), zero)
+            dst = pt * (mm(vt, dot.transpose(-1, -2)) - delta[:, :, None, qb:qb + tile])
+            dv[:, :, k0:k0 + 64] += mm(pt, dot)
+            dk[:, :, k0:k0 + 64] += mm(dst, qt)
     dq = torch.zeros(b, h, tq, d)
     for q0 in range(0, tq, 64):            # dQ
         rows = idx(q0, 64, tq).view(-1, 1)
         seen = min(tk, q_start + min(tq, q0 + 64)) if causal else tk
-        parts = [torch.zeros(b, h, len(rows), d) for _ in range(wgs)]
-        for i, kb in enumerate(range(0, seen, bn)):
-            kt, vt = kh[:, :, kb:kb + bn], vh[:, :, kb:kb + bn]
-            qt, dot = qh[:, :, q0:q0 + 64], doh[:, :, q0:q0 + 64]
-            s = torch.where(keep(rows, idx(kb, bn, tk)), mm(qt, kt.transpose(-1, -2)),
-                            masked)
-            p = torch.exp2(s * c - lse2[:, :, q0:q0 + 64, None])
+        qt, dot = qh[:, :, q0:q0 + 64], doh[:, :, q0:q0 + 64]
+        for kb in range(0, seen, tile):
+            kt, vt = kh[:, :, kb:kb + tile], vh[:, :, kb:kb + tile]
+            p = torch.where(keep(rows, idx(kb, tile, tk)),
+                            torch.exp2(mm(qt, kt.transpose(-1, -2)) * c
+                                       - lse2[:, :, q0:q0 + 64, None]), zero)
             ds = p * (mm(dot, vt.transpose(-1, -2)) - delta[:, :, q0:q0 + 64, None])
-            parts[i % wgs] = parts[i % wgs] + mm(ds, kt)
-        dq[:, :, q0:q0 + 64] = sum(parts)
+            dq[:, :, q0:q0 + 64] += mm(ds, kt)
     scale = 1 / math.sqrt(d)
     return tuple(x.transpose(1, 2) for x in (dq * scale, dk * scale, dv))
 
@@ -394,8 +393,8 @@ def test_emulated_f32_backward_kernel_matches_jax(parts, layout, causal, tq, tk,
 ])
 def test_emulated_f32_backward_kernel_within_f64_bound(b, tq, tk, h, d, causal,
                                                        q_start, lens):
-    """Over several tiles and both warpgroups' partial sums, a causal
-    offset and ragged kv_lens, the emulated float32 kernel holds phase 6's
+    """Over several tiles and blocks, a causal offset and ragged
+    kv_lens, the emulated float32 kernel holds phase 6's
     float32 bound, as the plain backward does, and keys past kv_len get
     exact zeros; one TF32 product misses it."""
     g = torch.Generator().manual_seed(tq + tk + d)

@@ -1,8 +1,8 @@
 // Flash-attention backward in float32 on Hopper's tensor cores (sm_90a):
-// split-TF32 warpgroup MMA ("3xTF32") fed by TMA, after a pre-pass that
-// splits and transposes the operands; two launches, no atomics. Plain C
-// entry points `flash_attn_bwd_f32` and `flash_attn_bwd_f32_workspace`,
-// loaded with ctypes.
+// split-TF32 warpgroup MMA ("3xTF32") fed by TMA with raw float32 tiles,
+// which each block splits and transposes in shared memory; two launches,
+// no atomics. Plain C entry points `flash_attn_bwd_f32` and
+// `flash_attn_bwd_f32_workspace`, loaded with ctypes.
 //
 // Replaces the JAX package's backward of the Pallas TPU kernel,
 // unast_tpu/ops/attention.py::_flash_vjp_bwd (a jnp recompute behind
@@ -22,60 +22,73 @@
 // x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (round to nearest),
 // summed lo*hi + hi*lo + hi*hi into one float32 accumulator, small terms
 // first, as in the float32 forward: about 21 bits of each operand survive
-// where one TF32 product keeps 10. q, k, v and dO are split by the
-// pre-pass; P, P^T, dS and dS^T are split in registers.
+// where one TF32 product keeps 10. q, k, v and dO are split in shared
+// memory; P, P^T, dS and dS^T in registers.
 //
 // What bounds it on an H100 SXM: five products of 2 * pairs * D flops over
 // the kept (query, key) pairs, each three TF32 products; at B4 H4 T816 D64
 // causal that is 16.6 GFLOP of TF32, 0.020 ms at the 495 TFLOP/s TF32
 // peak, against 6.7 MB for q, k, v, o, dO and the three gradients, 0.002
-// ms at 3.35 TB/s: bound by operations. The design:
-//   - TF32 wgmma takes its shared-memory operands only K-major (there is
-//     no transpose for 32-bit types): a product whose reduction runs over
-//     queries (dV = P^T dO, dK = dS^T Q) needs dO and Q with the queries
-//     contiguous, and dQ = dS K needs K with the keys contiguous. A
-//     pre-pass (flash_bwd_f32_prep_kernel) reads q, k, v, o and dO through
-//     the caller's strides (so any layout is taken) and writes into a
-//     workspace the wrapper allocates, rows zero-filled to the 64-row
-//     tile (keys past kv_len as zeros): the hi and lo parts of q, dO, k
-//     and v as they are ([part][B*H][T][D]); of q, dO and k transposed
-//     ([part][B*H][D][T]), through a shared tile, as the forward's
-//     tf32_split_kernel writes v; lse in base 2 (lse2 = lse log2(e)) and
-//     delta = rowsum(dO o) per query row (rows past Tq: lse2 = +inf, so
-//     P = 0, and delta 0);
-//   - inside each group of 8 positions the transposed copies hold the
-//     positions in the order [0, 2, 4, 6, 1, 3, 5, 7] (key_at). The
-//     accumulator of S^T (S) gives a thread columns 2t and 2t + 1 of each
-//     group of 8, where the TF32 register-A fragment wants t and t + 4;
-//     in that order they are the same, so P^T, dS^T (over queries) and dS
-//     (over keys) go from the accumulator to the A fragment without a
-//     shuffle. Each such product sums over the permuted index, so the
-//     order is exact as long as both operands agree on it;
+// ms at 3.35 TB/s: bound by operations. Inside a block shared memory is
+// scarce, in room and in bandwidth: a float32 tile and its split take 4x
+// a bf16 tile's bytes, and every product that reads both operands from it
+// is bound by those reads. TF32 wgmma reads its shared-memory operands
+// only K-major (no transpose for 32-bit types), so a product whose
+// reduction runs over queries (dV = P^T dO, dK = dS^T Q) needs dO and Q
+// with the queries contiguous, and dQ = dS K needs K with the keys
+// contiguous. The design:
+//   - a pre-pass (flash_bwd_f32_delta_kernel) forms only the row
+//     statistics, lse2 = lse log2(e) and delta = rowsum(dO o), into a
+//     workspace the wrapper allocates ([B*H, Tq rounded up to 64] each;
+//     rows past Tq: lse2 = +inf, so P = 0, and delta 0);
+//   - the grid reads q, k, v and dO as they are, raw float32 tiles by TMA
+//     through 4-D tensor maps over the caller's [B, T, H, D] views (the
+//     wrapper copies a layout that TMA refuses), zeros past T;
+//   - the blocks split the streamed tiles in shared memory, into hi and
+//     lo parts as they are (the B operands of S and dP) and, for the
+//     products over their positions, transposed (Q^T and dO^T, or K^T),
+//     in the swizzle TMA would have written; a block's 64 kept rows (K and
+//     V of a dK/dV block, Q and dO of a dQ block) go into registers once,
+//     as the split A operands of S and dP, so that those products read
+//     only B from shared memory;
+//   - inside each group of 8 positions the transposed parts hold the
+//     positions in the order [0, 2, 4, 6, 1, 3, 5, 7] (key_at), so that
+//     P^T, dS^T (over queries) and dS (over keys) go from the accumulator
+//     to the A fragment without a shuffle; each such product sums over the
+//     permuted index, so the order is exact as long as both operands agree
+//     on it;
 //   - one launch holds the dK/dV blocks and the dQ blocks (the card's
-//     block scheduler fills every SM with whichever is left), as the bf16
-//     backward does:
-//     - dK/dV, one block per (64 keys, b*h): the split K and V tiles loaded
-//       once; query tiles of kBlockQ (the split Q and dO as they are and
-//       transposed) through TMA rings; per tile S^T = K Q^T and dP^T =
-//       V dO^T (both operands K-major over D), P^T = 2^(S^T c - lse2),
-//       dS^T = P^T (dP^T - delta), then dV += P^T dO and dK += dS^T Q
-//       with P^T and dS^T split in registers against the transposed dO
-//       and Q. Causal: the loop starts at the first query tile whose rows
-//       see the key tile (row i >= k0 - q_start). Key tiles past kv_len
-//       run no tile and store zeros; masked keys get P = 0 exactly;
-//     - dQ, one block per (64 query rows, b*h): the split Q and dO tiles
-//       loaded once; key tiles of kBlockN (K and V as they are, K
-//       transposed) through the rings, up to the forward's key bound;
-//       S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K;
-//   - each block runs kConsumers warpgroups, each on every kConsumers-th
-//     tile and feeding its own ring from its first thread (no producer
-//     warp); their partial sums meet in shared memory at the end and are
-//     added in one fixed order, so two calls agree bit for bit;
+//     block scheduler fills every SM with whichever is left), each with
+//     two warpgroups that share the products of every tile:
+//     - dK/dV, one block per (64 keys, b*h), over query tiles of kTile
+//       from the first that sees the block (causal: row i >= k0 -
+//       q_start): warpgroup 0 forms S^T = K Q^T, P^T = 2^(S^T c - lse2)
+//       and dV += P^T dO against dO^T; warpgroup 1 dP^T = V dO^T, dS^T =
+//       P^T (dP^T - delta) with P^T passed to it through shared memory,
+//       and dK += dS^T Q against Q^T. Key tiles past kv_len run no tile and
+//       store zeros; masked keys get P = 0 exactly;
+//     - dQ, one block per (64 query rows, b*h), over key tiles of kTile up
+//       to the forward's key bound: warpgroup 0 forms S = Q K^T and P,
+//       warpgroup 1 dP = dO V^T and dS = P (dP - delta), passed back; each
+//       adds dS K into its half of dQ's columns, against K^T;
+//   - each gradient element is summed by one thread over the tiles in
+//     order, with no partial sums between warpgroups, so two calls agree
+//     bit for bit;
+//   - a two-stage ring of raw tiles (with each query tile's lse2 and
+//     delta): tile i + 2 is loaded as soon as tile i is split; tile i is
+//     split transposed while its S and dP run, tile i + 1 as it is while
+//     tile i's gradient products run. ptxas serializes every wgmma of the
+//     kernel where code reads or writes an accumulator while a product is
+//     in flight, branches on the thread's index or may trap there: so the
+//     products are waited out before P is formed, the mask is applied
+//     without a branch, the loads are predicated, and a lost TMA arrival
+//     traps only after the last product;
 //   - tiles follow the float32 row width: a tile of D columns is boxes of
 //     32 columns (128-byte swizzle; 16 columns and 64 bytes at D 16), a
 //     transposed tile boxes of 32 positions (16 and 64 bytes for a tile of
 //     16) by D rows; a k-step of 8 moves 32 bytes inside a swizzled row.
-//     The tile sizes are what a block's 227 KB hold (Plan).
+//     The sizes are what a block's registers hold (Plan): at D 128 the
+//     kept rows take 128 of a thread's registers, so tiles of 16.
 // dK and dQ take the scale once, at the store; rows past Tq or Tk are not
 // stored.
 //
@@ -93,76 +106,52 @@ namespace {
 
 using namespace sm90;
 
-constexpr int kBlockM = 64;       // dQ: query rows of a block
-constexpr int kBlockK = 64;       // dK/dV: keys of a block
-constexpr int kRowPad = 64;       // workspace rows per b*h: T rounded up
-constexpr int kPrepRows = 32;     // positions per pre-pass block
-constexpr int kPrepThreads = 256;
+constexpr int kRowPad = 64;       // lse2 / delta rows per b*h: Tq rounded up
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kMaskValue = -1e9f;
 constexpr uint32_t kBarAll = 1;   // named barrier of a block's warpgroups
-                                  // (2 + w: warpgroup w's own)
 
 // Return codes besides cudaError_t values.
 constexpr int kErrTensorMap = -1;  // a layout the TMA unit does not take
 constexpr int kErrNoEncoder = -2;  // cuTensorMapEncodeTiled not found
 
-struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)
-  long long b, t, h;
-};
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
+__host__ __device__ constexpr int pos_box(int positions) {
+  return positions < 32 ? positions : 32;
 }
 
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - hi);
-}
-
-// The position held at place p of a group of 8 in the transposed copies.
-__device__ __forceinline__ int key_at(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
-
-// Tile geometry for head dim D (see the design above). A natural tile of
-// R rows is kBoxes boxes of R x kRowBytes; a transposed tile of R
-// positions is R / pos_box(R) boxes of D rows x 4 pos_box(R) bytes.
+// Block shape and shared memory for head dim D (byte offsets from a
+// 1024-byte aligned base). A natural tile of R rows is kBoxes boxes of
+// R x kRowBytes; a transposed tile of R positions is R / pos_box(R) boxes
+// of D rows x 4 pos_box(R) bytes. In order: the streamed tile as it is
+// [X0 hi, X0 lo, X1 hi, X1 lo] (Q, dO in a dK/dV block, K, V in a dQ
+// block), transposed [X0^T hi, X0^T lo, X1^T hi, X1^T lo] (a dQ block uses
+// the first two, K^T), the ring of raw tiles [stage][X0, X1], the block's
+// 64 kept rows raw [A0, A1] (K, V or Q, dO; in registers once loaded), the
+// warpgroups' exchange [2][128 threads][kTile / 2], each stage's lse2 and
+// delta (dK/dV), the barriers.
 template <int D>
 struct Plan {
+  static constexpr int kThreads = 256;  // two warpgroups
+  static constexpr int kTile = D == 128 ? 16 : 32;  // positions streamed
+  static constexpr int kStages = 2;
   static constexpr int kBoxD = D < 32 ? D : 32;
   static constexpr int kBoxes = D / kBoxD;
   static constexpr int kRowBytes = kBoxD * 4;
   static constexpr uint32_t kLayout = kRowBytes == 128 ? 1 : 2;
-  static constexpr int kBlockQ = D == 128 ? 16 : 32;   // dK/dV query tile
-  static constexpr int kBlockN = D == 16 ? 64 : 32;    // dQ key tile
-  static constexpr int kConsumers = D == 128 ? 1 : 2;  // warpgroups a block
-  static constexpr int kStages = D <= 32 ? 2 : 1;      // each one's ring
-  static constexpr int kThreads = 128 * kConsumers;
-  static constexpr int kNV = D < 64 ? D : 64;  // columns of one RS product
-  static constexpr int kPart64 = kBlockM * D * 4;      // a 64-row part
-  static constexpr int kBox64 = kBlockM * kRowBytes;
-  static constexpr int kPartQ = kBlockQ * D * 4;       // dK/dV query tile
-  static constexpr int kBoxQ = kBlockQ * kRowBytes;
-  static constexpr int kPartN = kBlockN * D * 4;       // dQ key tile
-  static constexpr int kBoxN = kBlockN * kRowBytes;
-  // stages: dK/dV Q, dO (hi, lo each) as they are, then transposed; dQ
-  // K, V (hi, lo each) as they are, then K transposed
-  static constexpr int kStageKV = 8 * kPartQ;
-  static constexpr int kStageQ = 6 * kPartN;
-  static constexpr int kStageBars = kConsumers * kStages;
-  static constexpr int kRingKV = kStageBars * kStageKV;
-  static constexpr int kRingQ = kStageBars * kStageQ;
-  static constexpr int kRing = kRingKV > kRingQ ? kRingKV : kRingQ;
-  static constexpr int kBarriers = 4 * kPart64 + kRing;  // byte offset
-  static constexpr int kSmem = kBarriers + 8 * (kStageBars + 1) + 1024;
-  // the partial sums the warpgroups hand each other at the end
-  static constexpr int kSwap = 2 * (kConsumers - 1) * 128 * (D / 2) * 4;
+  static constexpr int kBoxRes = 64 * kRowBytes;  // a kept column box
+  static constexpr int kPartRes = kBoxes * kBoxRes;
+  static constexpr int kBoxTile = kTile * kRowBytes;  // a streamed one
+  static constexpr int kPart = kTile * D * 4;
+  static constexpr int kStatBytes = 2 * kTile * 4;  // lse2, delta of a tile
+  static constexpr int kTrans = 4 * kPart;
+  static constexpr int kRaw = 8 * kPart;
+  static constexpr int kKept = kRaw + kStages * 2 * kPart;
+  static constexpr int kXchg = kKept + 2 * kPartRes;
+  static constexpr int kStats = kXchg + 2 * 128 * (kTile / 2) * 4;
+  static constexpr int kBarriers = kStats + kStages * kStatBytes;
+  static constexpr int kSmem = kBarriers + 8 * (kStages + 1) + 1024;
   static_assert(kSmem <= 232448, "shared memory");
-  static_assert(kSwap <= kRingKV && kSwap <= kRingQ, "swap space");
+  static_assert(kPart % 1024 == 0 && kPartRes % 1024 == 0, "tile alignment");
 };
-
-__host__ __device__ constexpr int pos_box(int positions) {
-  return positions < 32 ? positions : 32;
-}
 
 struct Params {
   float* dq;
@@ -171,28 +160,32 @@ struct Params {
   const float* lse2;   // [B*H, Tq_pad], written by the pre-pass
   const float* delta;  // [B*H, Tq_pad]
   const int32_t* kv_lens;
-  long long dq_sb, dq_st, dq_sh;  // element strides of the b, t, h dims
-  long long dk_sb, dk_st, dk_sh;
-  long long dv_sb, dv_st, dv_sh;
+  Strides dqs, dks, dvs;
   int H, Tq, Tk, Tq_pad, causal;
   int q_start;       // keys' position of query 0 (causal mask)
   float scale_log2;  // log2(e) / sqrt(D)
-  float mask_raw;    // -1e9 * sqrt(D): a masked score before the scale
   float sm_scale;    // 1 / sqrt(D)
 };
 
-struct Prep {
-  const float *q, *k, *v, *o, *dout, *lse;  // lse: [B*H, Tq]
-  const int32_t* kv_lens;
-  Strides qs, ks, vs, os, dos;
-  float* nq;     // [4][B*H][Tq_pad][D]: q hi, q lo, dO hi, dO lo
-  float* nk;     // [4][B*H][Tk_pad][D]: k hi, k lo, v hi, v lo
-  float* tq;     // [4][B*H][D][Tq_pad]: the same of q and dO, transposed
-  float* tk;     // [2][B*H][D][Tk_pad]: k hi, k lo, transposed
-  float* lse2;   // [B*H][Tq_pad]
-  float* delta;  // [B*H][Tq_pad]
-  int H, Tq, Tk, Tq_pad, Tk_pad;
+struct Stats {
+  const float *o, *dout, *lse;  // lse: [B*H, Tq]
+  float* lse2;                  // [B*H, Tq_pad]
+  float* delta;                 // [B*H, Tq_pad]
+  Strides os, dos;
+  int H, Tq, Tq_pad;
 };
+
+// The raw float32 tiles: a box is kBoxD columns of kTile positions of one
+// head of one batch row.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) x[e] = 0.f;
+}
 
 __device__ __forceinline__ int kv_len_of(const int32_t* kv_lens, int b,
                                          int Tk) {
@@ -201,153 +194,134 @@ __device__ __forceinline__ int kv_len_of(const int32_t* kv_lens, int b,
 
 // ---- 1. the pre-pass --------------------------------------------------------
 
-// One block per (32 positions, b*h, tensor): blockIdx.z 0 splits q, 1 dO
-// (and forms lse2 and delta of its rows), 2 k, 3 v. Each writes the hi and
-// lo parts as they are; q, dO and k also transposed through a shared tile,
-// so that both the reads and the writes are coalesced. Element n of a
-// thread is threadIdx.x + 256 n of the block's 32 x D, and all of a
-// thread's loads are issued before its first store.
+// One block per (128 / (D / 4) rows, b*h): lse2 = lse log2(e) and
+// delta = rowsum(dO o) of each row into the workspace; rows past Tq get
+// lse2 = +inf (P = 0) and delta 0. A row is D / 4 lanes, each summing the
+// products of 4 columns read as one 16-byte word of o and of dO, then the
+// lanes' sums in a fixed butterfly. Every load is issued before the first
+// sum: the launch is one memory round trip.
 template <int D>
-__global__ void __launch_bounds__(kPrepThreads)
-flash_bwd_f32_prep_kernel(const Prep p) {
-  constexpr int kPer = kPrepRows * D / kPrepThreads;
-  __shared__ float tile[kPrepRows][D + 1];
-  const int z = blockIdx.z;
-  const int bh = blockIdx.y;
-  const int BH = gridDim.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int r0 = blockIdx.x * kPrepRows;
-  const bool query_side = z < 2;
-  const int pad = query_side ? p.Tq_pad : p.Tk_pad;
-  if (r0 >= pad) return;
-  const int valid = query_side ? p.Tq : kv_len_of(p.kv_lens, b, p.Tk);
-  const float* src = z == 0 ? p.q : z == 1 ? p.dout : z == 2 ? p.k : p.v;
-  const Strides s = z == 0 ? p.qs : z == 1 ? p.dos : z == 2 ? p.ks : p.vs;
-  src += b * s.b + h * s.h;
-  float x[kPer];
-#pragma unroll
-  for (int n = 0; n < kPer; ++n) {
-    const int i = threadIdx.x + kPrepThreads * n;
-    const int r = r0 + i / D;
-    x[n] = r < valid ? src[(long long)r * s.t + i % D] : 0.f;
+__global__ void __launch_bounds__(128)
+flash_bwd_f32_delta_kernel(const Stats s) {
+  constexpr int kLanes = D / 4;
+  const int bh = blockIdx.x;
+  const int b = bh / s.H;
+  const int h = bh % s.H;
+  const int c = threadIdx.x % kLanes * 4;
+  const int row = blockIdx.y * (128 / kLanes) + threadIdx.x / kLanes;
+  const bool first = threadIdx.x % kLanes == 0;  // the lane that stores
+  float4 ow = make_float4(0.f, 0.f, 0.f, 0.f), dw = ow;
+  float lse2 = INFINITY;
+  if (row < s.Tq) {
+    ow = *reinterpret_cast<const float4*>(s.o + b * s.os.b +
+                                          (long long)row * s.os.t +
+                                          h * s.os.h + c);
+    dw = *reinterpret_cast<const float4*>(s.dout + b * s.dos.b +
+                                          (long long)row * s.dos.t +
+                                          h * s.dos.h + c);
+    if (first) lse2 = s.lse[(long long)bh * s.Tq + row] * kLog2e;
   }
-  const long long part = (long long)BH * pad * D;
-  float* dst = (query_side ? p.nq : p.nk) + (z % 2) * 2 * part +
-               ((long long)bh * pad + r0) * D;
+  float d = dw.x * ow.x;
+  d = fmaf(dw.y, ow.y, d);
+  d = fmaf(dw.z, ow.z, d);
+  d = fmaf(dw.w, ow.w, d);
 #pragma unroll
-  for (int n = 0; n < kPer; ++n) {
-    const int i = threadIdx.x + kPrepThreads * n;
-    float hi, lo;
-    split_tf32(x[n], hi, lo);
-    dst[i] = hi;
-    dst[part + i] = lo;
-  }
-  if (z == 3) return;
-#pragma unroll
-  for (int n = 0; n < kPer; ++n) {
-    const int i = threadIdx.x + kPrepThreads * n;
-    tile[i / D][i % D] = x[n];
-  }
-  __syncthreads();
-  const long long tpart = (long long)BH * D * pad;
-  float* tdst = (z == 2 ? p.tk : p.tq) + (z == 1 ? 2 * tpart : 0) +
-                (long long)bh * D * pad + r0;
-#pragma unroll
-  for (int n = 0; n < kPer; ++n) {
-    const int i = threadIdx.x + kPrepThreads * n;
-    const int d = i / kPrepRows;
-    const int pos = i % kPrepRows;
-    float hi, lo;
-    split_tf32(tile[(pos & ~7) + key_at(pos & 7)][d], hi, lo);
-    tdst[(long long)d * pad + pos] = hi;
-    tdst[tpart + (long long)d * pad + pos] = lo;
-  }
-  if (z != 1) return;
-  // lse2 and delta of the block's 32 rows, 8 lanes a row: each lane sums
-  // the products of every 8th column, then the lanes' sums in a fixed
-  // butterfly
-  const int row = threadIdx.x / 8;
-  const int lane8 = threadIdx.x % 8;
-  const int r = r0 + row;
-  float dsum = 0.f;
-  if (r < p.Tq) {
-    const float* o_row = p.o + b * p.os.b + (long long)r * p.os.t + h * p.os.h;
-#pragma unroll
-    for (int j = lane8; j < D; j += 8) dsum = fmaf(tile[row][j], o_row[j], dsum);
-  }
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 4);
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-  if (lane8 == 0) {
-    const long long at = (long long)bh * p.Tq_pad + r;
-    p.lse2[at] = r < p.Tq ? p.lse[(long long)bh * p.Tq + r] * kLog2e : INFINITY;
-    p.delta[at] = dsum;
+  for (int m = kLanes / 2; m > 0; m /= 2)
+    d += __shfl_xor_sync(0xffffffffu, d, m);
+  if (first) {
+    const long long at = (long long)bh * s.Tq_pad + row;
+    s.lse2[at] = lse2;
+    s.delta[at] = d;
   }
 }
 
 // ---- products -----------------------------------------------------------------
 
-// acc [64 x N] = A [64 x D] B [N x D]^T in split TF32: A's hi part at a
-// (its lo part a_part bytes on, its column boxes a_box bytes apart), B's
-// at b likewise; both K-major tiles in shared memory. lo*hi, hi*lo, hi*hi
-// in k-steps of 8 (32 bytes inside one swizzled row). Issues the wgmmas
-// only: the caller fences, commits and waits.
+// acc [64 x N] = A [64 x D] B [N x D]^T in split TF32: A from registers
+// as the hi and lo fragments of its D / 8 k-steps (load_frags), B a
+// natural tile in shared memory (its hi part at b, its lo part b_part
+// bytes on, its column boxes b_box bytes apart, K-major): lo*hi, hi*lo,
+// hi*hi in k-steps of 8 (32 bytes inside one swizzled row). Issues the
+// wgmmas only: the caller fences, commits and waits.
 template <int D, int N>
-__device__ __forceinline__ void mma3_abt(float (&acc)[N / 2], uint32_t a,
-                                         int a_part, int a_box, uint32_t b,
-                                         int b_part, int b_box) {
+__device__ __forceinline__ void mma3_rs_bt(float (&acc)[N / 2],
+                                           const uint32_t (&hi)[D / 8][4],
+                                           const uint32_t (&lo)[D / 8][4],
+                                           uint32_t b, int b_part, int b_box) {
   using P = Plan<D>;
   constexpr int kSteps = P::kBoxD / 8;
 #pragma unroll
   for (int t = 0; t < 3; ++t) {
-    const uint32_t at = a + (t == 0 ? a_part : 0);
     const uint32_t bt = b + (t == 1 ? b_part : 0);
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
-      const int x = kk / kSteps;
-      const int w = kk % kSteps;
-      const uint64_t da = make_desc(at + x * a_box + 32 * w, 16,
-                                    8 * P::kRowBytes, P::kLayout);
-      const uint64_t db = make_desc(bt + x * b_box + 32 * w, 16,
-                                    8 * P::kRowBytes, P::kLayout);
-      WgmmaTf32SS<N>::run(acc, da, db, t > 0 || kk > 0);
+      const uint64_t db = make_desc(bt + kk / kSteps * b_box + 32 * (kk % kSteps),
+                                    16, 8 * P::kRowBytes, P::kLayout);
+      WgmmaTf32RS<N>::run(acc, t == 0 ? lo[kk] : hi[kk], db, t > 0 || kk > 0);
     }
   }
 }
 
-// acc [64 x D] += X [64 x K] B [K x D] in split TF32, X from registers as
-// the hi and lo A fragments of its K / 8 k-steps (split_frags), B a
-// transposed tile of K positions in shared memory (its hi part at bt, its
-// lo part b_part bytes on): lo*hi, hi*lo, hi*hi, the D columns as D / kNV
-// products of kNV. Issues the wgmmas only.
-template <int D, int K>
-__device__ __forceinline__ void mma3_rs(float (&acc)[D / 2],
+// acc [64 x NC] += X [64 x K] B [K x NC] in split TF32, X from registers as
+// the hi and lo A fragments of its K / 8 k-steps (split_frags), B rows
+// d0 .. d0 + NC of a transposed tile of K positions in shared memory (bt
+// the address of row d0 of its hi part, its lo part b_part bytes on):
+// lo*hi, hi*lo, hi*hi, the NC columns as products of at most 64. Issues the
+// wgmmas only.
+template <int D, int NC, int K>
+__device__ __forceinline__ void mma3_rs(float (&acc)[NC / 2],
                                         const uint32_t (&hi)[K / 8][4],
                                         const uint32_t (&lo)[K / 8][4],
                                         uint32_t bt, int b_part) {
-  using P = Plan<D>;
   constexpr int kPos = pos_box(K);
   constexpr int kRow = kPos * 4;            // bytes of a transposed row
   constexpr int kBox = D * kRow;            // one box of D rows
   constexpr int kSteps = kPos / 8;
+  constexpr int kNV = NC < 64 ? NC : 64;
   constexpr uint32_t kLayoutT = kRow == 128 ? 1 : 2;
 #pragma unroll
   for (int t = 0; t < 3; ++t) {
 #pragma unroll
     for (int j = 0; j < K / 8; ++j) {
 #pragma unroll
-      for (int c = 0; c < D / P::kNV; ++c) {
+      for (int c = 0; c < NC / kNV; ++c) {
         const uint64_t db = make_desc(
-            bt + (t == 1 ? b_part : 0) + j / kSteps * kBox + c * P::kNV * kRow +
+            bt + (t == 1 ? b_part : 0) + j / kSteps * kBox + c * kNV * kRow +
                 32 * (j % kSteps),
             16, 8 * kRow, kLayoutT);
-        WgmmaTf32RS<P::kNV>::run(
-            *reinterpret_cast<float(*)[P::kNV / 2]>(acc + c * P::kNV / 2),
+        WgmmaTf32RS<kNV>::run(
+            *reinterpret_cast<float(*)[kNV / 2]>(acc + c * kNV / 2),
             t == 0 ? lo[j] : hi[j], db, 1);
       }
     }
   }
+}
+
+// This warpgroup's rows of a kept raw tile (64 rows x D in the natural
+// layout at src) as the hi and lo TF32 A fragments of its D / 8 k-steps
+// (sm90.cuh's layout: warp w's rows 16w + g and 16w + g + 8, columns
+// 8 kk + t and 8 kk + t + 4, g = lane / 4, t = lane % 4); tw the thread's
+// index in its warpgroup.
+template <int D>
+__device__ __forceinline__ void load_frags(const uint8_t* src,
+                                           uint32_t (&hi)[D / 8][4],
+                                           uint32_t (&lo)[D / 8][4], int tw) {
+  using P = Plan<D>;
+  const int r = 16 * (tw / 32) + (tw % 32) / 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + 8 * (e % 2);
+      const int col = 8 * kk + tw % 4 + 4 * (e / 2);
+      float h, l;
+      split_tf32(*reinterpret_cast<const float*>(
+                     src + col / P::kBoxD * P::kBoxRes +
+                     swizzled<P::kRowBytes>(row, col % P::kBoxD * 4)),
+                 h, l);
+      hi[kk][e] = __float_as_uint(h);
+      lo[kk][e] = __float_as_uint(l);
+    }
 }
 
 // An accumulator [64 x N] as hi and lo TF32 A fragments of its N / 8
@@ -382,29 +356,8 @@ __device__ __forceinline__ void fence_frags(uint32_t (&x)[K / 8][4]) {
     for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(x[j][r])::"memory");
 }
 
-// Sets masked scores of an accumulator [64 rows x N cols] to mask_raw. This
-// thread's element e sits at row row0 + 8 ((e / 2) % 2) and column
-// col_base + 8 (e / 4) + col0 + e % 2 (sm90.cuh). keys_are_rows: the rows
-// are keys and the columns queries (S^T), else the transpose.
-template <int N>
-__device__ __forceinline__ void apply_mask(float (&s)[N / 2], const Params& p,
-                                           int kv_len, int row0,
-                                           int col_base, int col0,
-                                           bool keys_are_rows) {
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) {
-    const int row = row0 + 8 * ((e / 2) % 2);
-    const int col = col_base + 8 * (e / 4) + col0 + (e % 2);
-    const int key = keys_are_rows ? row : col;
-    const int query = keys_are_rows ? col : row;
-    const bool keep =
-        key < kv_len && (!p.causal || key <= query + p.q_start);
-    s[e] = keep ? s[e] : p.mask_raw;
-  }
-}
-
-// Stores rows [row0, row0 + 8] of an accumulator [64 x D] times `scale`
-// into x (b, h fixed at x's base), rows >= n not.
+// Stores rows [row0, row0 + 8] of an accumulator [64 x D] (D columns from
+// x on) times `scale` into x (b, h fixed at x's base), rows >= n not.
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            float scale, float* x,
@@ -423,133 +376,250 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
   }
 }
 
-// Partial sums between warpgroups: thread t of one holds the same elements
-// as thread t of another, so element e of thread t sits at buf[e * 128 +
-// t].
-template <int N>
-__device__ __forceinline__ void to_swap(const float (&x)[N], float* buf,
-                                        int t) {
+// Zeros in this thread's elements of rows row0 and row0 + 8 (store_rows).
+template <int D>
+__device__ __forceinline__ void store_zero_rows(float* x, long long st,
+                                                int row0, int col0, int n) {
 #pragma unroll
-  for (int e = 0; e < N; ++e) buf[e * 128 + t] = x[e];
-}
-
-template <int N>
-__device__ __forceinline__ void add_swap(float (&x)[N], const float* buf,
-                                         int t) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < n) {
+      float* out = x + (long long)row * st + col0;
 #pragma unroll
-  for (int e = 0; e < N; ++e) x[e] += buf[e * 128 + t];
-}
-
-// Ring barriers full[w][s] (warpgroup w's loads of stage s), n of them,
-// then one for the tiles loaded once; each completes on its loader's
-// arrival and bytes.
-__device__ __forceinline__ void init_barriers(uint32_t bar_full, int n,
-                                              uint32_t bar_once) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < n; ++s) mbar_init(bar_full + 8 * s, 1);
-    mbar_init(bar_once, 1);
-    fence_mbar_init();
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) = make_float2(0.f, 0.f);
+    }
   }
-  __syncthreads();
 }
 
-// Copies `parts` parts of `rows` rows at row r0 of b*h `bh` from a natural
-// workspace map (its box kBoxD x rows) to dst, the parts part_bytes apart.
+// ---- the tiles in shared memory ---------------------------------------------
+
+// Copies rows [r0, r0 + rows) of head h of batch row b from a raw map to
+// dst as a natural tile (kBoxes column boxes of rows x kRowBytes), each box
+// as rows / kTile TMA boxes; rows past T arrive as zeros. Issued by the
+// threads where `pred` holds (predicated, not branched: see
+// tma_load_4d_if).
 template <int D>
-__device__ __forceinline__ void load_natural(uint32_t dst, const CUtensorMap* map,
-                                             uint32_t bar, int parts,
-                                             int part_bytes, int box_bytes,
-                                             int r0, int bh) {
+__device__ __forceinline__ void load_rows(bool pred, uint32_t dst,
+                                          const CUtensorMap* map, uint32_t bar,
+                                          int rows, int r0, int h, int b) {
   using P = Plan<D>;
-  for (int part = 0; part < parts; ++part)
-    for (int x = 0; x < P::kBoxes; ++x)
-      tma_load_4d(dst + part * part_bytes + x * box_bytes, map, bar,
-                  x * P::kBoxD, r0, bh, part);
+#pragma unroll
+  for (int x = 0; x < P::kBoxes; ++x)
+#pragma unroll
+    for (int y = 0; y < rows / P::kTile; ++y)
+      tma_load_4d_if(pred, dst + x * rows * P::kRowBytes + y * P::kBoxTile,
+                     map, bar, x * P::kBoxD, h, r0 + y * P::kTile, b);
 }
 
-// Copies `parts` parts of positions [r0, r0 + positions) of b*h `bh` from a
-// transposed workspace map (its box pos_box(positions) x D) to dst.
+// The raw tiles of X0 and X1 at positions r0 on into a warpgroup's raw
+// stage, where `pred` holds; `full` completes on their bytes and `extra`
+// more, which the caller loads after.
 template <int D>
-__device__ __forceinline__ void load_transposed(uint32_t dst,
-                                                const CUtensorMap* map,
-                                                uint32_t bar, int parts,
-                                                int positions, int r0, int bh) {
-  const int pb = pos_box(positions);
-  for (int part = 0; part < parts; ++part)
-    for (int y = 0; y < positions / pb; ++y)
-      tma_load_4d(dst + part * positions * D * 4 + y * D * pb * 4, map, bar,
-                  r0 + pb * y, 0, bh, part);
+__device__ __forceinline__ void load_tile(bool pred, uint32_t raw,
+                                          uint32_t full, const CUtensorMap* x0,
+                                          const CUtensorMap* x1, int r0, int h,
+                                          int b, int extra = 0) {
+  using P = Plan<D>;
+  mbar_arrive_expect_tx_if(pred, full, 2 * P::kPart + extra);
+  load_rows<D>(pred, raw, x0, full, P::kTile, r0, h, b);
+  load_rows<D>(pred, raw + P::kPart, x1, full, P::kTile, r0, h, b);
+}
+
+// hi and lo of kBytes of raw float32 at src, each element at its own
+// offset of hi and of lo (any tile layout), split over the block's
+// threads.
+template <int kBytes>
+__device__ __forceinline__ void split_natural(const uint8_t* src, uint8_t* hi,
+                                              uint8_t* lo) {
+  constexpr int kStep = 16 * 256;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int n = 0; n < (kBytes + kStep - 1) / kStep; ++n) {
+    // threads past the end redo the last word (the same values): no
+    // branch
+    const int i = min(16 * t + n * kStep, kBytes - 16);
+    const float4 x = *reinterpret_cast<const float4*>(src + i);
+    float4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<float4*>(hi + i) = h;
+    *reinterpret_cast<float4*>(lo + i) = l;
+  }
+}
+
+// The transposed hi and lo parts of a raw natural tile of kTile positions
+// x D at src, split over the block's threads: position p, column d goes to
+// row d of box p / pos_box(kTile) at the place of p in its group of 8
+// (key_at's inverse), in the swizzle of the box's 4 pos_box(kTile)-byte
+// rows. A thread's unit is 4 places (p0, p0 + 2, p0 + 4, p0 + 6 of one
+// group) of one column, read as 4 floats and written as one 16-byte word
+// of each part; a warp's lanes take consecutive columns, so that neither
+// side has bank conflicts.
+template <int D>
+__device__ __forceinline__ void split_transposed(const uint8_t* src,
+                                                 uint8_t* hi, uint8_t* lo) {
+  using P = Plan<D>;
+  constexpr int kPb = pos_box(P::kTile);
+  constexpr int kTRow = 4 * kPb;
+  constexpr int kUnits = P::kTile / 4 * D;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int n = 0; n < (kUnits + 255) / 256; ++n) {
+    const int u = min(t + n * 256, kUnits - 1);  // as split_natural
+    const int d = u % D;
+    const int c = u / D;                  // places 4c .. 4c + 3
+    const int p0 = 8 * (c / 2) + c % 2;   // hold positions p0 + 2j
+    const uint8_t* col = src + d / P::kBoxD * P::kBoxTile;
+    const int cb = d % P::kBoxD * 4;
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = *reinterpret_cast<const float*>(
+          col + swizzled<P::kRowBytes>(p0 + 2 * j, cb));
+    float4 h, l;
+    split_tf32(x[0], h.x, l.x);
+    split_tf32(x[1], h.y, l.y);
+    split_tf32(x[2], h.z, l.z);
+    split_tf32(x[3], h.w, l.w);
+    const int off = 4 * c / kPb * (D * kTRow) +
+                    swizzled<kTRow>(d, 4 * c % kPb * 4);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// A block's streamed tiles: stage i % kStages of the raw ring holds tile i
+// (positions r0 + i kTile on, with the lse2 and delta of those rows where
+// `with_stats`); the block splits it as it is and transposed.
+template <int D>
+struct Tiles {
+  uint32_t base;
+  uint8_t* gen;
+  const CUtensorMap *x0, *x1;
+  int r0, h, b;
+  const float *lse2, *delta;  // at row r0 of this b*h, or null
+  __device__ uint32_t full(int i) const {
+    return base + Plan<D>::kBarriers + 8 * (i % Plan<D>::kStages);
+  }
+  // tile i's loads, where `pred` holds (predicated, not branched)
+  __device__ void load(bool pred, int i) const {
+    using P = Plan<D>;
+    const int st = i % P::kStages;
+    const int extra = lse2 != nullptr ? P::kStatBytes : 0;
+    load_tile<D>(pred, base + P::kRaw + st * 2 * P::kPart, full(i), x0, x1,
+                 r0 + i * P::kTile, h, b, extra);
+    if (lse2 == nullptr) return;
+    const uint32_t dst = base + P::kStats + st * P::kStatBytes;
+    bulk_load_if(pred, dst, lse2 + i * P::kTile, P::kTile * 4, full(i));
+    bulk_load_if(pred, dst + P::kTile * 4, delta + i * P::kTile, P::kTile * 4,
+                 full(i));
+  }
+  // whether tile i landed (false: its arrival was lost)
+  __device__ bool wait(int i) const {
+    return mbar_try_wait(full(i), (i / Plan<D>::kStages) & 1);
+  }
+  __device__ const uint8_t* raw(int i) const {
+    using P = Plan<D>;
+    return gen + P::kRaw + (i % P::kStages) * 2 * P::kPart;
+  }
+  // tile i split as it is, by all threads
+  __device__ void split_nat(int i) const {
+    using P = Plan<D>;
+    split_natural<P::kPart>(raw(i), gen, gen + P::kPart);
+    split_natural<P::kPart>(raw(i) + P::kPart, gen + 2 * P::kPart,
+                            gen + 3 * P::kPart);
+  }
+  // tile i split transposed (X0 only, or X0 and X1), by all threads
+  __device__ void split_trans(int i, int parts) const {
+    using P = Plan<D>;
+    uint8_t* tr = gen + P::kTrans;
+    split_transposed<D>(raw(i), tr, tr + P::kPart);
+    if (parts == 2)
+      split_transposed<D>(raw(i) + P::kPart, tr + 2 * P::kPart,
+                          tr + 3 * P::kPart);
+  }
+  // tile i's lse2, then its delta
+  __device__ const float* stats(int i) const {
+    using P = Plan<D>;
+    return reinterpret_cast<const float*>(gen + P::kStats +
+                                          (i % P::kStages) * P::kStatBytes);
+  }
+};
+
+// A block's first steps: the barriers; thread 0 loads the kept rows
+// [r0, r0 + 64) of A0 and A1 and tiles 0 and 1; the kept rows come back as
+// this warpgroup's A fragments (A0 for warpgroup 0, A1 for 1), tile 0
+// split as it is. Returns false if tile 0's arrival was lost.
+template <int D>
+__device__ __forceinline__ bool start_block(const Tiles<D>& tl,
+                                            const CUtensorMap* a0,
+                                            const CUtensorMap* a1, int r0,
+                                            int n, uint32_t (&ah)[D / 8][4],
+                                            uint32_t (&al)[D / 8][4]) {
+  using P = Plan<D>;
+  const int t = threadIdx.x;
+  const uint32_t bar_kept = tl.base + P::kBarriers + 8 * P::kStages;
+  init_barriers(tl.base + P::kBarriers, P::kStages, bar_kept);
+  if (t == 0) {
+    mbar_arrive_expect_tx(bar_kept, 2 * P::kPartRes);
+    load_rows<D>(true, tl.base + P::kKept, a0, bar_kept, 64, r0, tl.h, tl.b);
+    load_rows<D>(true, tl.base + P::kKept + P::kPartRes, a1, bar_kept, 64, r0,
+                 tl.h, tl.b);
+  }
+  tl.load(t == 0, 0);
+  tl.load(t == 0 && n > 1, 1);
+  mbar_wait(bar_kept, 0);
+  load_frags<D>(tl.gen + P::kKept + t / 128 * P::kPartRes, ah, al, t % 128);
+  const bool landed = tl.wait(0);
+  tl.split_nat(0);
+  fence_proxy_async();
+  bar_sync(kBarAll, P::kThreads);
+  return landed;
 }
 
 // ---- 2. dQ ------------------------------------------------------------------
 
-struct Maps {
-  CUtensorMap qdo64;  // q / dO hi, lo as they are, boxes of 64 rows
-  CUtensorMap qdo_q;  // the same, boxes of kBlockQ rows
-  CUtensorMap kv64;   // k / v hi, lo as they are, boxes of 64 rows
-  CUtensorMap kv_n;   // the same, boxes of kBlockN rows
-  CUtensorMap qdo_t;  // q / dO transposed, boxes of pos_box(kBlockQ)
-  CUtensorMap k_t;    // k transposed, boxes of pos_box(kBlockN)
-};
-
-// Warpgroup w's tile li of a dQ block: key tile w + kConsumers li into its
-// ring's stage li % kStages (K, V as they are, then K transposed).
-template <int D>
-__device__ __forceinline__ void load_kv(const Maps& m, uint32_t s_ring,
-                                        uint32_t bar_full, int wg, int li,
-                                        int bh) {
-  using P = Plan<D>;
-  const int st = wg * P::kStages + li % P::kStages;
-  const uint32_t full = bar_full + 8 * st;
-  const uint32_t s = s_ring + st * P::kStageQ;
-  const int kb = (wg + P::kConsumers * li) * P::kBlockN;
-  mbar_arrive_expect_tx(full, P::kStageQ);
-  load_natural<D>(s, &m.kv_n, full, 4, P::kPartN, P::kBoxN, kb, bh);
-  load_transposed<D>(s + 4 * P::kPartN, &m.k_t, full, 2, P::kBlockN, kb, bh);
-}
-
-// dQ of the 64 query rows qblk of b*h blockIdx.x.
+// dQ of the 64 query rows qblk of b*h blockIdx.x. Warpgroup 0 forms S =
+// Q K^T and P, warpgroup 1 dP = dO V^T and dS = P (dP - delta), with P
+// and dS passed through shared memory; each then adds dS K into its half
+// of dQ's columns, against K^T.
 template <int D>
 __device__ __forceinline__ void dq_block(const Maps& m, const Params& p,
                                          int qblk) {
   using P = Plan<D>;
-  constexpr int BN = P::kBlockN;
+  constexpr int BN = P::kTile;
+  constexpr int kS = BN / 2;
+  constexpr int kO = D / 4;  // a warpgroup's half of dQ
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gen = smem_raw + (base - smem_u32(smem_raw));  // generic view
-  const uint32_t s_q = base;  // Q hi, Q lo, dO hi, dO lo
-  const uint32_t s_do = base + 2 * P::kPart64;
-  const uint32_t s_ring = base + 4 * P::kPart64;
-  const uint32_t bar_full = base + P::kBarriers;
-  const uint32_t bar_q = bar_full + 8 * P::kStageBars;
-
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = qblk * kBlockM;
+  const int q0 = qblk * 64;
   const int kv_len = kv_len_of(p.kv_lens, b, p.Tk);
-  const int n_keys =
-      p.causal ? min(kv_len, p.q_start + min(p.Tq, q0 + kBlockM)) : kv_len;
-  const int n_tiles = (n_keys + BN - 1) / BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wg = warp / 4;
-  const int wl = warp % 4;
-  const bool loader = threadIdx.x % 128 == 0;  // the warpgroup's TMA thread
-  // warpgroup w takes key tiles w, w + kConsumers, ...
-  const int n_mine = (n_tiles - wg + P::kConsumers - 1) / P::kConsumers;
-  init_barriers(bar_full, P::kStageBars, bar_q);
-  if (loader) {
-    if (wg == 0 && n_tiles > 0) {
-      mbar_arrive_expect_tx(bar_q, 4 * P::kPart64);
-      load_natural<D>(s_q, &m.qdo64, bar_q, 4, P::kPart64, P::kBox64, q0, bh);
-    }
-    for (int li = 0; li < min(P::kStages, n_mine); ++li)
-      load_kv<D>(m, s_ring, bar_full, wg, li, bh);
-  }
-
-  const int row0 = q0 + 16 * wl + lane / 4;
+  const int n_keys = p.causal ? min(kv_len, p.q_start + min(p.Tq, q0 + 64))
+                              : kv_len;
+  const int n = (n_keys + BN - 1) / BN;
+  const int t = threadIdx.x;
+  const int wg = t / 128;
+  const int tw = t % 128;
+  const int lane = t % 32;
+  const int row0 = q0 + 16 * (tw / 32) + lane / 4;
   const int col0 = 2 * (lane % 4);
+  // this warpgroup's half of dQ's columns
+  float* dq = p.dq + b * p.dqs.b + h * p.dqs.h + wg * (D / 2);
+  // no tile (rows past every visible key: not a contract): zeros
+  if (n == 0) {
+    store_zero_rows<D / 2>(dq, p.dqs.t, row0, col0, p.Tq);
+    return;
+  }
+  const Tiles<D> tl{base, gen, &m.k, &m.v, 0, h, b, nullptr, nullptr};
+  uint32_t ah[D / 8][4], al[D / 8][4];  // Q (warpgroup 0) or dO (1)
+  bool lost = !start_block<D>(tl, &m.q, &m.dout, q0, n, ah, al);
   float lse2[2], delta[2];  // of rows row0 and row0 + 8
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -557,249 +627,184 @@ __device__ __forceinline__ void dq_block(const Maps& m, const Params& p,
     lse2[r] = p.lse2[at];
     delta[r] = p.delta[at];
   }
-
-  constexpr int kS = BN / 2;
-  constexpr int kO = D / 2;
-  float dq_acc[kO], s_acc[kS], dp_acc[kS];
-  uint32_t dh[BN / 8][4], dl[BN / 8][4];
-#pragma unroll
-  for (int e = 0; e < kO; ++e) dq_acc[e] = 0.f;
-#pragma unroll
-  for (int e = 0; e < kS; ++e) s_acc[e] = dp_acc[e] = 0.f;
-  if (n_mine > 0) mbar_wait(bar_q, 0);
-
-  for (int li = 0; li < n_mine; ++li) {
-    const int st = wg * P::kStages + li % P::kStages;
-    const uint32_t s_k = s_ring + st * P::kStageQ;  // K hi, K lo, V hi, V lo
-    const uint32_t s_kt = s_k + 4 * P::kPartN;      // K^T hi, K^T lo
-    const int kb = (wg + P::kConsumers * li) * BN;
-    mbar_wait(bar_full + 8 * st, (li / P::kStages) & 1);
-
-    // S = Q K^T and dP = dO V^T
-    fence_operands(s_acc);
-    fence_operands(dp_acc);
+  float* xchg = reinterpret_cast<float*>(gen + P::kXchg);
+  float sd[kS], dq_acc[kO];  // S (warpgroup 0) or dP (1); dQ's half
+  uint32_t fh[BN / 8][4] = {}, fl[BN / 8][4] = {};  // dS
+  zero(sd);
+  zero(dq_acc);
+  for (int li = 0; li < n; ++li) {
+    const int kb = li * BN;
+    // S = Q K^T or dP = dO V^T; K^T split while it runs. Nothing is in
+    // flight at a branch, and the products are waited out before code
+    // reads them: ptxas serializes every wgmma of the kernel where code
+    // reads or writes an accumulator while a product is in flight, or
+    // branches on the thread or may trap there (so the mask is
+    // unconditional and the loads are predicated)
+    fence_operands(sd);
     wgmma_fence();
-    mma3_abt<D, BN>(s_acc, s_q, P::kPart64, P::kBox64, s_k, P::kPartN,
-                    P::kBoxN);
-    mma3_abt<D, BN>(dp_acc, s_do, P::kPart64, P::kBox64, s_k + 2 * P::kPartN,
-                    P::kPartN, P::kBoxN);
+    mma3_rs_bt<D, BN>(sd, ah, al, base + wg * 2 * P::kPart, P::kPart,
+                      P::kBoxTile);
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(s_acc);
-    fence_operands(dp_acc);
-
-    if (kb + BN > kv_len || (p.causal && kb + BN - 1 > p.q_start + q0))
-      apply_mask<BN>(s_acc, p, kv_len, row0, kb, col0, false);
-    // P = 2^(S c - lse2) and dS = P (dP - delta), per row
-#pragma unroll
-    for (int e = 0; e < kS; ++e) {
-      const int r = (e / 2) % 2;
-      const float pe = ex2(fmaf(s_acc[e], p.scale_log2, -lse2[r]));
-      dp_acc[e] = pe * (dp_acc[e] - delta[r]);
-    }
-    split_frags<BN>(dp_acc, dh, dl);
-    // the scores are dead until the next tile's product overwrites them;
-    // zeros let their registers go free meanwhile
-#pragma unroll
-    for (int e = 0; e < kS; ++e) s_acc[e] = dp_acc[e] = 0.f;
-
-    // dQ += dS K against K^T
-    fence_operands(dq_acc);
-    wgmma_fence();
-    mma3_rs<D, BN>(dq_acc, dh, dl, s_kt, P::kPartN);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(dq_acc);
-    fence_frags<BN>(dh);
-    fence_frags<BN>(dl);
-
-    // every product that read the stage has completed: reload it
-    bar_sync(2 + wg, 128);
-    if (loader && li + P::kStages < n_mine)
-      load_kv<D>(m, s_ring, bar_full, wg, li + P::kStages, bh);
-  }
-
-  // dQ = the warpgroups' sums added in order, through the ring's memory
-  // once all are done with it
-  const int t = threadIdx.x % 128;
-  if (P::kConsumers > 1) {
-    float* swap = reinterpret_cast<float*>(gen + 4 * P::kPart64);
+    tl.split_trans(li, 1);
+    fence_proxy_async();
     bar_sync(kBarAll, P::kThreads);
-    if (wg > 0) to_swap<kO>(dq_acc, swap + (wg - 1) * kO * 128, t);
+    wgmma_wait<0>();
+    fence_operands(sd);
+    fence_frags<D>(ah);
+    fence_frags<D>(al);
+    // P = 2^(S c - lse2), 0 at masked keys (what exp(-1e9 - lse) rounds
+    // to), by warpgroup 0; dS = P (dP - delta) by warpgroup 1; each
+    // passed to the other
+    float ds[kS];
+    if (wg == 0) {
+#pragma unroll
+      for (int e = 0; e < kS; ++e)
+        ds[e] = ex2(fmaf(sd[e], p.scale_log2, -lse2[(e / 2) % 2]));
+      apply_mask<BN>(ds, kv_len, p.causal, p.q_start, 0.f, row0, kb, col0,
+                     false);
+      to_swap<kS>(ds, xchg, tw);
+    }
+    bar_sync(kBarAll, P::kThreads);
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < kS; ++e)
+        ds[e] = xchg[e * 128 + tw] * (sd[e] - delta[(e / 2) % 2]);
+      to_swap<kS>(ds, xchg + kS * 128, tw);
+    }
     bar_sync(kBarAll, P::kThreads);
     if (wg == 0)
 #pragma unroll
-      for (int w = 1; w < P::kConsumers; ++w)
-        add_swap<kO>(dq_acc, swap + (w - 1) * kO * 128, t);
+      for (int e = 0; e < kS; ++e) ds[e] = xchg[kS * 128 + e * 128 + tw];
+    split_frags<BN>(ds, fh, fl);
+    if (li + 1 < n && !lost) lost = !tl.wait(li + 1);
+    // dQ's half += dS K against K^T, the next tile split as it is while it
+    // runs (at the last tile, a stale stage: unused)
+    fence_operands(dq_acc);
+    wgmma_fence();
+    mma3_rs<D, D / 2, BN>(dq_acc, fh, fl,
+                          base + P::kTrans + wg * (D / 2) * 4 * pos_box(BN),
+                          P::kPart);
+    wgmma_commit();
+    tl.split_nat(li + 1);
+    wgmma_wait<0>();
+    fence_operands(dq_acc);
+    fence_frags<BN>(fh);
+    fence_frags<BN>(fl);
+    fence_proxy_async();
+    bar_sync(kBarAll, P::kThreads);
+    tl.load(t == 0 && li + 2 < n, li + 2);
   }
-  if (wg == 0)
-    store_rows<D>(dq_acc, p.sm_scale, p.dq + b * p.dq_sb + h * p.dq_sh,
-                  p.dq_st, row0, col0, p.Tq);
+  if (lost) __trap();
+  store_rows<D / 2>(dq_acc, p.sm_scale, dq, p.dqs.t, row0, col0, p.Tq);
 }
 
 // ---- 3. dK and dV -----------------------------------------------------------
 
-// Warpgroup w's tile li of a dK/dV block: query tile first + w +
-// kConsumers li into its ring's stage li % kStages (Q, dO as they are,
-// then transposed).
-template <int D>
-__device__ __forceinline__ void load_qdo(const Maps& m, uint32_t s_ring,
-                                         uint32_t bar_full, int wg, int li,
-                                         int first, int bh) {
-  using P = Plan<D>;
-  const int st = wg * P::kStages + li % P::kStages;
-  const uint32_t full = bar_full + 8 * st;
-  const uint32_t s = s_ring + st * P::kStageKV;
-  const int qb = (first + wg + P::kConsumers * li) * P::kBlockQ;
-  mbar_arrive_expect_tx(full, P::kStageKV);
-  load_natural<D>(s, &m.qdo_q, full, 4, P::kPartQ, P::kBoxQ, qb, bh);
-  load_transposed<D>(s + 4 * P::kPartQ, &m.qdo_t, full, 4, P::kBlockQ, qb, bh);
-}
-
-// dK and dV of the 64 keys kblk of b*h blockIdx.x.
+// dK and dV of the 64 keys kblk of b*h blockIdx.x. Warpgroup 0 forms S^T =
+// K Q^T, P^T and dV += P^T dO, warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T
+// - delta) and dK += dS^T Q, with P^T passed through shared memory.
 template <int D>
 __device__ __forceinline__ void dkdv_block(const Maps& m, const Params& p,
                                            int kblk) {
   using P = Plan<D>;
-  constexpr int BQ = P::kBlockQ;
+  constexpr int BQ = P::kTile;
+  constexpr int kS = BQ / 2;  // S^T / dP^T accumulators per thread
+  constexpr int kO = D / 2;   // dV / dK accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gen = smem_raw + (base - smem_u32(smem_raw));  // generic view
-  const uint32_t s_k = base;  // K hi, K lo, V hi, V lo
-  const uint32_t s_v = base + 2 * P::kPart64;
-  const uint32_t s_ring = base + 4 * P::kPart64;
-  const uint32_t bar_full = base + P::kBarriers;
-  const uint32_t bar_kv = bar_full + 8 * P::kStageBars;
-
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int k0 = kblk * kBlockK;
+  const int k0 = kblk * 64;
   const int kv_len = kv_len_of(p.kv_lens, b, p.Tk);
-  // query tiles whose rows see a key of this tile: causal, rows from
-  // k0 - q_start on; none when the tile lies past kv_len
+  // query tiles whose rows see a key of this block: causal, rows from
+  // k0 - q_start on; none when the block lies past kv_len
   const int q_tiles = (p.Tq + BQ - 1) / BQ;
   const int first = p.causal ? max(0, k0 - p.q_start) / BQ : 0;
-  const int n_it = k0 < kv_len ? max(0, q_tiles - first) : 0;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wg = warp / 4;
-  const int wl = warp % 4;
-  const bool loader = threadIdx.x % 128 == 0;  // the warpgroup's TMA thread
-  // warpgroup w takes query tiles first + w, first + w + kConsumers, ...
-  const int n_mine = (n_it - wg + P::kConsumers - 1) / P::kConsumers;
-  init_barriers(bar_full, P::kStageBars, bar_kv);
-  if (loader) {
-    if (wg == 0 && n_it > 0) {
-      mbar_arrive_expect_tx(bar_kv, 4 * P::kPart64);
-      load_natural<D>(s_k, &m.kv64, bar_kv, 4, P::kPart64, P::kBox64, k0, bh);
-    }
-    for (int li = 0; li < min(P::kStages, n_mine); ++li)
-      load_qdo<D>(m, s_ring, bar_full, wg, li, first, bh);
-  }
-
-  // This thread holds keys row0 and row0 + 8 of the tile (accumulator
-  // rows) in every warpgroup.
-  const int row0 = k0 + 16 * wl + lane / 4;
+  const int n = k0 < kv_len ? max(0, q_tiles - first) : 0;
+  const int t = threadIdx.x;
+  const int wg = t / 128;
+  const int tw = t % 128;
+  const int lane = t % 32;
+  // this thread's keys row0 and row0 + 8 (accumulator rows)
+  const int row0 = k0 + 16 * (tw / 32) + lane / 4;
   const int col0 = 2 * (lane % 4);
-  constexpr int kS = BQ / 2;  // S^T / dP^T accumulators per thread
-  constexpr int kO = D / 2;   // dK / dV accumulators per thread
-  float dv_acc[kO], dk_acc[kO], s_acc[kS], dp_acc[kS];
-  // the A fragments of P^T and of dS^T (hi and lo parts)
-  uint32_t ph[BQ / 8][4], pl[BQ / 8][4], dh[BQ / 8][4], dl[BQ / 8][4];
-#pragma unroll
-  for (int e = 0; e < kO; ++e) dv_acc[e] = dk_acc[e] = 0.f;
-#pragma unroll
-  for (int e = 0; e < kS; ++e) s_acc[e] = dp_acc[e] = 0.f;
-  if (n_mine > 0) mbar_wait(bar_kv, 0);
-
-  for (int li = 0; li < n_mine; ++li) {
-    const int st = wg * P::kStages + li % P::kStages;
-    const uint32_t s_q = s_ring + st * P::kStageKV;  // Q hi, lo, dO hi, lo
-    const uint32_t s_do = s_q + 2 * P::kPartQ;
-    const uint32_t s_qt = s_q + 4 * P::kPartQ;       // the same, transposed
-    const uint32_t s_dot = s_qt + 2 * P::kPartQ;
-    const int qb = (first + wg + P::kConsumers * li) * BQ;
-    mbar_wait(bar_full + 8 * st, (li / P::kStages) & 1);
-
-    // S^T = K Q^T and dP^T = V dO^T
-    fence_operands(s_acc);
-    fence_operands(dp_acc);
-    wgmma_fence();
-    mma3_abt<D, BQ>(s_acc, s_k, P::kPart64, P::kBox64, s_q, P::kPartQ,
-                    P::kBoxQ);
-    mma3_abt<D, BQ>(dp_acc, s_v, P::kPart64, P::kBox64, s_do, P::kPartQ,
-                    P::kBoxQ);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(s_acc);
-    fence_operands(dp_acc);
-
-    if (k0 + kBlockK > kv_len ||
-        (p.causal && k0 + kBlockK - 1 > qb + p.q_start))
-      apply_mask<BQ>(s_acc, p, kv_len, row0, qb, col0, true);
-    // P^T = 2^(S^T c - lse2) and dS^T = P^T (dP^T - delta), per query
-    // column
-    const float* lse2 = p.lse2 + (long long)bh * p.Tq_pad + qb + col0;
-    const float* delta = p.delta + (long long)bh * p.Tq_pad + qb + col0;
-#pragma unroll
-    for (int e = 0; e < kS; ++e) {
-      const int c = 8 * (e / 4) + (e % 2);
-      const float pe = ex2(fmaf(s_acc[e], p.scale_log2, -__ldg(lse2 + c)));
-      s_acc[e] = pe;
-      dp_acc[e] = pe * (dp_acc[e] - __ldg(delta + c));
-    }
-    split_frags<BQ>(s_acc, ph, pl);
-    split_frags<BQ>(dp_acc, dh, dl);
-#pragma unroll
-    for (int e = 0; e < kS; ++e) s_acc[e] = dp_acc[e] = 0.f;
-
-    // dV += P^T dO and dK += dS^T Q against the transposed dO and Q
-    fence_operands(dv_acc);
-    fence_operands(dk_acc);
-    wgmma_fence();
-    mma3_rs<D, BQ>(dv_acc, ph, pl, s_dot, P::kPartQ);
-    mma3_rs<D, BQ>(dk_acc, dh, dl, s_qt, P::kPartQ);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(dv_acc);
-    fence_operands(dk_acc);
-    fence_frags<BQ>(ph);
-    fence_frags<BQ>(pl);
-    fence_frags<BQ>(dh);
-    fence_frags<BQ>(dl);
-
-    // every product that read the stage has completed: reload it
-    bar_sync(2 + wg, 128);
-    if (loader && li + P::kStages < n_mine)
-      load_qdo<D>(m, s_ring, bar_full, wg, li + P::kStages, first, bh);
+  // dV (warpgroup 0) or dK (1)
+  float* dx = wg == 0 ? p.dv + b * p.dvs.b + h * p.dvs.h
+                      : p.dk + b * p.dks.b + h * p.dks.h;
+  const long long dx_st = wg == 0 ? p.dvs.t : p.dks.t;
+  // keys past kv_len (no tile): zeros
+  if (n == 0) {
+    store_zero_rows<D>(dx, dx_st, row0, col0, p.Tk);
+    return;
   }
-
-  // warpgroup 0 stores dK and the last warpgroup dV, each the warpgroups'
-  // parts added in order 0 + 1 (IEEE addition commutes), through the
-  // ring's memory once all are done with it: slot w - 1 holds warpgroup
-  // w's dK part, and the slots after them warpgroup 0's dV part
-  const int t = threadIdx.x % 128;
-  if (P::kConsumers > 1) {
-    static_assert(P::kConsumers <= 2, "dV's sum takes two warpgroups");
-    float* swap = reinterpret_cast<float*>(gen + 4 * P::kPart64);
-    float* dv_slot = swap + (P::kConsumers - 1) * kO * 128;
+  const long long at = (long long)bh * p.Tq_pad + first * BQ;
+  const Tiles<D> tl{base,  gen, &m.q, &m.dout, first * BQ, h, b,
+                    p.lse2 + at, p.delta + at};
+  uint32_t ah[D / 8][4], al[D / 8][4];  // K (warpgroup 0) or V (1)
+  bool lost = !start_block<D>(tl, &m.k, &m.v, k0, n, ah, al);
+  float* xchg = reinterpret_cast<float*>(gen + P::kXchg);
+  float sd[kS], dx_acc[kO];  // S^T or dP^T; dV or dK
+  // the A fragments of P^T or dS^T (hi and lo parts)
+  uint32_t fh[BQ / 8][4] = {}, fl[BQ / 8][4] = {};
+  zero(sd);
+  zero(dx_acc);
+  for (int li = 0; li < n; ++li) {
+    const int qb = (first + li) * BQ;
+    // S^T = K Q^T or dP^T = V dO^T; Q^T and dO^T split while it runs (as
+    // in dq_block)
+    fence_operands(sd);
+    wgmma_fence();
+    mma3_rs_bt<D, BQ>(sd, ah, al, base + wg * 2 * P::kPart, P::kPart,
+                      P::kBoxTile);
+    wgmma_commit();
+    tl.split_trans(li, 2);
+    fence_proxy_async();
     bar_sync(kBarAll, P::kThreads);
-    if (wg > 0) to_swap<kO>(dk_acc, swap + (wg - 1) * kO * 128, t);
-    if (wg == 0) to_swap<kO>(dv_acc, dv_slot, t);
-    bar_sync(kBarAll, P::kThreads);
+    wgmma_wait<0>();
+    fence_operands(sd);
+    fence_frags<D>(ah);
+    fence_frags<D>(al);
+    // P^T = 2^(S^T c - lse2), 0 at masked keys, by warpgroup 0, passed to
+    // warpgroup 1 for dS^T = P^T (dP^T - delta), per query column
+    const float* stats = tl.stats(li) + col0;
+    float pt[kS];
     if (wg == 0) {
-      add_swap<kO>(dk_acc, swap, t);
-    } else {
-      add_swap<kO>(dv_acc, dv_slot, t);
+#pragma unroll
+      for (int e = 0; e < kS; ++e)
+        pt[e] = ex2(fmaf(sd[e], p.scale_log2, -stats[8 * (e / 4) + (e % 2)]));
+      apply_mask<BQ>(pt, kv_len, p.causal, p.q_start, 0.f, row0, qb, col0,
+                     true);
+      to_swap<kS>(pt, xchg, tw);
     }
+    bar_sync(kBarAll, P::kThreads);
+    if (wg == 1)
+#pragma unroll
+      for (int e = 0; e < kS; ++e)
+        pt[e] = xchg[e * 128 + tw] *
+                (sd[e] - stats[BQ + 8 * (e / 4) + (e % 2)]);
+    split_frags<BQ>(pt, fh, fl);
+    if (li + 1 < n && !lost) lost = !tl.wait(li + 1);
+    // dV += P^T dO against dO^T, or dK += dS^T Q against Q^T; the next
+    // tile split as it is meanwhile (as in dq_block)
+    fence_operands(dx_acc);
+    wgmma_fence();
+    mma3_rs<D, D, BQ>(dx_acc, fh, fl, base + P::kTrans + (1 - wg) * 2 * P::kPart,
+                      P::kPart);
+    wgmma_commit();
+    tl.split_nat(li + 1);
+    wgmma_wait<0>();
+    fence_operands(dx_acc);
+    fence_frags<BQ>(fh);
+    fence_frags<BQ>(fl);
+    fence_proxy_async();
+    bar_sync(kBarAll, P::kThreads);
+    tl.load(t == 0 && li + 2 < n, li + 2);
   }
-  if (wg == 0)
-    store_rows<D>(dk_acc, p.sm_scale, p.dk + b * p.dk_sb + h * p.dk_sh,
-                  p.dk_st, row0, col0, p.Tk);
-  if (wg == P::kConsumers - 1)
-    store_rows<D>(dv_acc, 1.f, p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st,
-                  row0, col0, p.Tk);
+  if (lost) __trap();
+  store_rows<D>(dx_acc, wg == 0 ? 1.f : p.sm_scale, dx, dx_st, row0, col0,
+                p.Tk);
 }
 
 // ---- 4. the dQ and dK/dV blocks in one launch -------------------------------
@@ -811,41 +816,35 @@ __device__ __forceinline__ void dkdv_block(const Maps& m, const Params& p,
 template <int D>
 __global__ void __launch_bounds__(Plan<D>::kThreads, 1)
 flash_bwd_f32_kernel(const __grid_constant__ Maps m, const Params p) {
+  constexpr int kRows = 64;
   const int y = blockIdx.y;
   if (blockIdx.z == 0) {
-    if (y < (p.Tk + kBlockK - 1) / kBlockK) dkdv_block<D>(m, p, y);
+    if (y < (p.Tk + kRows - 1) / kRows) dkdv_block<D>(m, p, y);
   } else {
-    const int n = p.Tq_pad / kBlockM;
+    const int n = (p.Tq + kRows - 1) / kRows;
     if (y < n) dq_block<D>(m, p, p.causal ? n - 1 - y : y);
   }
 }
 
 // ---- host -------------------------------------------------------------------
 
-// Floats of each part of the workspace, in its order: nq, nk, tq, tk,
-// lse2, delta (Prep).
-struct Layout {
-  long long nq, nk, tq, tk, stats;
-  Layout(int BH, int Tq_pad, int Tk_pad, int D)
-      : nq(4LL * BH * Tq_pad * D), nk(4LL * BH * Tk_pad * D), tq(nq),
-        tk(2LL * BH * Tk_pad * D), stats((long long)BH * Tq_pad) {}
-  long long floats() const { return nq + nk + tq + tk + 2 * stats; }
-};
-
-// A tensor map over a float32 workspace array [parts][B*H][rows][cols]; a
-// box is box_cols x box_rows of one (part, b*h).
-bool make_map(EncodeTiled encode, CUtensorMap* map, float* ptr, int parts,
-              int BH, int rows, int cols, int box_cols, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)BH, (cuuint64_t)parts};
-  const cuuint64_t row = (cuuint64_t)cols * 4;
-  const cuuint64_t strides[3] = {row, row * rows, row * rows * BH};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1,
-                             1};
+// Tensor map over the (D, H, T, B) view of a float32 [B, T, H, D] tensor;
+// a box is kBoxD columns of kTile positions of one head of one batch row,
+// in the swizzle of kRowBytes-byte rows.
+template <int D>
+bool make_map(EncodeTiled encode, CUtensorMap* map, const float* ptr, int B,
+              int T, int H, Strides st) {
+  using P = Plan<D>;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 4, (cuuint64_t)st.t * 4,
+                                 (cuuint64_t)st.b * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)P::kBoxD, 1, (cuuint32_t)P::kTile, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols * 4 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<float*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                P::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                     : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -866,32 +865,11 @@ int launch(const Tensors& t, const int32_t* kv_lens, int B, int H, int Tq,
   if (encode == nullptr) return kErrNoEncoder;
   const int BH = B * H;
   const int Tq_pad = round_up(Tq, kRowPad);
-  const int Tk_pad = round_up(Tk, kRowPad);
-  const Layout L(BH, Tq_pad, Tk_pad, D);
-  Prep pp;
-  pp.q = t.q, pp.k = t.k, pp.v = t.v, pp.o = t.o, pp.dout = t.dout;
-  pp.lse = t.lse;
-  pp.kv_lens = kv_lens;
-  pp.qs = t.qs, pp.ks = t.ks, pp.vs = t.vs, pp.os = t.os, pp.dos = t.dos;
-  pp.nq = ws;
-  pp.nk = pp.nq + L.nq;
-  pp.tq = pp.nk + L.nk;
-  pp.tk = pp.tq + L.tq;
-  pp.lse2 = pp.tk + L.tk;
-  pp.delta = pp.lse2 + L.stats;
-  pp.H = H, pp.Tq = Tq, pp.Tk = Tk, pp.Tq_pad = Tq_pad, pp.Tk_pad = Tk_pad;
-
   Maps m;
-  if (!make_map(encode, &m.qdo64, pp.nq, 4, BH, Tq_pad, D, P::kBoxD, kBlockM) ||
-      !make_map(encode, &m.qdo_q, pp.nq, 4, BH, Tq_pad, D, P::kBoxD,
-                P::kBlockQ) ||
-      !make_map(encode, &m.kv64, pp.nk, 4, BH, Tk_pad, D, P::kBoxD, kBlockK) ||
-      !make_map(encode, &m.kv_n, pp.nk, 4, BH, Tk_pad, D, P::kBoxD,
-                P::kBlockN) ||
-      !make_map(encode, &m.qdo_t, pp.tq, 4, BH, D, Tq_pad,
-                pos_box(P::kBlockQ), D) ||
-      !make_map(encode, &m.k_t, pp.tk, 2, BH, D, Tk_pad, pos_box(P::kBlockN),
-                D))
+  if (!make_map<D>(encode, &m.q, t.q, B, Tq, H, t.qs) ||
+      !make_map<D>(encode, &m.k, t.k, B, Tk, H, t.ks) ||
+      !make_map<D>(encode, &m.v, t.v, B, Tk, H, t.vs) ||
+      !make_map<D>(encode, &m.dout, t.dout, B, Tq, H, t.dos))
     return kErrTensorMap;
 
   auto grads = flash_bwd_f32_kernel<D>;
@@ -903,14 +881,19 @@ int launch(const Tensors& t, const int32_t* kv_lens, int B, int H, int Tq,
     smem_set = true;
   }
 
+  Stats s;
+  s.o = t.o, s.dout = t.dout, s.lse = t.lse;
+  s.lse2 = ws;
+  s.delta = ws + (long long)BH * Tq_pad;
+  s.os = t.os, s.dos = t.dos;
+  s.H = H, s.Tq = Tq, s.Tq_pad = Tq_pad;
+
   Params p;
   p.dq = t.dq, p.dk = t.dk, p.dv = t.dv;
-  p.lse2 = pp.lse2;
-  p.delta = pp.delta;
+  p.lse2 = s.lse2;
+  p.delta = s.delta;
   p.kv_lens = kv_lens;
-  p.dq_sb = t.dqs.b, p.dq_st = t.dqs.t, p.dq_sh = t.dqs.h;
-  p.dk_sb = t.dks.b, p.dk_st = t.dks.t, p.dk_sh = t.dks.h;
-  p.dv_sb = t.dvs.b, p.dv_st = t.dvs.t, p.dv_sh = t.dvs.h;
+  p.dqs = t.dqs, p.dks = t.dks, p.dvs = t.dvs;
   p.H = H;
   p.Tq = Tq;
   p.Tk = Tk;
@@ -918,17 +901,15 @@ int launch(const Tensors& t, const int32_t* kv_lens, int B, int H, int Tq,
   p.causal = causal;
   p.q_start = q_start;
   p.scale_log2 = sm_scale * kLog2e;
-  p.mask_raw = kMaskValue / sm_scale;
   p.sm_scale = sm_scale;
 
-  const int t_pad = Tq_pad > Tk_pad ? Tq_pad : Tk_pad;
-  flash_bwd_f32_prep_kernel<D>
-      <<<dim3(t_pad / kPrepRows, BH, 4), kPrepThreads, 0, stream>>>(pp);
+  flash_bwd_f32_delta_kernel<D>
+      <<<dim3(BH, Tq_pad / (128 / (D / 4))), 128, 0, stream>>>(s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // b*h in x, the block in y: blocks go out in order of y
-  const int nq = Tq_pad / kBlockM;
-  const int nk = Tk_pad / kBlockK;
+  const int nq = (Tq + 63) / 64;
+  const int nk = (Tk + 63) / 64;
   grads<<<dim3(BH, nq > nk ? nq : nk, 2), P::kThreads, P::kSmem, stream>>>(m,
                                                                            p);
   return cudaGetLastError();
@@ -936,24 +917,27 @@ int launch(const Tensors& t, const int32_t* kv_lens, int B, int H, int Tq,
 
 }  // namespace
 
-// Floats of workspace the backward needs for these sizes (Layout).
+// Floats of workspace the backward needs for these sizes: lse2 and delta,
+// each [B*H, Tq rounded up to 128].
 extern "C" long long flash_attn_bwd_f32_workspace(int B, int H, int Tq, int Tk,
                                                   int D) {
-  return Layout(B * H, round_up(Tq, kRowPad), round_up(Tk, kRowPad), D)
-      .floats();
+  (void)Tk;
+  (void)D;
+  return 2LL * B * H * sm90::round_up(Tq, kRowPad);
 }
 
 // Strides are in elements, for the b, t and h dims of each [B, T, H, D]
-// float32 tensor (the D stride must be 1; q, k, v, o and dO are read with
-// plain loads through any strides; dq, dk and dv written with 8-byte
-// stores, their bases 8-byte aligned). lse: the forward's float32
-// [B, H, Tq], contiguous. kv_lens: int32 [B] on the device, or null for
-// "all Tk keys valid". workspace: flash_attn_bwd_f32_workspace(B, H, Tq,
-// Tk, D) floats on the device, 16-byte aligned. Launches the pre-pass and
-// the kernel on `stream`, in that order. Returns 0 when both were
-// launched, a cudaError_t value if a launch failed, -1 if the TMA unit
-// refused the workspace's layout, -2 if libcuda has no
-// cuTensorMapEncodeTiled.
+// float32 tensor (the D stride must be 1; q, k, v and dO are read by TMA,
+// so their bases and b, t, h strides must be multiples of 16 bytes; o is
+// read in 16-byte words, so its base and strides too; dq, dk and dv are
+// written with 8-byte stores, their bases 8-byte aligned). lse: the
+// forward's float32 [B, H, Tq], contiguous. kv_lens: int32 [B] on the
+// device, or null for "all Tk keys valid". workspace:
+// flash_attn_bwd_f32_workspace(B, H, Tq, Tk, D) floats on the device,
+// 16-byte aligned. Launches the pre-pass and the kernel on `stream`, in
+// that order. Returns 0 when both were launched, a cudaError_t value if a
+// launch failed, -1 if the TMA unit refused the layout of q, k, v or dO,
+// -2 if libcuda has no cuTensorMapEncodeTiled.
 extern "C" int flash_attn_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
@@ -966,8 +950,8 @@ extern "C" int flash_attn_bwd_f32(
     long long dv_sb, long long dv_st, long long dv_sh, int causal,
     int q_start, float sm_scale, void* stream, void* workspace) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535 ||
-      round_up(Tk, kRowPad) / kBlockK > 65535 ||
-      round_up(Tq, kRowPad) / kBlockM > 65535)
+      sm90::round_up(Tq, kRowPad) / 64 > 65535 ||
+      sm90::round_up(Tk, kRowPad) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const Tensors t{static_cast<const float*>(q),    static_cast<const float*>(k),
                   static_cast<const float*>(v),    static_cast<const float*>(o),

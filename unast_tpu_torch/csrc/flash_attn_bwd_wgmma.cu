@@ -179,19 +179,6 @@ __device__ __forceinline__ int kv_len_of(const Params& p, int b) {
   return p.kv_lens == nullptr ? p.Tk : min(max(p.kv_lens[b], 0), p.Tk);
 }
 
-// Ring barriers full[w][s] (warpgroup w's loads of stage s), n of them,
-// then one for the tiles loaded once; each completes on its loader's
-// arrival and bytes.
-__device__ __forceinline__ void init_barriers(uint32_t bar_full, int n,
-                                              uint32_t bar_once) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < n; ++s) mbar_init(bar_full + 8 * s, 1);
-    mbar_init(bar_once, 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-}
-
 // acc [64 x N] = A [64 x D] B[N x D]^T, both K-major tiles in shared memory
 // (A's boxes a_box bytes apart, B's b_box), in k-steps of 16 (32 bytes
 // inside one swizzle row). Issues the wgmmas only: the caller fences,
@@ -244,27 +231,6 @@ __device__ __forceinline__ void fence_frag(uint32_t (&x)[K / 16][4]) {
   for (int t = 0; t < K / 16; ++t) fence_frag_step(x[t]);
 }
 
-// Sets masked scores of an accumulator [64 rows x N cols] to mask_raw. This
-// thread's element e sits at row row0 + 8 ((e / 2) % 2) and column
-// col_base + 8 (e / 4) + col0 + e % 2 (sm90.cuh). keys_are_rows: the rows
-// are keys and the columns queries (S^T), else the transpose.
-template <int N>
-__device__ __forceinline__ void apply_mask(float (&s)[N / 2], const Params& p,
-                                           int kv_len, int row0,
-                                           int col_base, int col0,
-                                           bool keys_are_rows) {
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) {
-    const int row = row0 + 8 * ((e / 2) % 2);
-    const int col = col_base + 8 * (e / 4) + col0 + (e % 2);
-    const int key = keys_are_rows ? row : col;
-    const int query = keys_are_rows ? col : row;
-    const bool keep =
-        key < kv_len && (!p.causal || key <= query + p.q_start);
-    s[e] = keep ? s[e] : p.mask_raw;
-  }
-}
-
 // Stores rows [r0, r0 + 64) of an accumulator [64 x D] times `scale` as
 // bf16 into x (b, h fixed at x's base), rows >= n not.
 template <int D>
@@ -284,23 +250,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                   acc[4 * j + 2 * r + 1] * scale);
     }
   }
-}
-
-// Partial sums between warpgroups: thread t of one holds the same elements
-// as thread t of another, so element e of thread t sits at buf[e * 128 +
-// t].
-template <int N>
-__device__ __forceinline__ void to_swap(const float (&x)[N], float* buf,
-                                        int t) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) buf[e * 128 + t] = x[e];
-}
-
-template <int N>
-__device__ __forceinline__ void add_swap(float (&x)[N], const float* buf,
-                                         int t) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) x[e] += buf[e * 128 + t];
 }
 
 // s_acc [64 x N] = A0 B0^T and dp_acc [64 x N] = A1 B1^T (mma_abt) once
@@ -482,7 +431,8 @@ __device__ __forceinline__ void dq_block(const CUtensorMap& map_q,
                  b);
     if (kb + kBlockN > kv_len ||
         (p.causal && kb + kBlockN - 1 > p.q_start + q0))
-      apply_mask<kBlockN>(s_acc, p, kv_len, row0, kb, col0, false);
+      apply_mask<kBlockN>(s_acc, kv_len, p.causal, p.q_start, p.mask_raw,
+                          row0, kb, col0, false);
 
     // P = 2^(S c - lse2), then dS = P (dP - delta), per row
 #pragma unroll
@@ -661,7 +611,8 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap& map_q,
                   li - 1 + kStages, first, bh, h, b);
     if (k0 + kBlockN > kv_len ||
         (p.causal && k0 + kBlockN - 1 > qb + p.q_start))
-      apply_mask<BQ>(s_acc, p, kv_len, row0, qb, col0, true);
+      apply_mask<BQ>(s_acc, kv_len, p.causal, p.q_start, p.mask_raw, row0,
+                     qb, col0, true);
 
     // P^T = 2^(S^T c - lse2) per query column, and dV += P^T dO, one
     // k-step (16 query columns) at a time: each step's products start
@@ -779,10 +730,6 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---- host -------------------------------------------------------------------
-
-struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)
-  long long b, t, h;
-};
 
 // Tensor map over the (D, H, T, B) view of a bf16 [B, T, H, D] tensor; a
 // box is kBoxD columns of `rows` positions of one head of one batch row.

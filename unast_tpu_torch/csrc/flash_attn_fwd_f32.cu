@@ -89,22 +89,6 @@ constexpr float kMaskValue = -1e9f;
 constexpr int kErrTensorMap = -1;    // a layout the TMA unit does not take
 constexpr int kErrNoEncoder = -2;    // cuTensorMapEncodeTiled not found
 
-struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)
-  long long b, t, h;
-};
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - hi);
-}
-
-// The key at position p of a group of 8 in the transposed v.
-__device__ __forceinline__ int key_at(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
-
 // Pre-pass: blockIdx.z 0 splits 32 keys of k, 1 splits 32 key positions of
 // v and writes them transposed (through a shared tile, so that both the
 // reads and the writes are coalesced). Element n of a thread is
@@ -215,15 +199,6 @@ struct Plan {
   static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= 228 * 1024 ? 2 : 1;
   static constexpr int kNV = D < 64 ? D : 64;  // columns of one P V wgmma
 };
-
-// Byte offset of byte cb of row r in a tile that TMA would write with the
-// swizzle of kRowBytes-byte rows: the 16-byte chunk index is XORed with
-// r % 8 (128 B) or (r / 2) % 4 (64 B).
-template <int kRowBytes>
-__device__ __forceinline__ uint32_t swizzled(int r, int cb) {
-  const int x = kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
-  return r * kRowBytes + (((cb >> 4) ^ x) << 4) + (cb & 15);
-}
 
 struct Params {
   const float* q;

@@ -315,10 +315,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)
-  long long b, t, h;
-};
-
 // Tensor map over the (D, H, T, B) view of a bf16 [B, T, H, D] tensor; a
 // box is box_d columns of `rows` positions of one head of one batch row.
 template <int D>

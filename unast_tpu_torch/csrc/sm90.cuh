@@ -1,12 +1,15 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory
 // addresses, mbarriers, TMA tensor and bulk loads, warpgroup MMA (wgmma) in
-// bf16 and TF32, and the float conversions around them; on the host, the
-// lookup of libcuda's tensor-map encoder.
+// bf16 and TF32, and the float conversions around them; the small pieces
+// the attention kernels share (strides, the TF32 split and key order, the
+// TMA swizzle, the mask, the warpgroups' partial sums, the ring
+// barriers); on the host, the lookup of
+// libcuda's tensor-map encoder.
 //
-// Each device helper is one PTX instruction or a short fixed sequence,
-// named after it. Header-only, included by the kernels under csrc/ that
-// need it (ops/build.py hashes every file of csrc/, so an edit here
-// rebuilds them).
+// Each PTX helper is one instruction or a short fixed sequence, named
+// after it. Header-only, included by the kernels under csrc/ that need it
+// (ops/build.py hashes every file of csrc/, so an edit here rebuilds
+// them).
 
 #pragma once
 
@@ -49,13 +52,26 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                : "memory");
 }
 
-// Spin until the phase of parity `parity` has completed. A barrier starts
-// in phase 0, so the first completion is waited for with parity 0, the
-// second with 1, and so on alternately. A wait that outlasts 2^26 polls
-// (each try_wait itself blocks for a while: seconds in all, where a real
-// wait takes microseconds) can only be a lost arrival; it traps, so the
-// launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+// mbar_arrive_expect_tx by the threads where `pred` holds, predicated as
+// tma_load_4d_if.
+__device__ __forceinline__ void mbar_arrive_expect_tx_if(bool pred,
+                                                         uint32_t bar,
+                                                         uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed, or give up after
+// 2^26 polls (each try_wait itself blocks for a while: seconds in all,
+// where a real wait takes microseconds), which can only be a lost
+// arrival. A barrier starts in phase 0, so the first completion is waited
+// for with parity 0, the second with 1, and so on alternately. Returns
+// whether the phase completed.
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   uint32_t polls = 0;
   do {
@@ -66,8 +82,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (++polls == (1u << 26)) __trap();
-  } while (!done);
+  } while (!done && ++polls < (1u << 26));
+  return done;
+}
+
+// mbar_try_wait that traps when the phase never completes, so the launch
+// fails with an error instead of hanging the card. (Between a wgmma and
+// its wait, a trap makes ptxas serialize every wgmma of the kernel: there,
+// call mbar_try_wait and trap once the products are done.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (!mbar_try_wait(bar, parity)) __trap();
 }
 
 // Orders this thread's earlier shared-memory writes (generic proxy) before
@@ -99,6 +123,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// tma_load_4d issued only where `pred` holds: a predicated instruction,
+// not a branch. Between a wgmma and its wait, code that ptxas cannot prove
+// uniform over the warpgroup (a branch on the thread's index) makes it
+// serialize every wgmma of the kernel.
+__device__ __forceinline__ void tma_load_4d_if(bool pred, uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1,
+                                               int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"((int)pred)
+      : "memory");
+}
+
 // Copy `bytes` (a multiple of 16) from global `src` to shared memory at
 // `dst`, both 16-byte aligned; completion adds the bytes to `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -107,6 +148,19 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// bulk_load issued only where `pred` holds (predicated, as tma_load_4d_if).
+__device__ __forceinline__ void bulk_load_if(bool pred, uint32_t dst,
+                                             const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar),
+      "r"((int)pred)
       : "memory");
 }
 
@@ -325,21 +379,6 @@ template <int N>
 struct WgmmaTf32RS;
 
 template <>
-struct WgmmaTf32SS<16> {
-  static __device__ __forceinline__ void run(
-      float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "%8, %9, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-  }
-};
-
-template <>
 struct WgmmaTf32SS<32> {
   static __device__ __forceinline__ void run(
       float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
@@ -376,6 +415,21 @@ struct WgmmaTf32SS<64> {
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<8> {
+  static __device__ __forceinline__ void run(
+      float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
   }
 };
 
@@ -455,6 +509,92 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- shared by the attention kernels ----------------------------------------
+
+struct Strides {  // element strides of a [B, T, H, D] tensor (D stride 1)
+  long long b, t, h;
+};
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both to nearest:
+// about 21 bits of x survive in a sum of TF32 products of the parts.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - hi);
+}
+
+// The position held at place p of a group of 8 in the float32 kernels'
+// transposed tiles: [0, 2, 4, 6, 1, 3, 5, 7]. A wgmma accumulator gives a
+// thread columns 2t and 2t + 1 of each group of 8, where the TF32
+// register-A fragment wants t and t + 4; in this order they are the same.
+__device__ __forceinline__ int key_at(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
+
+// Byte offset of byte cb of row r in a tile that TMA would write with the
+// swizzle of kRowBytes-byte rows (128 or 64; the tile 1024-byte aligned):
+// the 16-byte chunk index is XORed with r % 8 (128 B) or (r / 2) % 4
+// (64 B).
+template <int kRowBytes>
+__device__ __forceinline__ uint32_t swizzled(int r, int cb) {
+  const int x = kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
+  return r * kRowBytes + (((cb >> 4) ^ x) << 4) + (cb & 15);
+}
+
+// Sets masked scores of an accumulator [64 rows x N cols] to mask_raw (the
+// mask value before the scale). This thread's element e sits at row
+// row0 + 8 ((e / 2) % 2) and column col_base + 8 (e / 4) + col0 + e % 2.
+// keys_are_rows: the rows are keys and the columns queries (S^T), else
+// the transpose. Key j is kept for query i when j < kv_len and, if
+// causal, j <= i + q_start.
+template <int N>
+__device__ __forceinline__ void apply_mask(float (&s)[N / 2], int kv_len,
+                                           int causal, int q_start,
+                                           float mask_raw, int row0,
+                                           int col_base, int col0,
+                                           bool keys_are_rows) {
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    const int row = row0 + 8 * ((e / 2) % 2);
+    const int col = col_base + 8 * (e / 4) + col0 + (e % 2);
+    const int key = keys_are_rows ? row : col;
+    const int query = keys_are_rows ? col : row;
+    const bool keep = key < kv_len && (!causal || key <= query + q_start);
+    s[e] = keep ? s[e] : mask_raw;
+  }
+}
+
+// Partial sums between warpgroups: thread t of one holds the same elements
+// as thread t of another, so element e of thread t sits at buf[e * 128 +
+// t].
+template <int N>
+__device__ __forceinline__ void to_swap(const float (&x)[N], float* buf,
+                                        int t) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) buf[e * 128 + t] = x[e];
+}
+
+template <int N>
+__device__ __forceinline__ void add_swap(float (&x)[N], const float* buf,
+                                         int t) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) x[e] += buf[e * 128 + t];
+}
+
+// Ring barriers full[0 .. n) (a stage's loads each), then one for the
+// tiles loaded once; each completes on its loader's arrival and bytes.
+// Ends in a block barrier.
+__device__ __forceinline__ void init_barriers(uint32_t bar_full, int n,
+                                              uint32_t bar_once) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n; ++s) mbar_init(bar_full + 8 * s, 1);
+    mbar_init(bar_once, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
 }
 
 // ---- host: the tensor-map encoder -------------------------------------------

@@ -26,9 +26,10 @@ hand-written kernel for q's dtype (`flash_attention_bwd`), each a pre-pass
 and then one launch on wgmma whose blocks form dQ or dK/dV, reading the
 forward's lse instead of recomputing it: bfloat16 inputs go to
 csrc/flash_attn_bwd_wgmma.cu (P and dS split into two bf16 parts), float32
-inputs to csrc/flash_attn_bwd_f32.cu (split TF32: its pre-pass writes
-q, k, v and dO split into two TF32 parts, q, dO and k also transposed,
-into a workspace allocated here). On the CPU it is
+inputs to csrc/flash_attn_bwd_f32.cu (split TF32: the grid reads raw
+float32 tiles of q, k, v and dO by TMA and splits and transposes them in
+shared memory; its pre-pass writes only lse in base 2 and delta). On the
+CPU it is
 `flash_attention_bwd_plain`, the plain torch version, which recomputes lse
 as JAX does.
 """
@@ -173,8 +174,8 @@ def bind_backward(lib_path, name: str):
     `lib_path`, on the current stream: bind's conventions, lse the
     forward's float32 [B, H, Tq], with the workspace
     `<name>_workspace(B, H, Tq, Tk, D)` floats (what the first launch
-    writes for the second: lse in base 2 and delta, and for float32 the
-    split operands). The gradients are new contiguous tensors of q's
+    writes for the second: lse in base 2 and delta). The gradients are
+    new contiguous tensors of q's
     dtype. launch checks no input (flash_attention_bwd
     does) and raises if a launch failed."""
     lib = ctypes.CDLL(str(lib_path))
@@ -269,15 +270,24 @@ def _check(q, k, v, kv_lens, q_start: int = 0):
 
 
 def _tma_refusal(x):
-    """Why the TMA unit cannot read the bfloat16 [B, T, H, D] tensor x
-    (its base address or a b/t/h stride), or None if it can."""
+    """Why the TMA unit cannot read the [B, T, H, D] tensor x (its base
+    address or a b/t/h stride), or None if it can."""
     if x.data_ptr() % 16:
         return "base address is not 16-byte aligned, which TMA needs"
+    size = x.element_size()
     for dim, st in zip("bth", _strides(x)):
-        if (2 * st) % 16 or not 0 < 2 * st < 2 ** 40:
-            return (f"{dim} stride is {2 * st} bytes; TMA needs a positive "
+        if (size * st) % 16 or not 0 < size * st < 2 ** 40:
+            return (f"{dim} stride is {size * st} bytes; TMA needs a positive "
                     "multiple of 16 below 2**40")
     return None
+
+
+def _tma_ready(x):
+    """x, or a dense copy of it where the TMA unit cannot read x (a float32
+    view at an odd offset or stride, an expanded tensor): a layout copy."""
+    if x.stride(3) != 1 or _tma_refusal(x):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def _forward(q, k, v, kv_lens, causal: bool, q_start: int = 0):
@@ -328,11 +338,13 @@ def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, lse, do,
     flash_attention takes them (on the card; bfloat16 TMA-readable,
     checked here; float32 through any strides), o and lse the forward's
     outputs (o contiguous, lse float32 [B, H, Tq] contiguous) and do
-    [B, Tq, H, D] of q's dtype on q's device. A do whose last dim is not
-    contiguous (an expanded gradient with zero strides, as autograd hands
-    over for out.sum()), or in bfloat16 one TMA cannot read (not 16-byte
-    aligned), is first copied to a contiguous tensor: a layout copy, not a
-    fallback. Raises on anything else the kernel does not take."""
+    [B, Tq, H, D] of q's dtype on q's device. Both kernels read q, k, v
+    and dO by TMA: a do whose last dim is not contiguous (an expanded
+    gradient with zero strides, as autograd hands over for out.sum()) or
+    that TMA cannot read (not 16-byte aligned), and in float32 a q, k, v
+    or o that TMA cannot read (a view at an odd offset or stride), is
+    first copied to a dense tensor: a layout copy, not a fallback. Raises
+    on anything else the kernel does not take."""
     if q.device.type != "cuda" or q.dtype not in _BACKWARD_LIBRARY:
         raise ValueError("flash_attention_bwd takes float32 or bfloat16 tensors "
                          f"on the card, got {q.dtype} on {q.device}")
@@ -349,8 +361,9 @@ def flash_attention_bwd(q, k, v, kv_lens, causal: bool, o, lse, do,
         raise ValueError(f"lse must be the forward's contiguous float32 "
                          f"[{b}, {h}, {tq}] on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    if do.stride(3) != 1 or (q.dtype == torch.bfloat16 and _tma_refusal(do)):
-        do = do.contiguous()
+    do = _tma_ready(do)
+    if q.dtype == torch.float32:
+        q, k, v, o = (_tma_ready(x) for x in (q, k, v, o))
     lens = None
     if kv_lens is not None:
         lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
