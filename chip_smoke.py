@@ -194,7 +194,7 @@ Phases (each that fails exits non-zero; nothing is caught):
      compat CLIs round-tripping the flagship checkpoint;
   20. data, tensor, expert, sequence and pipeline parallelism on the one
      card (its worlds
-     are started before phase 15 and run beside phases 15-19): a world of two
+     are started before phase 13 and run beside phases 13-19): a world of two
      processes (this script with --dp-worker) under gloo sharing the H100
      (NCCL refuses two ranks on one device; the device line still says
      count 1), each joined, a failing rank failing the phase: at TINY f32
@@ -210,16 +210,25 @@ Phases (each that fails exits non-zero; nothing is caught):
      optimizer bytes (a tp rank's as the split rule counts them, an sp
      or pp rank's whole), the step's seconds; in every sharded step the
      kernel against its plain version on each q/k/v layout the rank gave
-     it (an sp rank's causal queries at their q_start); then a world of
-     four ranks: TINY dp 2 x tp 2 zero-1 and dp 2 x pp 2 steps against
-     the single-process step;
+     it (an sp rank's causal queries at their q_start); the combinations
+     JAX builds that the port once refused, at TINY f32 against the
+     single-process step: sp = 2 with remat ('' and dots_all), with the
+     dispatch MoE overflowing its capacity, the ragged MoE and the RNN
+     backbone; then configs/wide_d1024.json at sp = 2 (WIDE_SP_BATCH rows,
+     each rank 408 / 152 of the 816 / 304 frames, remat dots_all: the
+     bf16 forward at D 128 with q_start, also in the checkpoint
+     recompute, and the bf16 backward), each rank's seconds, peak and
+     launches as counted, the kernel and the backward kernel against
+     their plain versions on every layout the rank gave them; then a world
+     of four ranks: TINY dp 2 x tp 2 zero-1, dp 2 x pp 2, tp 2 x pp 2,
+     ep 2 x pp 2 and sp 2 x pp 2 steps against the single-process step;
   then one `{"kernels": [...]}` line (both forward routes, with their
      launches on the serve, train, loop, vocoder-serve, RNN, CTC serve,
      speculative, beam, CTC train, hybrid, NAR serve, distill, NAR +
      MelGAN serve, wide step and serve, family step, serve and TINY,
-     export, dp, tp, sp and pp paths; the bf16 backward, with its
-     launches on the train, loop, CTC train, hybrid, distill, wide step,
-     family step, dp, tp, sp and pp paths; the float32 backward, with its
+     export, dp, tp, sp, pp and wide sp paths; the bf16 backward, with
+     its launches on the train, loop, CTC train, hybrid, distill, wide
+     step, family step, dp, tp, sp, pp and wide sp paths; the float32 backward, with its
      launches on the flagship f32 step, the TINY step, the f32 loop, the
      TINY CTC, distill and family checks and the TINY mesh steps; each
      equal to the path's backward calls), a
@@ -346,6 +355,13 @@ FLASH_CASES = [
          q_start=152),
     # phase 17's wide encoder: d 1024 over 8 heads of 128
     Case("wide_encoder_qkv_d128", bf16, 8, 815, 815, 8, 128, False, 47, "qkv"),
+    # phase 20's wide sp = 2 rank: its 408 queries of the 816 frames against
+    # the gathered keys at D 128, causal at the second rank's q_start and
+    # the encoder's
+    Case("wide_sp_self_q408_at408_k816_d128", bf16, 8, 408, 816, 8, 128, True, 81,
+         "cross", q_start=408),
+    Case("wide_sp_encoder_q408_k816_d128", bf16, 8, 408, 816, 8, 128, False, 82,
+         "cross"),
     Case("tiny_asr_encoder_f32", f32, 2, 24, 24, 2, 16, False, 37, "qkv",
          lens=[20, 11]),
     Case("tiny_tts_encoder_f32", f32, 3, 8, 8, 2, 16, False, 38, "qkv",
@@ -383,6 +399,11 @@ BWD_CASES = [
     Case("train_cross_304x816", bf16, 4, 304, 816, 4, 64, False, 43, "cross"),
     Case("train_cross_816x304", bf16, 4, 816, 304, 4, 64, False, 44, "cross"),
     Case("wide_encoder_t816_d128", bf16, 8, 816, 816, 8, 128, False, 48, "qkv"),
+    # the wide sp = 2 rank's layouts at D 128 (phase 20)
+    Case("wide_sp_self_q408_at408_k816_d128", bf16, 8, 408, 816, 8, 128, True, 83,
+         "cross", q_start=408),
+    Case("wide_sp_encoder_q408_k816_d128", bf16, 8, 408, 816, 8, 128, False, 84,
+         "cross"),
     # an sp = 2 rank's causal self-attention and a tp = 2 rank's heads
     # (phase 20's steps)
     Case("sp_self_q408_at408_k816", bf16, 4, 408, 816, 4, 64, True, 58, "cross",
@@ -454,6 +475,10 @@ STREAM_CHUNK = 32
 # margin is above WIDE_ID_MARGIN
 WIDE_CONFIG = os.path.join(ROOT, "configs", "wide_d1024.json")
 WIDE_BATCH = 8
+# phase 20's wide sp = 2 step: the config's batch of 32 cut to 4, so that
+# phase 20, which grows past phase 19's end, keeps the script well inside
+# its limit (at 8 the whole script took 1,022 s)
+WIDE_SP_BATCH = 4
 WIDE_INT8_REL_TOL = 0.1
 WIDE_ID_MARGIN = 0.1
 # the train step's record_function ranges (unast_tpu_torch/train/steps.py)
@@ -772,6 +797,33 @@ def check_recorded_flash(seen: dict) -> list:
             ok = ok and rec["f64_err_over_roundoff_kernel"] <= 1
         rec["ok"] = ok
         recs.append(rec)
+    return recs
+
+
+def check_recorded_backward(seen: dict, seed: int = 0) -> list:
+    """The backward kernel (flash_attention_bwd, from the forward's o and
+    lse) against flash_attention_bwd_plain on each input set that
+    recorded_flash_inputs kept, under an output gradient dO of N(0, 1):
+    each of dQ, dK, dV within 2^-6 (bf16) or 1e-4 (float32) of the plain
+    gradient's largest element, as phase 6 holds autograd's. One record a
+    layout."""
+    from unast_tpu_torch.ops.attention import (flash_attention_bwd,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_fwd)
+    recs = []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for q, k, v, kv_lens, causal, q_start in seen.values():
+        o, lse = flash_attention_fwd(q, k, v, kv_lens, causal, q_start)
+        do = torch.randn(o.shape, device="cuda", generator=gen).to(o.dtype)
+        got = flash_attention_bwd(q, k, v, kv_lens, causal, o, lse, do, q_start)
+        want = flash_attention_bwd_plain(q, k, v, kv_lens, causal, o, do, q_start)
+        rel = 2.0 ** -6 if q.dtype == torch.bfloat16 else 1e-4
+        errs = {n: [float((a.float() - b.float()).abs().max()), float(b.float().abs().max())]
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        recs.append({"dtype": str(q.dtype).replace("torch.", ""), "q": list(q.shape),
+                     "k": list(k.shape), "causal": causal, "q_start": q_start,
+                     "max_abs_err_and_ref": errs, "rel": rel,
+                     "ok": all(e <= rel * top for e, top in errs.values())})
     return recs
 
 
@@ -1113,7 +1165,10 @@ def bf16_backward_paths(loop_run, ctc_run, nar_run, wide_run, families_run, dp_r
         "sp_flagship": (sum(r["flagship"]["sp2"]["backward_launches"] for r in per_rank),
                         "one sp = 2 joint step, both ranks (phase 20)"),
         "pp_flagship": (sum(r["flagship"]["pp2"]["backward_launches"] for r in per_rank),
-                        "one pp = 2 joint step, both ranks (phase 20)")}
+                        "one pp = 2 joint step, both ranks (phase 20)"),
+        "wide_sp": (sum(r["wide_sp2"]["backward_launches"] for r in per_rank),
+                    f"configs/wide_d1024.json joint step at sp = 2, B{WIDE_SP_BATCH}, D 128, "
+                    "both ranks (phase 20)")}
 
 
 def f32_backward_paths(tiny_train, loop_run, ctc_run, nar_run, families_run, dp_run):
@@ -1121,8 +1176,7 @@ def f32_backward_paths(tiny_train, loop_run, ctc_run, nar_run, families_run, dp_
     trains besides phase 8's flagship step: {key: (launches, where)}."""
     mesh = [c for r in dp_run["per_rank"] for c in r["tiny"].values()
             if "backward_launches_f32" in c]
-    mesh4 = [r[k] for r in dp_run["dp2_tp2"]["per_rank"]
-             for k in ("tiny_dp2_tp2_zero1", "tiny_dp2_pp2")]
+    mesh4 = [r[k] for r in dp_run["dp2_tp2"]["per_rank"] for k in MESH4_KEYS]
     return {
         "tiny_train": (tiny_train["backward_launches_f32"],
                        "TINY train step on the card against the CPU (phase 8)"),
@@ -1136,8 +1190,9 @@ def f32_backward_paths(tiny_train, loop_run, ctc_run, nar_run, families_run, dp_
                         "TINY MoE stacks under remat dots_all and scan, their "
                         "gradients on the card (phase 18)"),
         "mesh_tiny": (sum(c["backward_launches_f32"] for c in mesh + mesh4),
-                      "TINY mesh steps (dp zero 0/1/3, MoE dp, tp, ep, sp, pp; dp 2 "
-                      "x tp 2, dp 2 x pp 2), every rank (phase 20)")}
+                      "TINY mesh steps (dp zero 0/1/3, MoE dp, tp, ep, sp, pp, sp "
+                      "with remat, MoE and RNN; dp 2 x tp 2, dp 2 x pp 2, tp 2 x pp "
+                      "2, ep 2 x pp 2, sp 2 x pp 2), every rank (phase 20)")}
 
 
 def train_batches(rng, args, cfg, b, text_len, mel_len, device):
@@ -3260,16 +3315,31 @@ def export_phase(fa, flag_params, flag_state, flag_cfg, ctc_pv, student, melgan_
 DP_RANKS = 2      # phase 20's world
 DPTP_RANKS = 4    # its dp 2 x tp 2 world
 # phase 20's TINY float32 mesh cases: (mesh, config overrides, zero); the
-# MoE case overflows its capacity in groups of 16 tokens that straddle the
-# dp ranks' rows
+# MoE cases overflow their capacity in groups of 16 tokens that straddle
+# the dp ranks' rows, or the sp ranks' frames
+MOE_OVERFLOW = dict(moe_experts=4, moe_capacity_factor=0.5, moe_group_size=16)
 MESH_TINY_CASES = {
-    "moe_dp": ("dp", dict(moe_experts=4, moe_capacity_factor=0.5,
-                          moe_group_size=16), 1),
+    "moe_dp": ("dp", MOE_OVERFLOW, 1),
     "tp": ("tp", {}, 0),
     "ep": ("ep", dict(moe_experts=4, moe_group_size=16), 0),
     "sp": ("sp", {}, 0),
     "pp": ("pp", dict(pp=2), 0),
+    "sp_remat": ("sp", dict(remat=True), 0),
+    "sp_remat_dots_all": ("sp", dict(remat=True, remat_policy="dots_all"), 0),
+    "sp_moe_dispatch": ("sp", MOE_OVERFLOW, 0),
+    "sp_moe_ragged": ("sp", dict(moe_experts=4, moe_impl="ragged"), 0),
+    "sp_rnn": ("sp", dict(model_type="rnn"), 0),
 }
+# the 4-rank world's TINY cases: (make_mesh's dp, tp, sp, ep, pp; config
+# overrides, zero)
+MESH4_CASES = {
+    "tiny_dp2_tp2_zero1": ((2, 2, 1, 1, 1), {}, 1),
+    "tiny_dp2_pp2": ((2, 1, 1, 1, 2), dict(pp=2), 0),
+    "tiny_tp2_pp2": ((1, 2, 1, 1, 2), dict(pp=2), 0),
+    "tiny_ep2_pp2": ((1, 1, 1, 2, 2), dict(pp=2, moe_experts=4, moe_group_size=16), 0),
+    "tiny_sp2_pp2": ((1, 1, 2, 1, 2), dict(pp=2), 0),
+}
+MESH4_KEYS = tuple(MESH4_CASES)
 
 
 def _tiny_ok(c):
@@ -3342,28 +3412,32 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         # and its backward: each call one launch of the float32 kernel
         c["backward_calls"], c["backward_launches_f32"], c["backward_launches_bf16"] = bwd
         c["flash_vs_plain"] = check_recorded_flash(seen)
-        c["ok"] = (_tiny_ok(c) and launches > 0 and bool(c["flash_vs_plain"])
-                   and bwd[0] == bwd[1] > 0 and bwd[2] == 0
-                   and all(r["ok"] for r in c["flash_vs_plain"]))
+        if cfg_t.model_type == "transformer":
+            c["ok"] = (_tiny_ok(c) and launches > 0 and bool(c["flash_vs_plain"])
+                       and bwd[0] == bwd[1] > 0 and bwd[2] == 0
+                       and all(r["ok"] for r in c["flash_vs_plain"]))
+        else:   # the RNN backbone calls no attention kernel
+            c["ok"] = _tiny_ok(c) and launches == 0 and bwd == [0, 0, 0]
         c["opt_state_bytes"] = state_bytes(new.gen_opt) + state_bytes(new.disc_opt)
         c["opt_state_bytes_whole"] = (state_bytes(single[0].gen_opt)
                                       + state_bytes(single[0].disc_opt))
         return c
 
     if world == DPTP_RANKS:
-        # dp 2 x tp 2, zero 1, at TINY: the combinations two ranks cannot
-        # hold (a dp group's tp peers, ZeRO on top of the tp slices)
-        mesh = make_mesh(2, 2)
-        c = tiny_case(mesh, tiny_t, 1, mesh.get_local_rank("dp"))
-        out["tiny_dp2_tp2_zero1"] = c
-        assert c["ok"] and c["opt_state_bytes"] < 0.5 * c["opt_state_bytes_whole"], c
-        # dp 2 x pp 2 (JAX's test_pp_train_step_matches_unsharded layout)
-        t = time.perf_counter()
-        mesh = make_mesh(2, pp=2)
-        c = tiny_case(mesh, tiny_t.replace(pp=2), 0, mesh.get_local_rank("dp"))
-        c["s"] = time.perf_counter() - t
-        out["tiny_dp2_pp2"] = c
-        assert c["ok"], c
+        # at TINY the combinations two ranks cannot hold: dp 2 x tp 2 under
+        # zero 1 (a dp group's tp peers, ZeRO on top of the tp slices), dp 2
+        # x pp 2 (JAX's test_pp_train_step_matches_unsharded layout), and a
+        # pp axis beside tp, ep (the MoE stack unstaged) and sp
+        for name, ((dp_, tp_, sp_, ep_, pp_), over, zero) in MESH4_CASES.items():
+            t = time.perf_counter()
+            mesh = make_mesh(dp_, tp_, sp_, ep_, pp_)
+            c = tiny_case(mesh, tiny_t.replace(**over), zero,
+                          mesh.get_local_rank("dp"))
+            c["s"] = time.perf_counter() - t
+            out[name] = c
+            assert c["ok"], c
+        c = out["tiny_dp2_tp2_zero1"]
+        assert c["opt_state_bytes"] < 0.5 * c["opt_state_bytes_whole"], c
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -3386,8 +3460,9 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
                                rank if m == "dp" else 0)
         tiny[name]["s"] = time.perf_counter() - t
     assert all(c["ok"] for c in tiny.values()), tiny
-    assert rank == 0 or any(r["q_start"] > 0 for r in tiny["sp"]["flash_vs_plain"]), \
-        tiny["sp"]
+    for k in ("sp", "sp_remat", "sp_remat_dots_all", "sp_moe_dispatch"):
+        assert rank == 0 or any(r["q_start"] > 0 for r in tiny[k]["flash_vs_plain"]), \
+            tiny[k]
     assert all(r["q"][2] == tiny_t.nhead // DP_RANKS
                for r in tiny["tp"]["flash_vs_plain"]), tiny["tp"]
     # Synthesizer(mesh=) against the single-process one (3 requests, padded
@@ -3491,6 +3566,7 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
         del new, placed, step
         torch.cuda.empty_cache()
     out["flagship"] = flag
+    out["wide_sp2"] = wide_sp_step(meshes["sp"], rank)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -3499,6 +3575,80 @@ def dp_worker(rank: int, port: str, out_dir: str, world: int = DP_RANKS) -> int:
 
 
 DP_FLAGSHIP_ZEROS = (1, 3)
+
+
+def wide_sp_step(mesh, rank: int) -> dict:
+    """Phase 20's wide step: configs/wide_d1024.json (d 1024, 6 layers, 8
+    heads of 128, ffn 4096, remat dots_all, bf16, flash) at sp = 2, one
+    joint step of WIDE_SP_BATCH rows (the config's 32 cut) at
+    816 / 304, each rank all the rows and its 408 / 152 frames of every
+    sequence, random weights from seed 0 as phase 17's. Counts set to 0
+    just before the step and read just after: the bf16 forward's launches
+    (the checkpoint recompute's included) and the backward's calls and
+    launches against flash_calls_per_step, no float32 launch; the step's
+    seconds and the rank's peak memory; finite metrics, the same on both
+    ranks; the kernel against flash_attention_plain and the backward
+    kernel against flash_attention_bwd_plain on every q/k/v layout the
+    rank gave the kernel (the causal queries at q_start 408 on the second
+    rank)."""
+    import torch.distributed as dist
+    from unast_tpu_torch.models import ModelConfig
+    from unast_tpu_torch.ops import attention
+    from unast_tpu_torch.parallel.mesh import batch_shardings, shard_train_step
+    from unast_tpu_torch.train import init_train_state, make_train_step
+    from unast_tpu_torch.train.config import train_args
+    from unast_tpu_torch.train.steps import flash_calls_per_step, seeded_generator
+    fa = attention.flash_attention
+    cfg = ModelConfig.from_json(WIDE_CONFIG).replace(attn_impl="flash")
+    args = train_args(WIDE_CONFIG, train_batch_size=WIDE_SP_BATCH)
+    assert cfg.remat and cfg.remat_policy == "dots_all" and cfg.head_dim == 128
+    fwd, bwd = flash_calls_per_step(cfg, args, rows=WIDE_SP_BATCH)
+    batches = train_batches(np.random.default_rng(0), args, cfg, WIDE_SP_BATCH,
+                            args.data_text_len, args.data_mel_len, "cuda")
+    ts = init_train_state(torch.Generator().manual_seed(0), cfg, args, "cuda")
+    step, placed = shard_train_step(make_train_step(cfg, args), mesh, ts)
+    del ts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(fa)
+    bwd0 = fa.backward_calls
+    seen = {}
+    dist.barrier()
+    t = time.perf_counter()
+    with recorded_flash_inputs(seen):
+        new, met = step(placed, seeded_generator(0, 0, "cuda"),
+                        batch_shardings(mesh, batches))
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t, "rows": WIDE_SP_BATCH, "config_rows": 32,
+           "d_model": cfg.e_in, "layers": cfg.num_layers, "heads": cfg.nhead,
+           "head_dim": cfg.head_dim, "ffn": cfg.ffn_dim, "remat_policy": cfg.remat_policy,
+           "frames_text_mel": [-(-n // 2) for n in (args.data_text_len, args.data_mel_len)],
+           "flash_counted": [fwd, bwd],
+           "flash_launches_bf16": fa.launches_bf16, "flash_launches_f32": fa.launches_f32,
+           "backward_calls": fa.backward_calls - bwd0,
+           "backward_launches": fa.backward_launches, **bwd_launches(fa),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "metrics": {k: float(v) for k, v in met.items()}}
+    del new, placed, step, batches
+    torch.cuda.empty_cache()
+    rec["flash_vs_plain"] = check_recorded_flash(seen)
+    rec["backward_vs_plain"] = check_recorded_backward(seen, seed=rank)
+    del seen
+    torch.cuda.empty_cache()
+    assert all(np.isfinite(v) for v in rec["metrics"].values()), rec
+    assert (rec["flash_launches_bf16"], rec["flash_launches_f32"], rec["backward_calls"],
+            rec["backward_launches"], rec["backward_launches_bf16"],
+            rec["backward_launches_f32"]) == (fwd, 0, bwd, bwd, bwd, 0), (rec, fwd, bwd)
+    local = {-(-n // 2) for n in (args.data_text_len, args.data_mel_len,
+                                  cfg.max_text_len, cfg.max_mel_len)}
+    assert all(r["ok"] and r["q"][1] in local and r["q"][3] == 128
+               for r in rec["flash_vs_plain"]), rec["flash_vs_plain"]
+    assert rec["backward_vs_plain"] and all(r["ok"] for r in rec["backward_vs_plain"]), \
+        rec["backward_vs_plain"]
+    assert rank == 0 or any(r["causal"] and r["q_start"] == 408
+                            for r in rec["flash_vs_plain"]), rec["flash_vs_plain"]
+    return rec
 
 
 def split_bytes(tree, tp: int) -> int:
@@ -3571,9 +3721,12 @@ def dp_phase():
     step's seconds. Every sharded step also holds the kernel against
     flash_attention_plain on each q/k/v layout it gave the kernel on that
     rank (recorded_flash_inputs: the fused views of the rank's heads, an
-    sp rank's queries at their q_start). Then a world of four ranks: a
-    dp 2 x tp 2 zero-1 and a dp 2 x pp 2 step at TINY against the
-    single-process step."""
+    sp rank's queries at their q_start). The TINY sp = 2 steps with remat
+    ('' and dots_all), the overflowing dispatch MoE, the ragged MoE and
+    the RNN backbone; then configs/wide_d1024.json at sp = 2
+    (wide_sp_step, WIDE_SP_BATCH rows). Then a world of four ranks: dp 2 x tp 2 zero-1, dp 2
+    x pp 2, tp 2 x pp 2, ep 2 x pp 2 and sp 2 x pp 2 steps at TINY
+    against the single-process step (MESH4_CASES)."""
     t_phase = time.perf_counter()
     ranks = _world(DP_RANKS)
     t_four = time.perf_counter()
@@ -3885,6 +4038,11 @@ def main() -> int:
     vocoder_run, vocoder_pv = vocoder_phase(fa, params, state, cfg)
     print(json.dumps({"phase": 12, "s": vocoder_run["phase_s"]}), flush=True)
     phase_ends.append((12, time.perf_counter()))
+    # 20. (started here) data, tensor, expert, sequence and pipeline
+    # parallelism: its worlds are processes of their own with their own
+    # counts, and run beside phases 13-19, which keep the main process
+    dp_pool = concurrent.futures.ThreadPoolExecutor(1)
+    dp_future = dp_pool.submit(dp_phase)
     # 13.-14. data prepared on the card into shards, then the CTC family
     # trained on them and served at flagship width
     with tempfile.TemporaryDirectory() as data_root:
@@ -3894,11 +4052,6 @@ def main() -> int:
         ctc_run, ctc_pv = ctc_phase(fa, params, state, cfg, data_root)
         print(json.dumps({"phase": 14, "s": ctc_run["phase_s"]}), flush=True)
         phase_ends.append((14, time.perf_counter()))
-        # 20. (started here) data, tensor, expert, sequence and pipeline
-        # parallelism: its worlds are processes of their own with their own
-        # counts, and run beside phases 15-19, which keep the main process
-        dp_pool = concurrent.futures.ThreadPoolExecutor(1)
-        dp_future = dp_pool.submit(dp_phase)
         # 15.-16. the one-pass families: FastSpeech distilled and served,
         # then the neural vocoders trained on the shards and served behind it
         nar_run, student = fastspeech_phase(fa, params, state, cfg, data_root)
@@ -4044,6 +4197,7 @@ def main() -> int:
         tp_flag = [r["flagship"]["tp2"] for r in dp_run["per_rank"]]
         sp_flag = [r["flagship"]["sp2"] for r in dp_run["per_rank"]]
         pp_flag = [r["flagship"]["pp2"] for r in dp_run["per_rank"]]
+        wide_sp = [r["wide_sp2"] for r in dp_run["per_rank"]]
         slice10_counts = {
             "launches_export": sum(c[key] for c in ex_calls.values()),
             "launches_export_counted_on":
@@ -4079,7 +4233,15 @@ def main() -> int:
                 "one pp = 2 joint step at flagship width, each rank its stage's "
                 "2 of the 4 layers of every pipelined stack on 4 micro-batches "
                 "of 1 row, the guided-attention decoders whole, bf16 (phase 20; "
-                "the TINY float32 sp, pp and dp x pp checks are not counted)"}
+                "the TINY float32 sp, pp and dp x pp checks are not counted)",
+            "launches_wide_sp_per_rank": [r[f"flash_{key}"] for r in wide_sp],
+            "bwd_calls_wide_sp_per_rank": [
+                r["backward_calls"] if dtype == "bfloat16" else 0 for r in wide_sp],
+            "launches_wide_sp_counted_on":
+                f"one configs/wide_d1024.json joint step at sp = 2, B{WIDE_SP_BATCH} "
+                "(the config's 32 cut), each rank 408 / 152 of the 816 / 304 "
+                "frames, remat dots_all (the recompute's launches included), "
+                "D 128, bf16 (phase 20)"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"unast_tpu_torch/csrc/{source}",

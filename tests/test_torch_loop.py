@@ -226,21 +226,23 @@ def test_unported_runtime_options_raise(monkeypatch, flags, env, match):
     taken: --dp 2, --tp 2 and --sp 2 under a 2-process launch (WORLD_SIZE
     2), --ep 4 with 4 experts under a 4-process one, and --zero 1 pass; a
     launch whose world is not dp x tp x ep x sp, a tp that does not divide
-    the heads, an ep that does not divide the experts, an sp over MoE
-    layers, and a JAX launcher's coordinator raise ValueError
-    (tests/test_torch_parallel.py and tests/test_torch_sp_pp.py run the
-    2-rank steps)."""
+    the heads, an ep that does not divide the experts and a JAX launcher's
+    coordinator raise ValueError, while an sp over MoE layers (as JAX
+    builds it) is taken (tests/test_torch_parallel.py and tests/
+    test_torch_sp_pp.py run the 2-rank steps)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     args = TC.parse_with_config(flags)
     if match != "multihost":
         assert TC.apply_runtime_flags(args) is None
-        if match in ("--tp 2", "--ep 4", "--sp 2"):   # the axis must fit the model
+        if match in ("--tp 2", "--ep 4"):   # the axis must fit the model
             bad = TC.parse_with_config(flags + {
-                "--tp 2": ["--nhead", "3"], "--ep 4": ["--moe_experts", "6"],
-                "--sp 2": ["--moe_experts", "4"]}[match])
-            with pytest.raises(ValueError, match="must divide|not with moe"):
+                "--tp 2": ["--nhead", "3"], "--ep 4": ["--moe_experts", "6"]}[match])
+            with pytest.raises(ValueError, match="must divide"):
                 TC.apply_runtime_flags(bad)
+        if match == "--sp 2":   # sp takes MoE layers, as JAX's mesh does
+            moe = TC.parse_with_config(flags + ["--moe_experts", "4"])
+            assert TC.apply_runtime_flags(moe) is None
     else:
         with pytest.raises(ValueError, match=match):
             TC.apply_runtime_flags(args)

@@ -4,9 +4,11 @@ the JAX package, at TINY on the CPU.
 
 One module fixture starts a 2-rank gloo world once
 (tests/torch_parallel_worker.py in its sp_pp mode, which imports only torch
-and the port); each rank runs every case and writes its records. The JAX
-sides come from tests/goldens/torch_sp_pp.npz (tests/torch_sp_pp_golden.py):
-its GPipe step without a mesh and its pipeline_encoder over two devices.
+and the port); each rank runs every case and writes its records. Another
+starts a 4-rank world (the worker's pp4 mode) for a pp axis beside tp, ep
+or sp. The JAX sides come from tests/goldens/torch_sp_pp.npz (tests/
+torch_sp_pp_golden.py): its GPipe step without a mesh and its
+pipeline_encoder over two devices.
 """
 
 import os
@@ -37,22 +39,33 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """The two ranks' records ({'rank0': ..., 'rank1': ...}); both ranks
-    are joined and must exit 0."""
-    out = tmp_path_factory.mktemp("sp_pp")
+def _start_world(tmp_path_factory, mode: str, n: int) -> dict:
+    """The n ranks' records of the worker's `mode` ({'rank0': ...}); every
+    rank is joined and must exit 0."""
+    out = tmp_path_factory.mktemp(mode)
     port = str(_free_port())
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, str(HERE / "torch_parallel_worker.py"),
-                               str(r), port, str(out), "sp_pp"], env=env,
+                               str(r), port, str(out), mode], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in (0, 1)]
+             for r in range(n)]
     logs = [p.communicate(timeout=600)[0].decode() for p in procs]
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
     return {f"rank{r}": torch.load(out / f"rank{r}.pt", weights_only=False)
-            for r in (0, 1)}
+            for r in range(n)}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The 2-rank world's records."""
+    return _start_world(tmp_path_factory, "sp_pp", 2)
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    """The 4-rank world's records (a pp axis with tp, ep or sp)."""
+    return _start_world(tmp_path_factory, "pp4", 4)
 
 
 @pytest.mark.parametrize("q_start", [3, 8])
@@ -82,7 +95,8 @@ def test_flash_plain_q_start_is_a_slice_of_causal(q_start):
     np.testing.assert_allclose(pv.numpy(), dv.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["flash", "train_mode"])
+@pytest.mark.parametrize("case", ["flash", "train_mode", "remat", "remat_dots_all",
+                                  "moe_dispatch", "moe_ragged", "rnn"])
 def test_sp_steps_match_single_process(world, case):
     """An sp = 2 joint step (each rank half of every sequence's frames
     through the prenets, stacks and postnets; K and V gathered, the convs'
@@ -94,7 +108,17 @@ def test_sp_steps_match_single_process(world, case):
     dropout draws the whole sequence's mask from the stream both ranks
     share), the conformer speech encoder and odd lengths (11 tokens, 19
     frames, cm's decodes 15 and 23: the last rank's padding frame kept out
-    of the means, the BatchNorm statistics, the halos and the keys)."""
+    of the means, the BatchNorm statistics, the halos and the keys).
+    The combinations the port once refused, each within the same
+    tolerances: remat in train mode (the same conformer and odd lengths:
+    each checkpointed layer's recompute gathers, exchanges halos, takes
+    BatchNorm's statistics and draws dropout inside the region it ran in)
+    and remat_policy dots_all with flash; the MoE dispatch route (E 4,
+    groups of 16, capacity factor 0.5: tokens overflow, and the groups of
+    JAX's flat row-then-frame order straddle the ranks' frames) and the
+    ragged one on odd lengths (the padding frame takes no capacity and no
+    aux mass); and the RNN backbone in train mode, its recurrences
+    replicated over sp."""
     mine, ref, old = _mesh_case(world, f"sp/{case}")
     _compare_steps(mine, ref, train_args(PG.CONFIG).lr, old, 1e-6)
 
@@ -111,6 +135,39 @@ def test_pp_steps_match_single_process(world, case):
     mask from its folded generator."""
     mine, ref, old = _mesh_case(world, f"pp/{case}")
     _compare_steps(mine, ref, train_args(PG.CONFIG).lr, old, 1e-6)
+
+
+@pytest.mark.parametrize("case", ["tp_pp", "ep_pp", "sp_pp"])
+def test_pp_axis_with_model_splits(world4, case):
+    """A pp = 2 axis beside tp = 2 (each stage's layers split over its tp
+    pair: the tp all-reduces among the ranks of one pp coordinate, the
+    hops between ranks of one tp coordinate, the pipeline's all-reduce
+    over pp summing the same tp slices), beside ep = 2 (the MoE stacks
+    unstaged, their experts over ep) and beside sp = 2 (each stage on its
+    sp rank's frames, odd lengths: the micro-batches hop as the rank's
+    frames and gather K and V among the stage's sp pair), each a step of
+    the 4-rank world against the single-process step with cfg.pp = 2 at
+    the sp test's tolerances, every dropout at 0."""
+    mine, ref, old = _mesh_case(world4, f"pp4/{case}")
+    _compare_steps(mine, ref, train_args(PG.CONFIG).lr, old, 1e-6)
+    for rank in world4.values():
+        got, want = rank[f"pp4/{case}/bwd"]
+        assert got == want, (case, got, want)
+
+
+def test_remat_recompute_inside_region(world):
+    """A checkpointed encoder layer (transformer._ckpt, dropout 0.3 drawn
+    from one generator) inside an sp = 2 region of T = 7 (the last rank's
+    fourth frame padding) has the gradients of the same layer unchecked,
+    x's and every param's, within 1e-6 of a scale above 0.1 on both ranks:
+    its recompute, in the backward after the region was left, re-enters
+    the region (collectives.snapshot / restored) and gathers K and V,
+    offsets nothing and draws the whole sequence's masks as the forward
+    did."""
+    for rank in world.values():
+        r = rank["remat_in_region"]
+        assert "error" not in r, r
+        assert r["scale"] > 0.1 and r["err"] < 1e-6, r
 
 
 def test_pp_step_matches_sequential_stack(world):
@@ -205,23 +262,43 @@ def test_make_mesh_matches_jax_layout(world):
 
 
 def test_sp_pp_refusals():
-    """What sp and pp do not run raises ValueError: sp over MoE layers,
-    remat, the RNN backbone or a pp axis; a pp axis that is not cfg.pp,
-    does not divide the layers, or meets tp; a family step on an sp or pp
-    mesh (JAX shards those over dp and tp only)."""
-    from unast_tpu_torch.models import TINY
+    """check_mesh refuses what JAX refuses (ValueError): tp not dividing
+    nhead or ffn_dim, ep not dividing moe_experts, a pp axis that is not
+    cfg.pp or does not divide the layers; a family step on an sp or pp
+    mesh (JAX shards those over dp and tp only). It takes the
+    combinations JAX builds: sp with MoE, remat, the RNN backbone or a pp
+    axis, a pp axis with tp or ep, and configs/wide_d1024.json (remat
+    under dots_all) at sp = 2, as the loop's flags check it."""
+    from unast_tpu_torch.models import TINY, ModelConfig
     from unast_tpu_torch.parallel import mesh as PM
+    from unast_tpu_torch.train.config import apply_runtime_flags
 
-    for cfg, axes in ((TINY.replace(moe_experts=4), dict(sp=2)),
-                      (TINY.replace(remat=True), dict(sp=2)),
-                      (TINY.replace(model_type="rnn"), dict(sp=2)),
-                      (TINY.replace(pp=2), dict(sp=2, pp=2)),
+    for cfg, axes in ((TINY, dict(tp=3)),
+                      (TINY.replace(moe_experts=4), dict(ep=3)),
                       (TINY, dict(pp=2)),
-                      (TINY.replace(pp=2), dict(tp=2, pp=2))):
+                      (TINY.replace(pp=2), dict(pp=4)),
+                      (TINY.replace(pp=3, num_layers=2), dict(pp=3))):
         with pytest.raises(ValueError):
             PM.check_mesh(cfg, **axes)
-    PM.check_mesh(TINY.replace(pp=2), pp=2)
-    PM.check_mesh(TINY, sp=2)
+    for cfg, axes in ((TINY.replace(moe_experts=4), dict(sp=2)),
+                      (TINY.replace(remat=True, remat_policy="dots_all"), dict(sp=2)),
+                      (TINY.replace(model_type="rnn"), dict(sp=2)),
+                      (TINY.replace(pp=2), dict(sp=2, pp=2)),
+                      (TINY.replace(pp=2), dict(tp=2, pp=2)),
+                      (TINY.replace(pp=2, moe_experts=4), dict(ep=2, pp=2)),
+                      (TINY.replace(pp=2), dict(pp=2)),
+                      (TINY, dict(sp=2))):
+        PM.check_mesh(cfg, **axes)
+    wide = str(HERE.parent / "configs" / "wide_d1024.json")
+    assert ModelConfig.from_json(wide).remat
+    os.environ["WORLD_SIZE"], prev = "2", os.environ.get("WORLD_SIZE")
+    try:
+        apply_runtime_flags(train_args(wide, sp=2))
+    finally:
+        if prev is None:
+            del os.environ["WORLD_SIZE"]
+        else:
+            os.environ["WORLD_SIZE"] = prev
 
     class Mesh:   # what shard_family_step reads of a DeviceMesh
         mesh_dim_names = ("dp", "tp", "sp")

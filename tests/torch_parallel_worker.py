@@ -1,7 +1,7 @@
 """One rank of the 2-process gloo world of tests/test_torch_parallel.py,
 or, with the mode `sp_pp`, of tests/test_torch_sp_pp.py's.
 
-    python tests/torch_parallel_worker.py RANK PORT OUT_DIR [sp_pp]
+    python tests/torch_parallel_worker.py RANK PORT OUT_DIR [sp_pp|pp4]
 
 Imports only torch and the port. Both ranks run every case of the port's
 data parallelism at TINY and write their records to OUT_DIR/rank<R>.pt:
@@ -12,8 +12,8 @@ placed again; the collectives and the speech decode's global stop test;
 HostShardedDataset's shards; Synthesizer(mesh=), also with
 nar_pv, melgan_params, ctc_pv and quantize='int8', and on rank 0 the
 single-process Synthesizer while rank 1 takes the single-process step on
-the whole batch. The sp_pp mode runs sp_pp_cases instead. Exit code 0
-when every case ran.
+the whole batch. The sp_pp mode runs sp_pp_cases instead, and the pp4
+mode (a world of 4 ranks) pp4_cases. Exit code 0 when every case ran.
 """
 
 import os
@@ -29,8 +29,9 @@ import torch
 import torch.distributed as dist
 
 torch.set_num_threads(1)
+WORLD = 4 if MODE == "pp4" else 2
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{PORT}",
-                        world_size=2, rank=RANK)
+                        world_size=WORLD, rank=RANK)
 
 import torch_parallel_golden as PG
 from unast_tpu_torch.models import TINY, unast_init
@@ -42,7 +43,7 @@ from unast_tpu_torch.train import steps as TS
 from unast_tpu_torch.train.config import train_args
 from unast_tpu_torch.train.optim import tree_paths
 
-mesh = make_mesh(2)
+mesh = make_mesh(WORLD)
 out = {}
 
 
@@ -193,43 +194,24 @@ def record(key, ts, metrics):
                 "gen_mu": moment(ts.gen_opt), "disc_mu": moment(ts.disc_opt)}
 
 
-def sp_pp_cases():
-    """The sequence- and pipeline-parallel cases at TINY, each a sharded
-    step from the same weights on both ranks against the single-process
-    step (case i's records written by rank i % 2, which takes its
-    reference once every sharded step has ran): sp = 2 with flash, and in
-    train mode on the xla route with the conformer on odd lengths (padded
-    frames: 11 tokens, 19 frames, cm decoding 15 and 23); pp = 2 with
-    flash and in train mode (ae, sp and d without guided attention, so
-    that every decoder pipelines), against the one-process schedule (cfg.pp 2)
-    and, for flash, the sequential stack too; the flash backward calls of
-    each rank. Then the halo convs and BatchNorm on an odd T against the
-    unsplit ops, pipeline_encoder on the golden's case, and the meshes'
-    coordinates."""
+def _rebuild_paths(tree, leaves, path=""):
+    """tree (of dicts) with each tensor leaf replaced by leaves[its
+    tree_paths key]."""
+    if isinstance(tree, dict):
+        return {k: _rebuild_paths(v, leaves, f"{path}{k}/") for k, v in tree.items()}
+    return leaves[path.rstrip("/")]
+
+
+def run_cases(cases, meshes):
+    """Each case (name: (mesh, config overrides, every dropout at 0, args
+    overrides, batches)) a sharded step from the same weights on every
+    rank (the whole state recorded), and its flash backward calls; case
+    i's records are written by rank i % WORLD, which takes its
+    single-process reference once every sharded step has run (pp/flash
+    also the sequential stack's)."""
     import contextlib
 
-    import torch_sp_pp_golden as SG
-    from unast_tpu_torch import nn as tnn
-    from unast_tpu_torch.models import conformer as CF
     from unast_tpu_torch.ops import attention as A
-    from unast_tpu_torch.parallel import collectives as C
-    from unast_tpu_torch.parallel import pipeline as PL
-    from unast_tpu_torch.parallel.mesh import mesh_axis
-    meshes = {"sp": make_mesh(1, sp=2), "pp": make_mesh(1, pp=2)}
-    base = {k: tuple(torch.from_numpy(a).long() if a.dtype == np.int32
-                     else torch.from_numpy(a) for a in v)
-            for k, v in PG.batches_np().items()}
-    odd = {k: (t[..., :11], m[..., :19, :], tl.clamp(max=11), ml.clamp(max=19))
-           for k, (t, m, tl, ml) in base.items()}
-    cases = {   # name: (mesh, config overrides, every dropout at 0, args, batches)
-        "sp/flash": ("sp", {}, True, {}, base),
-        "sp/train_mode": ("sp", dict(attn_impl="xla", speech_encoder="conformer"),
-                          False, dict(cm_infer_mel_len=23, cm_infer_text_len=15), odd),
-        "pp/flash": ("pp", dict(pp=2), True, {}, base),
-        "pp/train_mode": ("pp", dict(attn_impl="xla", pp=2), False,
-                          dict(cm_steps=0, ga_weight=0.0),
-                          {k: v for k, v in base.items() if k != "cm"}),
-    }
     refs = []
     for i, (name, (m, over, zero_drop, aover, b)) in enumerate(cases.items()):
         c = (TINY.replace(**PG.model_overrides(), **over) if zero_drop
@@ -245,10 +227,11 @@ def sp_pp_cases():
             new, metrics = step(placed, TS.seeded_generator(0, 0, "cpu"),
                                 batch_shardings(meshes[m], b))
             bwd = A.flash_attention.backward_calls - bwd
+            whole = step.plan.whole(new)
         out[f"{name}/bwd"] = (bwd, TS.flash_calls_per_step(
-            c, args, rows=PG.B, staged=m == "pp")[1] if c.attn_impl == "flash" else 0)
-        if RANK == i % 2:
-            record(f"{name}/mesh", new, metrics)
+            c, args, rows=PG.B, staged="pp" in m)[1] if c.attn_impl == "flash" else 0)
+        if RANK == i % WORLD:
+            record(f"{name}/mesh", whole, metrics)
             out[f"{name}/init"] = flat(start.params)
             refs.append((name, c, args, start, fixed, b))
     for name, c, args, start, fixed, b in refs:
@@ -262,6 +245,118 @@ def sp_pp_cases():
                     TS.train_state(*unast_init(torch.Generator().manual_seed(0), c1),
                                    c1, args), TS.seeded_generator(0, 0, "cpu"), b)
                 record(f"{name}/sequential", seq, qm)
+
+
+def base_batches():
+    """PG's batches as tensors, and their odd-length cut (11 tokens, 19
+    frames: the last sp rank holds a padding frame)."""
+    base = {k: tuple(torch.from_numpy(a).long() if a.dtype == np.int32
+                     else torch.from_numpy(a) for a in v)
+            for k, v in PG.batches_np().items()}
+    odd = {k: (t[..., :11], m[..., :19, :], tl.clamp(max=11), ml.clamp(max=19))
+           for k, (t, m, tl, ml) in base.items()}
+    return base, odd
+
+
+def pp4_cases():
+    """The world of 4 ranks: a pp axis of 2 with tp = 2 (each stage's
+    layers split over its tp pair), with ep = 2 (the MoE stack unstaged,
+    its experts over ep) and with sp = 2 (each stage on its sp rank's
+    frames, odd lengths), each against the single-process step with
+    cfg.pp = 2 (every dropout at 0)."""
+    base, odd = base_batches()
+    meshes = {"tp_pp": make_mesh(1, 2, pp=2), "ep_pp": make_mesh(1, 1, ep=2, pp=2),
+              "sp_pp": make_mesh(1, sp=2, pp=2)}
+    run_cases({
+        "pp4/tp_pp": ("tp_pp", dict(pp=2), True, {}, base),
+        "pp4/ep_pp": ("ep_pp", dict(pp=2, moe_experts=4, moe_group_size=16),
+                      True, {}, base),
+        "pp4/sp_pp": ("sp_pp", dict(pp=2), True,
+                      dict(cm_infer_mel_len=23, cm_infer_text_len=15), odd),
+    }, meshes)
+    out["coords"] = {k: meshes[k].get_coordinate() for k in meshes}
+
+
+def sp_pp_cases():
+    """The sequence- and pipeline-parallel cases at TINY, each a sharded
+    step from the same weights on both ranks against the single-process
+    step (case i's records written by rank i % 2, which takes its
+    reference once every sharded step has ran): sp = 2 with flash, and in
+    train mode on the xla route with the conformer on odd lengths (padded
+    frames: 11 tokens, 19 frames, cm decoding 15 and 23); pp = 2 with
+    flash and in train mode (ae, sp and d without guided attention, so
+    that every decoder pipelines), against the one-process schedule (cfg.pp 2)
+    and, for flash, the sequential stack too; the flash backward calls of
+    each rank. Then the halo convs and BatchNorm on an odd T against the
+    unsplit ops, pipeline_encoder on the golden's case, and the meshes'
+    coordinates."""
+    import torch_sp_pp_golden as SG
+    from unast_tpu_torch import nn as tnn
+    from unast_tpu_torch.models import conformer as CF
+    from unast_tpu_torch.parallel import collectives as C
+    from unast_tpu_torch.parallel import pipeline as PL
+    from unast_tpu_torch.parallel.mesh import mesh_axis
+    meshes = {"sp": make_mesh(1, sp=2), "pp": make_mesh(1, pp=2)}
+    base, odd = base_batches()
+    cases = {   # name: (mesh, config overrides, every dropout at 0, args, batches)
+        "sp/flash": ("sp", {}, True, {}, base),
+        "sp/train_mode": ("sp", dict(attn_impl="xla", speech_encoder="conformer"),
+                          False, dict(cm_infer_mel_len=23, cm_infer_text_len=15), odd),
+        "pp/flash": ("pp", dict(pp=2), True, {}, base),
+        "pp/train_mode": ("pp", dict(attn_impl="xla", pp=2), False,
+                          dict(cm_steps=0, ga_weight=0.0),
+                          {k: v for k, v in base.items() if k != "cm"}),
+    }
+    # the combinations JAX builds that the port once refused: sp with
+    # remat (the recompute inside the region: train mode with the
+    # conformer's halos and BatchNorm; flash under dots_all), with MoE
+    # (dispatch overflowing its capacity in groups that straddle the
+    # ranks, ragged) on odd lengths, and with the RNN backbone
+    odd_args = dict(cm_infer_mel_len=23, cm_infer_text_len=15)
+    moe = dict(moe_experts=4, moe_capacity_factor=0.5, moe_group_size=16)
+    cases.update({
+        "sp/remat": ("sp", dict(attn_impl="xla", speech_encoder="conformer",
+                                remat=True), False, odd_args, odd),
+        "sp/remat_dots_all": ("sp", dict(remat=True, remat_policy="dots_all"),
+                              True, {}, base),
+        "sp/moe_dispatch": ("sp", moe, True, odd_args, odd),
+        "sp/moe_ragged": ("sp", dict(moe, moe_impl="ragged"), True, odd_args, odd),
+        "sp/rnn": ("sp", dict(model_type="rnn"), False, odd_args, odd),
+    })
+    run_cases(cases, meshes)
+
+    # a checkpointed layer inside an sp region against the same layer
+    # unchecked: the recompute (in the backward, after the region was
+    # left) must gather K and V and draw dropout as the forward did
+    from unast_tpu_torch.models import transformer as T
+    sp_ax = mesh_axis(meshes["sp"], "sp")
+    g = torch.Generator().manual_seed(7)
+    lp = T.encoder_layer_init(g, 16, 2, 32)
+    xw = torch.randn((2, 7, 16), generator=g)
+    pad = torch.tensor([[False] * 7, [False] * 5 + [True] * 2])
+    w_y = torch.randn((2, 7, 16), generator=g)
+
+    def layer(lp_, x_):   # its generator made inside, as _run_layers' are
+        ctx = tnn.Ctx(generator=torch.Generator().manual_seed(3), train=True)
+        return T.encoder_layer(lp_, ctx, x_, T.padding_bias(pad), 2, 0.3)
+
+    def layer_grads(fn):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in tree_paths(lp).items()}
+        x = xw.clone().requires_grad_(True)
+        with C.mesh_axes(sp=sp_ax, dp_sp=sp_ax.group), C.sequence(7):
+            y = C.gather_time(fn(_rebuild_paths(lp, leaves), C.split_time(x)))
+        loss = (y * w_y).sum() / 2
+        return [C.all_reduce(gr, sp_ax.group) for gr in
+                torch.autograd.grad(loss, [x, *leaves.values()])]
+
+    try:
+        plain, ckpt = layer_grads(layer), layer_grads(T._ckpt(layer, ""))
+        out["remat_in_region"] = {
+            "err": max(float((a - b).abs().max()) for a, b in zip(plain, ckpt)),
+            "scale": max(float(a.abs().max()) for a in plain)}
+    except Exception as e:   # the test reads the failure
+        out["remat_in_region"] = {"error": repr(e)}
 
     # the halo convs, BatchNorm and the depthwise conv on T = 7 (4 frames a
     # rank, one padding) against the unsplit ops; the loss 1/sp a rank,
@@ -310,8 +405,8 @@ def sp_pp_cases():
     out["coords"] = {k: meshes[k].get_coordinate() for k in meshes}
 
 
-if MODE == "sp_pp":
-    sp_pp_cases()
+if MODE in ("sp_pp", "pp4"):
+    sp_pp_cases() if MODE == "sp_pp" else pp4_cases()
     torch.save(out, os.path.join(OUT, f"rank{RANK}.pt"))
     dist.barrier()
     dist.destroy_process_group()

@@ -26,13 +26,16 @@ exactly, with no capacity and no aux loss.
 A bf16 product here is torch's bf16 matmul, which accumulates in float32
 and rounds once, as JAX's preferred_element_type=f32 then astype does.
 
-Under data parallelism the dispatch route groups the GLOBAL batch's tokens,
-as JAX's sharded step does: the router's probabilities and the valid mask
-of every dp rank's rows are gathered (N x E floats, in rank order), the
-groups and the capacity cumsum run over the groups this rank's tokens fall
-in, and the rank keeps its own tokens' outputs. A slot's FFN sees that
-slot alone, so a slot a remote token fills touches no local output, and
-the gradients flow through the local tokens' gates only.
+Under data and sequence parallelism the dispatch route groups the GLOBAL
+batch's tokens in JAX's flat order (row, then frame), as JAX's sharded
+step does: the router's probabilities and the valid mask of every rank's
+tokens are gathered over the reduction group (dp, or dp x sp inside a
+time-split region: N x E floats) and put at their global indices (the
+last sp rank's padding frames are no tokens and are left out), the groups
+and the capacity cumsum run over the groups this rank's tokens fall in,
+and the rank keeps its own tokens' outputs. A slot's FFN sees that slot
+alone, so a slot a remote token fills touches no local output, and the
+gradients flow through the local tokens' gates only.
 
 Expert parallelism (the ep axis, parallel/collectives.py): each ep rank
 holds E / ep experts (the leading axis of lin1 / lin2) and computes them
@@ -46,7 +49,7 @@ router gets its whole gradient on every rank.
 """
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -137,15 +140,19 @@ def _combine(eq: str, gates, y, b2):
     return out + C.reduce_from(bias, "ep")
 
 
-def _expert_ffn(p, ctx: nn.Ctx, h, dropout_p: float, n_experts: int):
+def _expert_ffn(p, ctx: nn.Ctx, h, dropout_p: float, n_experts: int,
+                groups=()):
     """unast_tpu/models/moe.py::_expert_ffn: h [..., E, C, D] dispatched
     tokens -> the same shape, through each expert's relu FFN. Under tp
     (lin1 a column split, lin2 a row split) returns (the partial products
-    without lin2's bias, the bias [E, D]); else (the outputs, None)."""
+    without lin2's bias, the bias [E, D]); else (the outputs, None).
+    groups: nn.dropout's split record of h's leading dims (the groups of
+    the global batch that this rank holds)."""
     w1 = nn.weight(p["lin1"], h.dtype)
     b1 = p["lin1"]["b"].to(h.dtype)
     y = torch.relu(torch.einsum("...ecd,edf->...ecf", h, w1) + b1[..., None, :])
-    y = nn.dropout(ctx, y, dropout_p, split=_splits(-3, -1, y, n_experts))
+    y = nn.dropout(ctx, y, dropout_p,
+                   split=tuple(groups) + _splits(-3, -1, y, n_experts))
     w2 = nn.weight(p["lin2"], h.dtype)
     b2 = p["lin2"]["b"].to(h.dtype)
     out = torch.einsum("...ecf,efd->...ecd", y, w2)
@@ -191,56 +198,106 @@ def moe_ffn(p, ctx: nn.Ctx, x, pad_mask, dropout_p: float, opts=MoeOpts()):
     not count toward the aux loss) or None. T == 1 runs the exact
     dense-combine path; otherwise the dispatch or ragged path per
     opts.impl. Appends the load-balance loss to ctx.aux_losses when it is
-    a list."""
+    a list.
+
+    Inside a time-split region x holds this rank's frames of sequences of
+    T frames and pad_mask is the whole sequences'; the frames past T (the
+    last sp rank's padding) are no tokens of JAX's flat batch: they take
+    no capacity and no aux mass, and give zeros."""
     opts = MoeOpts(*opts)
-    if x.shape[1] == 1:
+    seq = C.seq()
+    t_whole = x.shape[1] if seq is None else seq.whole
+    if t_whole == 1:
         return _moe_dense(p, ctx, x, dropout_p, opts.top_k)
     b, t, d = x.shape
     n = b * t
     xf = x.reshape(n, d)
     probs = _router_probs(p, xf)                       # [N, E] float32
-    valid = (torch.ones((n,), device=x.device) if pad_mask is None
-             else (~pad_mask).reshape(n).float())
+    valid = (torch.ones((b, t_whole), device=x.device) if pad_mask is None
+             else (~pad_mask).float())
+    valid = C.split_time(valid).reshape(n)             # padding frames 0
+    ids = _TokenIds.of(b, t, x.device)
     if opts.impl == "ragged":
-        out, top1_assign = _moe_ragged(p, ctx, xf, probs, valid, dropout_p,
-                                       opts.top_k)
+        out, top1_assign = _moe_ragged(p, ctx, xf, probs, valid, ids,
+                                       dropout_p, opts.top_k)
     else:
-        out, top1_assign = _moe_dispatch(p, ctx, xf, probs, valid, dropout_p,
-                                         opts)
+        out, top1_assign = _moe_dispatch(p, ctx, xf, probs, valid, ids,
+                                         dropout_p, opts)
     if ctx.aux_losses is not None:
-        # over the global batch under data parallelism, each rank's share
+        # over the global batch under data (and sequence) parallelism,
+        # each dp rank's share: an sp rank's loss is scaled by 1 / sp
+        # (train/steps.py::_accumulate) and sum_grad's backward sums the
+        # gradient over dp x sp, so that the dp shares make the whole
         n_valid = torch.clamp(C.total(valid.sum()), min=1.0)
         e = probs.shape[-1]
         frac = C.total(top1_assign.sum(dim=0)) / n_valid          # f_e
         mean_prob = C.sum_grad((probs * valid[:, None]).sum(dim=0)) / n_valid
-        ctx.aux_losses.append(e * (frac * mean_prob).sum() / C.ranks())
+        ctx.aux_losses.append(e * (frac * mean_prob).sum() / C.dp_ranks())
     return out.reshape(b, t, d)
 
 
-def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
-                  opts: MoeOpts):
+class _TokenIds(NamedTuple):
+    """Where this rank's tokens sit in JAX's flat order of the global batch
+    (row b, frame t at b * T + t; dp rank r's rows after those of the
+    ranks before it, an sp rank's frames at its region's offset): `ids`
+    [N] (-1 for an sp rank's padding frames), the global token count, the
+    first and last global index of this rank's tokens (None without one),
+    and `mine`, the positions of this rank's tokens among its N (not
+    padding), known without reading the device."""
+    ids: torch.Tensor
+    total: int
+    first: Optional[int]
+    last: Optional[int]
+    mine: torch.Tensor
+
+    @staticmethod
+    def of(b: int, t: int, device) -> "_TokenIds":
+        seq = C.seq()
+        t_whole, start = (t, 0) if seq is None else (seq.whole, seq.start)
+        row0 = C.rank() * b
+        frames = start + torch.arange(t, device=device)
+        ids = (row0 + torch.arange(b, device=device))[:, None] * t_whole + frames
+        ids = torch.where(frames < t_whole, ids, -1).reshape(-1)
+        inside = max(0, min(t, t_whole - start))   # this rank's frames in T
+        first, last = ((row0 * t_whole + start,
+                        (row0 + b - 1) * t_whole + start + inside - 1)
+                       if inside else (None, None))
+        mine = (torch.arange(b, device=device)[:, None] * t
+                + torch.arange(inside, device=device)).reshape(-1)
+        return _TokenIds(ids, b * t_whole * C.dp_ranks(), first, last, mine)
+
+    def global_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """[total, ...] of the active group's ranks' rows v [N, ...]
+        (without a gradient), each at its global index."""
+        every, at = C.gather_ranks(v.detach()), C.gather_ranks(self.ids)
+        keep = at >= 0
+        out = v.new_zeros((self.total,) + tuple(v.shape[1:]))
+        out[at[keep]] = every[keep]
+        return out
+
+
+def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, ids: _TokenIds,
+                  dropout_p: float, opts: MoeOpts):
     """unast_tpu/models/moe.py::_moe_dispatch: GShard grouped one-hot
     dispatch. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E]).
-    Under data parallelism the groups are those of the global batch's
-    tokens (see the module docstring): the rounds run over the groups
-    [g0, g1) that hold this rank's tokens, the remote tokens of those
-    groups in from the gathered probabilities (without gradients) and out
-    of the expert input (zeros)."""
+    Under data or sequence parallelism the groups are those of the global
+    batch's tokens (see the module docstring): the rounds run over the
+    groups [g0, g1) that hold this rank's tokens, the remote tokens of
+    those groups in from the gathered probabilities (without gradients)
+    and out of the expert input (zeros). The expert hidden's dropout draws
+    the mask of every group and keeps those."""
     n, d = xf.shape
     e = probs.shape[-1]
-    s = _auto_group(n * C.ranks(), opts.group_size)
+    s = _auto_group(ids.total, opts.group_size)
     cap = max(1, int(math.ceil(opts.top_k * s / e * opts.capacity_factor)))
+    g0, g1 = (0, 1) if ids.first is None else (ids.first // s, ids.last // s + 1)
+    g = g1 - g0
+    mine = ids.mine
+    pos = ids.ids[mine] - g0 * s       # this rank's tokens in the groups
     rem = probs * valid[:, None]
-    lo = C.rank() * n                  # this rank's first global token
-    g0, g1 = lo // s, -(-(lo + n) // s)
-    off, g = lo - g0 * s, g1 - g0
-    if C.ranks() > 1:
-        every = C.gather_rows(torch.cat([rem, valid[:, None]], dim=1))
-        ahead, after = every[g0 * s:lo], every[lo + n:g1 * s]
-        rem = torch.cat([ahead[:, :e], rem, after[:, :e]])
-        valid = torch.cat([ahead[:, e], valid, after[:, e]])
-    remaining = rem.reshape(g, s, e)
-    valid_g = valid.reshape(g, s)
+    every = ids.global_rows(torch.cat([rem, valid[:, None]], dim=1))[g0 * s:g1 * s]
+    remaining = every[:, :e].index_copy(0, pos, rem[mine]).reshape(g, s, e)
+    valid_g = every[:, e].reshape(g, s)
     counts = torch.zeros((g, e), device=xf.device)
     rounds = []
     top1_assign = None
@@ -248,7 +305,7 @@ def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
         onehot, gate, disp, counts = _top1_round(remaining, valid_g, counts,
                                                  cap)
         if top1_assign is None:
-            top1_assign = onehot.reshape(g * s, e)[off:off + n]
+            top1_assign = onehot.reshape(g * s, e)[pos]
         rounds.append((gate, disp))
         remaining = remaining * (1.0 - onehot)
     if opts.top_k > 1:  # normalize the selected gates; top-1 keeps the prob
@@ -256,23 +313,48 @@ def _moe_dispatch(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
         rounds = [(gt / denom, disp) for gt, disp in rounds]
     combine = sum(gt[..., None, None] * disp for gt, disp in rounds)
     dispatch = sum(disp for _, disp in rounds)[:, :, _local_experts(e)]
-    xg = C.copy_to(xf, ("tp", "ep"))
-    if g * s != n:   # the remote tokens of this rank's groups: zeros
-        xg = F.pad(xg, (0, 0, off, g * s - off - n))
+    xg = xf.new_zeros((g * s, d)).index_copy(
+        0, pos, C.copy_to(xf, ("tp", "ep"))[mine])   # remote tokens: zeros
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xf.dtype),
                              xg.reshape(g, s, d))
-    expert_out, b2 = _expert_ffn(p, ctx, expert_in, dropout_p, e)
-    out = _combine("gsec,gecd->gsd", combine, expert_out, b2)
-    return out.reshape(g * s, d)[off:off + n], top1_assign
+    expert_out, b2 = _expert_ffn(p, ctx, expert_in, dropout_p, e,
+                                 groups=((0, ids.total // s, g0),))
+    out = _combine("gsec,gecd->gsd", combine, expert_out, b2).reshape(g * s, d)
+    return (xf.new_zeros((n, d)).index_copy(0, mine, out[pos]),
+            probs.new_zeros((n, e)).index_copy(0, mine, top1_assign))
 
 
-def _moe_ragged(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
-                top_k: int):
+def _ragged_rows(ctx: nn.Ctx, dropout_p: float, flat_e, order, lo: int,
+                 hi: int, ids: _TokenIds, top_k: int) -> tuple:
+    """nn.dropout's split record of the expert hidden of the sorted rows
+    order[lo:hi] (this ep rank's experts' runs): under an active reduction
+    group, their rows of the global batch's sorted assignments (a padding
+    frame's, row 0: its gate is 0), so that every rank draws the global
+    mask and keeps its rows; else the slice [lo, hi) of this rank's. ()
+    when nothing is drawn."""
+    if not ctx.train or dropout_p == 0.0:
+        return ()
+    if not C.active():
+        return ((0, len(order), lo),) if hi - lo < len(order) else ()
+    every = ids.global_rows(flat_e.reshape(-1, top_k)).reshape(-1)
+    rank_of = torch.empty_like(every)
+    rank_of[torch.argsort(every, stable=True)] = torch.arange(
+        every.numel(), device=every.device)
+    a = order[lo:hi]
+    tok = ids.ids[a // top_k]
+    rows = torch.where(tok >= 0, rank_of[(tok * top_k + a % top_k).clamp(min=0)], 0)
+    return ((0, every.numel(), rows),)
+
+
+def _moe_ragged(p, ctx: nn.Ctx, xf, probs, valid, ids: _TokenIds,
+                dropout_p: float, top_k: int):
     """unast_tpu/models/moe.py::_moe_ragged: the dropless path. The [N*K]
     assignments sorted by expert (stably, as jnp.argsort) give contiguous
     runs; each projection is one matmul per expert over its run, and the
     gated outputs add back per token. PAD tokens keep a real expert with
-    gate 0. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E])."""
+    gate 0. xf [N, D] -> (out [N, D], top-1 assignment one-hot [N, E]).
+    Each token's output is its own; only the expert hidden's dropout
+    reaches across ranks (_ragged_rows)."""
     n, d = xf.shape
     e = probs.shape[-1]
     vals, idx = _top_k(probs, top_k)                   # [N, K]
@@ -301,8 +383,8 @@ def _moe_ragged(p, ctx: nn.Ctx, xf, probs, valid, dropout_p: float,
             if sizes[ei]] or [(0, 0, 0)]
     h = torch.cat([torch.relu(xs[a:z] @ w1[ei] + b1[ei]) for ei, a, z in runs])
     h = nn.dropout(ctx, h, dropout_p,
-                   split=((((0, len(order), lo),) if hi - lo < len(order) else ())
-                          + C.split_of(h, -1)))
+                   split=_ragged_rows(ctx, dropout_p, flat_e, order, lo, hi,
+                                      ids, top_k) + C.split_of(h, -1))
     split_tp = C.axis_size("tp") > 1
     y = torch.cat([h[a:z] @ w2[ei] + (0 if split_tp else b2[ei])
                    for ei, a, z in runs])

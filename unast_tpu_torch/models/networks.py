@@ -32,6 +32,15 @@ rank's share). So everything outside these functions (the greedy
 decodes, the losses, the discriminator) sees whole sequences, the same
 on every sp rank.
 
+The RNN backbone's encode and decode functions open no time-split
+region: under an sp axis every sp rank runs the whole model on its dp
+rows' whole sequences, which is what GSPMD makes of a lax.scan over a
+time-sharded axis (the recurrence needs every earlier frame, so the scan
+runs replicated). Every reduction there runs over the dp group alone
+(collectives: dp outside a region), the same on each sp rank, and train/
+steps.py's 1 / sp share of each rank's loss makes the gradients summed
+over dp x sp the global batch's.
+
 The RNN text decoder reads its gold inputs through the text prenet's
 CAUSAL convs (once over the sequence), and its greedy decode evaluates the
 same convs incrementally (modules.text_prenet_step), as JAX does. The RNN

@@ -10,6 +10,10 @@ backward direction keeps its zero start through the trailing pads and first
 updates at t = length - 1. Outputs are zeroed at pads. The JAX `lax.scan`
 becomes a Python loop over time; the input half of every gate (x @ wi + b)
 is one product over the whole sequence ahead of the loop.
+
+Under a sequence-parallel axis these recurrences run on whole sequences,
+replicated over the sp ranks, as GSPMD runs JAX's scan over a time-sharded
+axis (models/networks.py).
 """
 
 from typing import NamedTuple, Optional

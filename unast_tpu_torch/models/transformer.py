@@ -278,7 +278,15 @@ def _ckpt(fn, policy: str = ""):
     also those of aten.bmm and aten.baddbmm (the attention products), by
     create_selective_checkpoint_contexts. The flash kernel is no aten op,
     so it runs again in the recompute, as JAX recomputes a pallas_call.
-    With gradients off there is nothing to recompute and fn runs plainly."""
+    With gradients off there is nothing to recompute and fn runs plainly.
+
+    The recompute runs inside the backward, after the forward left its
+    time-split region: fn runs inside the collectives context active when
+    the layer ran (collectives.snapshot / restored), so that the
+    recompute gathers K and V, exchanges halos, takes BatchNorm's
+    statistics and draws dropout over the sp ranks as the forward did
+    (every sp rank recomputes its layers in one order, posting the same
+    collectives)."""
     if policy:
         ops = [getattr(torch.ops.aten, n).default for n in _SAVED_OPS[policy]]
         kw = {"context_fn": functools.partial(
@@ -289,7 +297,13 @@ def _ckpt(fn, policy: str = ""):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        snap = C.snapshot()
+
+        def inside(*a):
+            with C.restored(snap):
+                return fn(*a)
+
+        return checkpoint(inside, *args, use_reentrant=False, **kw)
 
     return run
 

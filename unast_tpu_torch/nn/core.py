@@ -223,7 +223,7 @@ def batchnorm(p, s, x: torch.Tensor, train: bool):
         n = x.numel() // x.shape[-1]
         seq = C.seq()
         if seq is not None:   # this rank's frames of dp x sp's sequences
-            n = x.shape[0] * (C.ranks() // C.axis_size("sp")) * seq.whole
+            n = x.shape[0] * C.dp_ranks() * seq.whole
             w = C.valid_frames(x.device)[:, None].float()
             mean = C.sum_grad((xf * w).sum(dim=dims)) / n
             var = C.sum_grad((((xf - mean) ** 2) * w).sum(dim=dims)) / n
@@ -267,7 +267,9 @@ def dropout(ctx: Ctx, x: torch.Tensor, p: float, split=()) -> torch.Tensor:
     tensor is drawn and x takes its slice, so every rank of the axis
     advances the generator alike and the ranks' masks are those of the
     unsplit tensor. A slice reaching past the whole (the padding frames of
-    the last sequence-parallel rank) keeps those elements."""
+    the last sequence-parallel rank) keeps those elements. A start that is
+    a LongTensor takes those indices of the whole along dim instead (the
+    MoE's rows of the global batch's sorted assignments)."""
     if not ctx.train or p == 0.0:
         return x
     keep = 1.0 - p
@@ -277,6 +279,9 @@ def dropout(ctx: Ctx, x: torch.Tensor, p: float, split=()) -> torch.Tensor:
     mask = torch.rand(shape, generator=ctx.next_rng(),
                       device=x.device) < keep
     for d, n, s in split:
+        if torch.is_tensor(s):
+            mask = mask.index_select(d, s)
+            continue
         over = s + x.shape[d] - n
         if over > 0:
             pad = list(mask.shape)

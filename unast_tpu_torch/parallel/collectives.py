@@ -58,6 +58,12 @@ frames, local = ceil(T / sp); the last rank's frames past T are padding
   so that its mask is the whole sequence's, sliced;
 - `valid_frames()`: which of this rank's frames lie inside T.
 
+A checkpointed layer (models/transformer.py::_ckpt) recomputes its
+forward inside the backward, after its regions were left: `snapshot()`
+takes the active context (groups, axes, regions) when the layer runs and
+`restored(snap)` re-enters it for the recompute, so that it gathers,
+exchanges halos and draws dropout as the forward did.
+
 The pipeline axis ('pp'): `send` and `recv` move a tensor to and from
 another rank (parallel/pipeline.py posts them in one order on every rank
 of the axis, the schedule's), `broadcast` and `all_reduce` over its group.
@@ -106,6 +112,15 @@ def data_parallel(group):
         yield
 
 
+class Snapshot(NamedTuple):
+    """A collectives context: the dp group, the dp x sp group, the axes
+    and the time-split regions (`mesh_axes`, `snapshot`, `restored`)."""
+    group: object
+    dp_sp: object
+    axes: dict
+    seq: tuple
+
+
 @contextlib.contextmanager
 def mesh_axes(dp=None, tp: Optional[Axis] = None, ep: Optional[Axis] = None,
               sp: Optional[Axis] = None, pp: Optional[Axis] = None,
@@ -114,11 +129,26 @@ def mesh_axes(dp=None, tp: Optional[Axis] = None, ep: Optional[Axis] = None,
     reductions, `dp_sp` (the dp x sp group, or None: `dp`) theirs inside a
     time-split region, and `tp`, `ep`, `sp` and `pp` (Axis records, or
     None: size 1) the model-parallel axes for the `with` block."""
+    axes = {k: a for k, a in (("tp", tp), ("ep", ep), ("sp", sp), ("pp", pp))
+            if a is not None and a.size > 1}
+    with restored(Snapshot(dp, dp if dp_sp is None else dp_sp, axes, ())):
+        yield
+
+
+def snapshot() -> Snapshot:
+    """The active collectives context, for `restored` to re-enter later
+    (a checkpointed layer's recompute, which runs inside the backward,
+    after the forward's regions were left)."""
+    return Snapshot(_GROUP, _DP_SP, dict(_AXES), tuple(_SEQ))
+
+
+@contextlib.contextmanager
+def restored(snap: Snapshot):
+    """Enter the collectives context `snap` for the `with` block: its
+    groups, axes and time-split regions, whatever is active now."""
     global _GROUP, _DP_SP, _AXES, _SEQ
     prev = _GROUP, _DP_SP, _AXES, _SEQ
-    _GROUP, _DP_SP, _SEQ = dp, dp if dp_sp is None else dp_sp, []
-    _AXES = {k: a for k, a in (("tp", tp), ("ep", ep), ("sp", sp), ("pp", pp))
-             if a is not None and a.size > 1}
+    _GROUP, _DP_SP, _AXES, _SEQ = snap.group, snap.dp_sp, dict(snap.axes), list(snap.seq)
     try:
         yield
     finally:
@@ -144,6 +174,12 @@ def ranks() -> int:
 def rank() -> int:
     """This rank's coordinate in the active dp group; 0 without one."""
     return 0 if _GROUP is None else dist.get_rank(_GROUP)
+
+
+def dp_ranks() -> int:
+    """The ranks of the active dp group (the sp ranks of a time-split
+    region left out); 1 without one."""
+    return 1 if _GROUP is None else dist.get_world_size(_GROUP)
 
 
 def axis_size(name: str) -> int:
@@ -257,10 +293,11 @@ def any_rank(flag: torch.Tensor) -> bool:
     return bool(all_reduce(flag.reshape(1).to(torch.int32), g)[0] > 0)
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The dp ranks' x joined along dim 0 in rank order (the global
-    batch's rows), without a gradient; x itself without a group."""
-    return x if _GROUP is None else all_gather(x, _GROUP, dim=0)
+def gather_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The active reduction group's ranks' x (each of x's shape) joined
+    along dim 0, without a gradient; x itself without a group."""
+    g = _group()
+    return x if g is None else all_gather(x, g, dim=0)
 
 
 def _groups(axes) -> tuple:

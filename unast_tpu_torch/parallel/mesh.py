@@ -44,20 +44,28 @@ and the steps keep GSPMD's semantics by hand (parallel/collectives.py):
     decoders' right shift act on whole sequences) and the model splits
     them at its prenets: the encoders and teacher-forced decoders run on
     the rank's T/sp frames, attention gathers K and V, the convs exchange
-    halos and BatchNorm takes its statistics over dp x sp; their outputs
-    are gathered whole (models/networks.py, parallel/collectives.py), so
-    the greedy decodes, the losses and the discriminator run on whole
+    halos, BatchNorm takes its statistics over dp x sp and the MoE layers
+    group the global batch's tokens (models/moe.py); their outputs are
+    gathered whole (models/networks.py, parallel/collectives.py), so the
+    greedy decodes, the losses and the discriminator run on whole
     sequences, the same on every sp rank, and each rank differentiates
     1/sp of them (train/steps.py). The gradients are summed over dp x sp.
-    Params and optimizer state stay replicated over sp, as in JAX.
+    A checkpointed layer (remat) recomputes inside the region it ran in
+    (models/transformer.py::_ckpt). The RNN backbone opens no region: its
+    recurrences run on whole sequences, replicated over sp, as GSPMD runs
+    a lax.scan over a time-sharded axis (models/networks.py). Params and
+    optimizer state stay replicated over sp, as in JAX.
   - pp: GPipe stages of the transformer stacks (parallel/pipeline.py):
     each pp rank runs L/pp layers of every pipelined stack; everything
     else runs replicated on every pp rank, and the pipeline's backward
-    leaves every gradient whole on each, so they are summed over dp alone.
-    Params and optimizer state stay replicated over pp, as JAX's
-    train_state_shardings keeps them at rest. A pp axis combines with dp
-    only (ValueError otherwise: check_mesh).
+    leaves every gradient whole on each (a tp rank's: its slices), so
+    they are summed over dp (x sp) alone. Inside a stage the layers run
+    their tp all-reduces and sp gathers among the ranks of the stage's pp
+    coordinate; an MoE stack runs unstaged, its experts over ep, as in
+    JAX. Params and optimizer state stay replicated over pp, as JAX's
+    train_state_shardings keeps them at rest.
 
+The axes combine as in JAX: check_mesh refuses only what JAX refuses.
 The tp, ep, sp and pp ranks of one dp group hold the same rows and the
 same dropout stream (the loop seeds it from the dp coordinate), so every
 replicated activation is the same on each of them; a split activation's
@@ -372,7 +380,9 @@ class MeshPlan:
         self.rank = dp_rank(mesh) if self.size > 1 else 0
         self.tp, self.ep = mesh_axis(mesh, "tp"), mesh_axis(mesh, "ep")
         self.sp, self.pp = mesh_axis(mesh, "sp"), mesh_axis(mesh, "pp")
-        # the gradients' group: dp x sp (an sp rank's share is its frames)
+        # the gradients' group: dp x sp (an sp rank's share is its frames;
+        # a pp rank's gradients are whole after the pipeline's backward,
+        # a tp or ep rank's its slices, summed with the same slices)
         self.grad_group = (joint_group(mesh, ("dp", "sp")) if self.sp
                            else self.group)
         self.dims = train_state_shardings(mesh, ts, zero)
@@ -588,31 +598,19 @@ def state_bytes(tree) -> int:
 
 
 def check_mesh(cfg, tp: int = 1, ep: int = 1, sp: int = 1, pp: int = 1):
-    """Refuse a model or a mesh the axes cannot split (ValueError): tp must
-    divide nhead and ffn_dim, ep the experts (moe_experts); sp splits the
-    transformer backbone's time axis, without MoE layers (whose capacity
-    is counted over a group's tokens) and without remat; a pp axis must
-    equal cfg.pp, divide num_layers and combine with dp alone."""
+    """Refuse a model or a mesh the axes cannot split (ValueError), as JAX
+    refuses them: tp must divide nhead and ffn_dim, ep the experts
+    (moe_experts), and a pp axis must equal cfg.pp and divide num_layers.
+    Every other combination of the axes runs (the module docstring)."""
     if tp > 1 and cfg.model_type == "transformer" and (
             cfg.nhead % tp or cfg.ffn_dim % tp):
         raise ValueError(f"--tp {tp} must divide nhead {cfg.nhead} and "
                          f"ffn_dim {cfg.ffn_dim}")
     if ep > 1 and cfg.moe_experts % ep:
         raise ValueError(f"--ep {ep} must divide moe_experts {cfg.moe_experts}")
-    if sp > 1:
-        refused = [k for k, bad in (
-            (f"model_type {cfg.model_type}", cfg.model_type != "transformer"),
-            ("moe_experts", cfg.moe_experts > 0), ("remat", cfg.remat),
-            ("a pp axis", pp > 1)) if bad]
-        if refused:
-            raise ValueError(f"--sp {sp} splits the transformer's time axis; "
-                             f"not with {', '.join(refused)}")
-    if pp > 1:
-        if cfg.pp != pp or cfg.num_layers % pp:
-            raise ValueError(f"a pp axis of {pp} needs cfg.pp == {pp} (got "
-                             f"{cfg.pp}) dividing num_layers {cfg.num_layers}")
-        if tp > 1 or ep > 1:
-            raise ValueError("a pp axis combines with dp only")
+    if pp > 1 and (cfg.pp != pp or cfg.num_layers % pp):
+        raise ValueError(f"a pp axis of {pp} needs cfg.pp == {pp} (got "
+                         f"{cfg.pp}) dividing num_layers {cfg.num_layers}")
 
 
 def shard_train_step(train_step, mesh, ts, example_batches=None, zero: int = 0):
@@ -627,7 +625,9 @@ def shard_train_step(train_step, mesh, ts, example_batches=None, zero: int = 0):
     (torch traces nothing ahead) and is accepted for the JAX signature.
     zero in {0, 1, 3}. An sp or pp axis: see the module docstring; the pp
     axis reaches the stacks through the step's collectives context, where
-    JAX's shard_train_step installs it with set_pp_mesh."""
+    JAX's shard_train_step installs it with set_pp_mesh. Every
+    combination of the axes that check_mesh takes runs: sp with remat,
+    MoE or the RNN backbone, a pp axis with tp, ep or sp."""
     from ..train.steps import make_train_step
     cfg, args = train_step.config
     check_mesh(cfg, *(axis_size(mesh, n) for n in ("tp", "ep", "sp", "pp")))

@@ -29,6 +29,20 @@ replicated part of the step's are, and the sharded step sums them over
 dp alone. Every rank posts its sends, receives and collectives in the
 same order, micro-batch by micro-batch, so gloo cannot deadlock.
 
+The stages combine with the other axes, as JAX's _pp_stage_constraint
+leaves the trailing dims to GSPMD: the pp axis's group holds the ranks of
+one coordinate on every other axis, so a stage's hops and its all-reduce
+join the ranks of one tp (and sp) coordinate, while the layers' tp
+all-reduces and sp gathers run among the ranks of the stage's pp
+coordinate, in the same order on each. Under tp each rank's layer
+gradients are its tp slices, and the all-reduce over pp sums the slices of
+one tp coordinate. Under sp the micro-batches hop as the rank's frames,
+inside the time-split region the stack was called in, and the micro
+arguments (the padding bias, the decoder's memory and masks) are the
+whole sequences' that the unpipelined stack reads. An MoE stack does not
+pipeline (models/transformer.py): under pp x ep it runs unstaged, its
+experts over ep.
+
 Without a pp axis (the loop's --pp, as JAX's loop: its mesh has no 'pp')
 gpipe_stack runs the same schedule in one process.
 """

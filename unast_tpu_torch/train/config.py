@@ -171,7 +171,8 @@ def build_parser() -> argparse.ArgumentParser:
              "heads and FFNs over 'tp' (must divide nhead and ffn_dim)")
     add("--sp", type=int, default=1,
         help="sequence-parallel mesh size: the transformer's time axis "
-             "split over 'sp' inside the train step (no MoE, no remat)")
+             "split over 'sp' inside the train step (with MoE, remat and "
+             "--pp too; the RNN backbone runs replicated over 'sp')")
     add("--ep", type=int, default=1,
         help="expert-parallel mesh size (MoE expert axis sharded over "
              "'ep'; must divide moe_experts)")
@@ -334,12 +335,12 @@ def apply_runtime_flags(args):
     hardware RNG and means nothing here. The mesh runs one process per
     device under torchrun (parallel/multihost.py): --dp x --tp x --ep x
     --sp must equal the launch's world size (WORLD_SIZE); --tp must divide
-    nhead and ffn_dim, --ep moe_experts, and --sp takes the transformer
-    without MoE or remat (ValueError, parallel/mesh.py::check_mesh); --zero
+    nhead and ffn_dim and --ep moe_experts (ValueError, parallel/mesh.py::
+    check_mesh); --sp takes every model (MoE, remat, the RNN backbone); --zero
     1 or 3 shards the optimizer state (and the params) over the dp ranks
     (0 and dp 1 leave it whole, as in JAX). --pp is a model option: the
     loop's mesh has no pp axis, so each process runs the GPipe schedule
-    itself, as JAX's loop does. A JAX launcher's JAX_COORDINATOR_ADDRESS
+    itself, as JAX's loop does, beside --sp, --tp and --ep. A JAX launcher's JAX_COORDINATOR_ADDRESS
     raises ValueError."""
     sp = getattr(args, "sp", 1) or 1
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):

@@ -16,7 +16,14 @@ Runs on the card unless --device names another device. The mesh:
 runs one rank per device (cuda:LOCAL_RANK under NCCL; gloo with --device
 cpu) through parallel/mesh.py's sharded step, laid out over (dp, tp[, ep]
 [, sp]) as the JAX loop's mesh (which has no pp axis: --pp runs the GPipe
-schedule in each process). The ranks of one dp coordinate read the same
+schedule in each process, beside any of the other axes; --sp takes MoE,
+remat and the RNN backbone too). The long-sequence config at sp = 2 on
+one node of two cards:
+
+    torchrun --nproc_per_node 2 -m unast_tpu_torch.train.loop \
+        --config configs/wide_d1024.json --sp 2
+
+The ranks of one dp coordinate read the same
 strided shard of the corpus (1/D of it) with train_batch_size / D rows a
 micro-batch; each keeps its tp / ep slices of the state, and an sp rank
 runs the model on its 1/S of every sequence's frames. Only rank 0 writes
