@@ -1,0 +1,8 @@
+"""flash_fwd_roofline.train, %: the flash forward kernels' share of their
+roofline over the traced tail (benchmark/harness/readers.py)."""
+
+from benchmark.harness.readers import flash_roofline
+
+
+def read(rec):
+    return flash_roofline(rec, "fwd")
